@@ -1,0 +1,63 @@
+"""SimCSE view corruption on the device, driven by a ``torch.Generator``.
+
+Counterpart of ``corrupt_view`` / ``two_views`` in
+``recsys_tpu/ops/augment.py``. Item tensors carry per-token value ids, so
+the reference's dict corruption is pure masking:
+
+  * drop individual RE values with prob ``p``          (value-level dropout)
+  * drop whole RE fields with prob ``max(p - 0.1, 0)`` (key-level dropout)
+  * delete one random word of the product name with prob 0.5, never
+    emptying a name of one token
+
+Only the masks change. The random bits differ from ``jax.random``'s; the
+contract and the rates are the same. ``random_cut`` (stage 2) is not ported
+yet.
+"""
+
+from __future__ import annotations
+
+import torch
+
+MAX_VALUES = 16  # upper bound on distinct values per RE field
+
+
+def _bernoulli(p: float, shape, generator, device) -> torch.Tensor:
+    return torch.rand(shape, generator=generator, device=device) < p
+
+
+def corrupt_view(batch: dict, generator: torch.Generator | None,
+                 dropout_prob: float) -> dict:
+    """Return a corrupted copy of the item batch (only masks change)."""
+    re_mask, re_value = batch["re_mask"], batch["re_value"]   # (B, F, T)
+    B, F, _ = re_mask.shape
+    dev = re_mask.device
+
+    # value-level dropout: one coin per (item, field, value)
+    value_drop = _bernoulli(dropout_prob, (B, F, MAX_VALUES), generator, dev)
+    token_dropped = torch.gather(value_drop, 2,
+                                 (re_value.long() - 1).clamp(0, MAX_VALUES - 1))
+    # key-level dropout: one coin per (item, field)
+    key_drop = _bernoulli(max(dropout_prob - 0.1, 0.0), (B, F), generator, dev)
+    keep = ~token_dropped & ~key_drop[..., None]
+    new_re_mask = re_mask * keep.to(re_mask.dtype)
+
+    # name-word deletion: with prob 0.5 zero one uniformly chosen real token
+    txt_mask = batch["txt_mask"]                              # (B, Tn)
+    gate = _bernoulli(0.5, (B,), generator, dev)
+    scores = torch.rand(txt_mask.shape, generator=generator, device=dev)
+    victim = torch.where(txt_mask > 0, scores, torch.full_like(scores, -1.0)).argmax(-1)
+    one_hot = torch.nn.functional.one_hot(victim, txt_mask.shape[1]).to(txt_mask.dtype)
+    # a name of one token keeps it (an empty name would zero the mean pool)
+    delete = gate & (txt_mask.sum(-1) > 1)
+    new_txt_mask = torch.where(delete[:, None], txt_mask * (1 - one_hot), txt_mask)
+
+    out = dict(batch)
+    out["re_mask"] = new_re_mask
+    out["txt_mask"] = new_txt_mask
+    return out
+
+
+def two_views(batch: dict, generator: torch.Generator | None,
+              dropout_prob: float) -> tuple[dict, dict]:
+    return (corrupt_view(batch, generator, dropout_prob),
+            corrupt_view(batch, generator, dropout_prob))

@@ -1,0 +1,317 @@
+"""Serving application context: the vectorization flows over the store and
+the ANN index.
+
+Counterpart of ``recsys_tpu/serve/app.py`` (which imports JAX through its
+checkpoint module). The store (``serve/store.py``), the native indexes
+(``serve/ann.py``) and the dynamic batcher are the JAX package's own,
+framework-free modules. ``model_vectorizer`` runs the torch item encoder
+under ``torch.inference_mode`` on the configured device.
+
+Not ported yet: the ``ivf`` and ``int8`` device indexes, the trained
+user-tower vectorizers and the blend/rerank recipes (``rec_assets`` stays
+None, so those modes take the flagged fall-back to cosine).
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import threading
+from dataclasses import dataclass, field
+from typing import Callable
+
+import numpy as np
+import torch
+
+from recsys_tpu.config import Config
+from recsys_tpu.serve.ann import HnswIndex, VectorIndex
+from recsys_tpu.serve.store import ServeStore, TrainingItem
+from recsys_tpu_torch.train.checkpoint import save_array_with_ids
+
+
+def pid_to_int(pid: str) -> int:
+    """Stable 63-bit id for the native index (store keys are strings)."""
+    return int(hashlib.md5(pid.encode()).hexdigest()[:15], 16)
+
+
+def hash_vectorizer(dim: int = 128) -> Callable[[list[TrainingItem]], np.ndarray]:
+    """Deterministic non-learned embedding: feature tokens hashed into a
+    bag-of-features vector, L2-normalized (test and cold-start backend)."""
+
+    def fn(items: list[TrainingItem]) -> np.ndarray:
+        out = np.zeros((len(items), dim), np.float32)
+        for r, it in enumerate(items):
+            tokens = [it.product_name or ""]
+
+            def walk(v, prefix=""):
+                if isinstance(v, dict):
+                    for k, vv in sorted(v.items()):
+                        walk(vv, f"{prefix}{k}.")
+                elif isinstance(v, (list, tuple)):
+                    for vv in v:
+                        walk(vv, prefix)
+                elif v is not None:
+                    tokens.append(f"{prefix}{v}")
+
+            walk(it.feature_data)
+            for t in tokens:
+                h = int(hashlib.md5(t.encode()).hexdigest()[:8], 16)
+                out[r, h % dim] += 1.0 if (h >> 16) % 2 else -1.0
+            n = np.linalg.norm(out[r])
+            if n > 0:
+                out[r] /= n
+        return out
+
+    return fn
+
+
+def items_to_frame(items: list[TrainingItem]):
+    """Store records -> the item-master frame ``tokenize_items`` takes."""
+    import pandas as pd
+
+    rows = []
+    for it in items:
+        row = {"item_id": it.product_id, "product_name": it.product_name}
+        fd = dict(it.feature_data)
+        row["reinforced_feature"] = fd.pop("reinforced_feature",
+                                           fd.pop("reinforced_feature_value", {}))
+        row.update({k: v for k, v in fd.items() if np.isscalar(v) or v is None})
+        rows.append(row)
+    return pd.DataFrame(rows)
+
+
+def model_vectorizer(cfg: Config, model, device: torch.device | str
+                     ) -> Callable[[list[TrainingItem]], np.ndarray]:
+    """The encoder-backed vectorizer: store rows -> item tensors -> the
+    torch item encoder on ``device``. PyTorch runs eagerly, so ragged
+    request sizes need no shape buckets."""
+    from recsys_tpu.data.dataset import tokenize_items
+    from recsys_tpu.data.vocab import StdVocab
+    from recsys_tpu_torch.train.simcse import MODEL_INPUTS
+
+    vocab = StdVocab()
+    model = model.to(device).eval()
+
+    def fn(items: list[TrainingItem]) -> np.ndarray:
+        tensors = tokenize_items(items_to_frame(items), vocab, cfg.vocab)
+        with torch.inference_mode():
+            out = model.encode(*(torch.as_tensor(tensors[k], device=device)
+                                 for k in MODEL_INPUTS)).cpu().numpy()
+        # tokenize_items sorts by id; restore the caller's order
+        order = {pid: i for i, pid in enumerate(tensors["item_ids"])}
+        return out[[order[it.product_id] for it in items]]
+
+    return fn
+
+
+def history_user_vectorizer(ctx: "AppContext", half_life_s: float = 7 * 86400.0):
+    """Default user-vector backend: action-weighted, recency-decayed mean of
+    the user's interacted item vectors, L2-normalized. Decay is relative to
+    the user's latest event."""
+
+    def fn(profiles: list[dict]) -> np.ndarray:
+        dim = ctx.cfg.item_tower.dim
+        ids = [p["user_id"] for p in profiles]
+        hists = ctx.store.user_histories(ids)
+        out = np.zeros((len(profiles), dim), np.float32)
+        for r, uid in enumerate(ids):
+            acc = np.zeros(dim, np.float32)
+            events = hists.get(uid, [])
+            t_last = max((e["ts"] for e in events), default=0.0)
+            for e in events:
+                ivec = ctx.store.get_vector(str(e["product_id"]))
+                if ivec is None or ivec.shape[0] != dim:
+                    continue
+                w = float(e["action_type"]) * 0.5 ** ((t_last - e["ts"]) / half_life_s)
+                acc += w * ivec
+            n = np.linalg.norm(acc)
+            out[r] = acc / n if n > 0 else acc
+        return out
+
+    return fn
+
+
+@dataclass
+class AppContext:
+    cfg: Config
+    store: ServeStore
+    index: VectorIndex
+    vectorize_fn: Callable[[list[TrainingItem]], np.ndarray]
+    user_vectorize_fn: Callable[[list[dict]], np.ndarray] | None = None
+    train_item_fn: Callable[..., dict] | None = None
+    train_user_fn: Callable[..., dict] | None = None
+    rec_assets: object | None = None
+    int_to_pid: dict[int, str] = field(default_factory=dict)
+    _bg_threads: list = field(default_factory=list)
+
+    @property
+    def batch_size(self) -> int:
+        return self.cfg.serve.batch_size
+
+    def _index_add(self, ids: list[str], vecs: np.ndarray) -> None:
+        ints = [pid_to_int(p) for p in ids]
+        self.int_to_pid.update(dict(zip(ints, ids)))
+        self.index.add(ints, vecs)
+
+    # -- flows ------------------------------------------------------------
+    def _vectorize_and_save(self, items: list[TrainingItem], table: str) -> list[str]:
+        vecs = self.vectorize_fn(items)
+        ids = [it.product_id for it in items]
+        self.store.save_vectors(ids, vecs, table)
+        self._index_add(ids, vecs)
+        return ids
+
+    def process_pending(self, batch_size: int | None = None,
+                        table: str = "inference") -> dict:
+        items = self.store.pending_products(batch_size or self.batch_size, table)
+        if not items:
+            return {"processed_count": 0, "remaining": 0}
+        ids = self._vectorize_and_save(items, table)
+        return {"processed_count": len(ids),
+                "remaining": self.store.pending_count(table)}
+
+    def process_by_ids(self, product_ids: list[str], table: str = "inference") -> dict:
+        items = self.store.products_by_ids(product_ids, table)
+        if not items:
+            return {"processed_count": 0, "missing": product_ids}
+        found = set(self._vectorize_and_save(items, table))
+        return {"processed_count": len(found),
+                "missing": [p for p in product_ids if p not in found]}
+
+    def refresh_item_vectors(self, artifact_path: str | None = None,
+                             table: str = "inference") -> dict:
+        items = self.store.all_products(table)
+        if not items:
+            return {"count": 0}
+        all_ids, chunks = [], []
+        bs = self.batch_size * self.cfg.serve.fast_mode_multiplier
+        for s in range(0, len(items), bs):
+            chunk = items[s:s + bs]
+            chunks.append(self.vectorize_fn(chunk))
+            all_ids.extend(it.product_id for it in chunk)
+        vecs = np.concatenate(chunks)
+        self.store.save_vectors(all_ids, vecs, table)
+        self._index_add(all_ids, vecs)
+        if artifact_path:
+            os.makedirs(os.path.dirname(artifact_path) or ".", exist_ok=True)
+            full = np.concatenate([np.zeros((1, vecs.shape[1]), np.float32), vecs])
+            save_array_with_ids(artifact_path, full, all_ids,
+                                meta={"source": "refresh_item_vectors"})
+        return {"count": len(all_ids)}
+
+    # -- user-vector flows ------------------------------------------------
+    def _user_vectorize(self, profiles: list[dict]) -> np.ndarray:
+        fn = self.user_vectorize_fn or history_user_vectorizer(self)
+        return fn(profiles)
+
+    def process_pending_users(self, batch_size: int | None = None) -> dict:
+        profiles = self.store.pending_users(batch_size or self.batch_size)
+        if not profiles:
+            return {"processed_count": 0, "remaining": 0}
+        vecs = self._user_vectorize(profiles)
+        ids = [p["user_id"] for p in profiles]
+        self.store.save_user_vectors(ids, vecs)
+        return {"processed_count": len(ids),
+                "remaining": self.store.user_pending_count()}
+
+    def refresh_user_vectors(self) -> dict:
+        profiles = self.store.all_user_profiles()
+        if not profiles:
+            return {"count": 0}
+        vecs = self._user_vectorize(profiles)
+        self.store.save_user_vectors([p["user_id"] for p in profiles], vecs)
+        return {"count": len(profiles)}
+
+    def recommend_for_user(self, user_id: str, top_k: int | None = None,
+                           exclude_seen: bool = True, season: str | None = None,
+                           mode: str | None = None) -> dict:
+        """Cosine top-k for a user vector, optionally season-aware. The
+        blend/rerank recipes are not ported, so those modes answer in cosine
+        mode, flagged in the response as the JAX server does without assets."""
+        mode = mode or self.cfg.serve.mode
+        fallback = ({"requested_mode": mode, "mode": "cosine",
+                     "fallback": "no serving assets loaded"}
+                    if mode in ("blend", "rerank") else {})
+        vec = self.store.get_user_vector(user_id)
+        if vec is None:
+            return {"error": f"no vector for user {user_id}", "results": []}
+        if season == "auto":
+            season = self.store.latest_session_season(user_id)
+        seen = set()
+        if exclude_seen:
+            hist = self.store.user_histories([user_id]).get(user_id, [])
+            seen = {str(e["product_id"]) for e in hist}
+        want = top_k or self.cfg.serve.similarity_top_k
+        k = want + len(seen) + (want if season else 0)  # season re-rank margin
+        ids, scores = self.index.topk(vec[None], k)
+        results = []
+        for i, s in zip(ids[0].tolist(), scores[0].tolist()):
+            pid = self.int_to_pid.get(i)
+            if pid is None or pid in seen:
+                continue
+            results.append({"product_id": pid, "score": round(float(s), 6)})
+        if season:
+            item_sea = self.store.item_seasons([r["product_id"] for r in results])
+            bonus = self.cfg.serve.season_bonus
+            for r in results:
+                if item_sea.get(r["product_id"]) == season:
+                    r["score"] = round(r["score"] + bonus, 6)
+                    r["in_season"] = True
+            results.sort(key=lambda r: -r["score"])
+        out = {"user_id": user_id, "results": results[:want]}
+        if season:
+            out["season"] = season
+        out.update(fallback)
+        return out
+
+    def similar_items(self, item_id: str, top_k: int | None = None) -> dict:
+        vec = self.store.get_vector(item_id)
+        if vec is None:
+            return {"error": f"no vector for {item_id}", "results": []}
+        k = (top_k or self.cfg.serve.similarity_top_k) + 1
+        ids, scores = self.index.topk(vec[None], k)
+        results = []
+        for i, s in zip(ids[0].tolist(), scores[0].tolist()):
+            pid = self.int_to_pid.get(i)
+            if pid is None or pid == item_id:
+                continue
+            results.append({"product_id": pid, "score": round(float(s), 6)})
+        return {"query": item_id, "results": results[: k - 1]}
+
+    def start_background(self, fn, *args) -> str:
+        t = threading.Thread(target=fn, args=args, daemon=True)
+        t.start()
+        self._bg_threads.append(t)
+        return f"bg-{len(self._bg_threads)}"
+
+
+def build_app_context(cfg: Config, vectorizer: Callable | None = None) -> AppContext:
+    db = cfg.serve.db_path
+    if db != ":memory:":
+        os.makedirs(os.path.dirname(db) or ".", exist_ok=True)
+    store = ServeStore(db)
+    backend = cfg.serve.ann_backend
+    if backend == "hnsw":
+        index = HnswIndex(cfg.item_tower.dim, m=cfg.serve.hnsw_m,
+                          ef_construction=cfg.serve.hnsw_ef_construction,
+                          ef_search=cfg.serve.hnsw_ef_search)
+    elif backend == "exact":
+        index = VectorIndex(cfg.item_tower.dim, cosine=True)
+    elif backend in ("ivf", "int8"):
+        raise NotImplementedError(
+            f"serve.ann_backend={backend!r} is a device index the port does "
+            "not have yet (ROADMAP Queue 1, item 6: ops/ivf.py, ops/quant.py)")
+    else:
+        raise ValueError(f"unknown serve.ann_backend {backend!r}")
+    vec_fn = vectorizer or hash_vectorizer(cfg.item_tower.dim)
+    if cfg.serve.batch_window_ms > 0:
+        from recsys_tpu.serve.batcher import DynamicBatcher
+
+        vec_fn = DynamicBatcher(vec_fn, max_batch=cfg.serve.max_dynamic_batch,
+                                max_wait_ms=cfg.serve.batch_window_ms)
+    ctx = AppContext(cfg, store, index, vec_fn)
+    # warm the index from any vectors already in the store
+    ids, vecs = store.all_vectors()
+    if len(ids):
+        ctx._index_add(ids, vecs)
+    return ctx

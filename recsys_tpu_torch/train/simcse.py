@@ -1,0 +1,192 @@
+"""Stage-1 SimCSE training of the item tower + item-vector materialization.
+
+Counterpart of ``recsys_tpu/train/simcse.py``. One step: two corrupted views
+(on the device, ``ops/augment.py``), both tower forwards with dropout, the
+bidirectional InfoNCE at tau = 0.08 through ``select_infonce`` (on CUDA the
+hand-written kernel K1, forward and backward), AdamW with the text encoder
+at its own learning rate, linear warmup/decay. Alignment/uniformity every
+``metrics_every`` steps; per-epoch checkpoints, best by loss.
+
+``materialize_item_vectors`` writes the (N+1, D) matrix (row 0 = PAD) with
+its id sidecar, in the JAX package's format.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+
+import numpy as np
+import torch
+
+from recsys_tpu.config import Config
+from recsys_tpu.data.dataset import batch_iterator
+from recsys_tpu.data.vocab import StdVocab
+from recsys_tpu_torch.models.item_tower import SimCSEModel
+from recsys_tpu_torch.ops import select_infonce
+from recsys_tpu_torch.ops.augment import two_views
+from recsys_tpu_torch.train.checkpoint import CheckpointStore, save_array_with_ids
+from recsys_tpu_torch.train.metrics import MetricWriter, alignment, uniformity
+from recsys_tpu_torch.train.state import TrainState, grouped_adamw, warmup_linear_factor
+
+ITEM_KEYS = ("std", "re_ids", "re_mask", "re_value", "txt_ids", "txt_mask")
+MODEL_INPUTS = ("std", "re_ids", "re_mask", "txt_ids", "txt_mask")
+
+
+def build_model(cfg: Config, std_vocab_size: int, num_std_fields: int,
+                device: torch.device | str = "cpu", seed: int | None = None
+                ) -> SimCSEModel:
+    """A fresh model; ``seed`` makes its random init reproducible."""
+    with torch.random.fork_rng(devices=[]):
+        if seed is not None:
+            torch.manual_seed(seed)
+        model = SimCSEModel(std_vocab_size, num_std_fields, cfg.item_tower, cfg.vocab)
+    return model.to(device)
+
+
+def item_tensors_to(tensors: dict, device: torch.device | str) -> dict:
+    """The tokenized catalog's arrays as tensors on ``device``."""
+    return {k: torch.as_tensor(tensors[k], device=device) for k in ITEM_KEYS
+            if k in tensors}
+
+
+def make_optimizer(cfg: Config, model: SimCSEModel, total_steps: int):
+    sc = cfg.simcse
+    opt = grouped_adamw(
+        model, lambda name: "text" if "text_encoder" in name else "rest",
+        {"text": sc.text_encoder_lr, "rest": sc.lr}, sc.weight_decay)
+    sched = torch.optim.lr_scheduler.LambdaLR(
+        opt, warmup_linear_factor(total_steps, sc.warmup_frac))
+    return opt, sched
+
+
+def loss_on_views(model: SimCSEModel, cfg: Config, v1: dict, v2: dict,
+                  generator: torch.Generator | None = None):
+    """Both forwards and the InfoNCE; returns (loss, emb1, emb2)."""
+    infonce = select_infonce(cfg.simcse.kernel)
+    emb1 = model(*(v1[k] for k in MODEL_INPUTS), generator=generator)
+    emb2 = model(*(v2[k] for k in MODEL_INPUTS), generator=generator)
+    return infonce(emb1, emb2, cfg.simcse.temperature), emb1, emb2
+
+
+def make_train_step(state: TrainState, cfg: Config):
+    def step(batch: dict, generator: torch.Generator):
+        state.model.train()
+        v1, v2 = two_views(batch, generator, cfg.simcse.feature_dropout)
+        loss, e1, e2 = loss_on_views(state.model, cfg, v1, v2, generator)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        state.optimizer.step()
+        state.scheduler.step()
+        state.step += 1
+        return loss.detach(), e1.detach(), e2.detach()
+
+    return step
+
+
+def train_simcse(cfg: Config, tensors: dict, workdir: str,
+                 device: torch.device | str = "cuda",
+                 writer: MetricWriter | None = None,
+                 init_ckpt: str | None = None) -> TrainState:
+    """Full stage-1 training over pre-tokenized item tensors."""
+    sc = cfg.simcse
+    device = torch.device(device)
+    n = tensors["std"].shape[0]
+    steps_per_epoch = max(n // sc.batch_size, 1)
+    # small catalogs re-pass (fresh shuffles + fresh views) until an epoch
+    # has reference-scale step counts
+    passes = max(1, -(-sc.steps_per_epoch_min // steps_per_epoch))
+    total_steps = steps_per_epoch * passes * sc.epochs
+
+    model = build_model(cfg, StdVocab().size, tensors["std"].shape[1], device,
+                        seed=cfg.data.seed)
+    store = CheckpointStore(workdir, maximize=False)
+    if init_ckpt:
+        model.load_state_dict(store.restore(init_ckpt, device)["model"])
+    opt, sched = make_optimizer(cfg, model, total_steps)
+    state = TrainState(model, opt, sched)
+    step_fn = make_train_step(state, cfg)
+    data = item_tensors_to(tensors, device)
+    gen = torch.Generator(device).manual_seed(cfg.data.seed)
+    rng = np.random.default_rng(cfg.data.seed)
+    t0, seen = time.time(), 0
+    with contextlib.ExitStack() as stack:
+        if writer is None:
+            writer = stack.enter_context(contextlib.closing(
+                MetricWriter(f"{workdir}/metrics.jsonl", "simcse")))
+        for epoch in range(1, sc.epochs + 1):
+            epoch_loss, nb = 0.0, 0
+            for _pass in range(passes):
+                for idx in batch_iterator(n, sc.batch_size, rng):
+                    t_step = time.perf_counter()
+                    ix = torch.as_tensor(idx, device=device)
+                    loss, e1, e2 = step_fn({k: v[ix] for k, v in data.items()}, gen)
+                    loss = float(loss)  # waits for the step to finish
+                    state.step_seconds.append(time.perf_counter() - t_step)
+                    state.losses.append(loss)
+                    epoch_loss += loss
+                    nb += 1
+                    seen += sc.batch_size
+                    if state.step % sc.metrics_every == 0:
+                        writer.write("train", state.step, loss=loss,
+                                     align=float(alignment(e1, e2)),
+                                     uniform=float(uniformity(e1)),
+                                     examples_per_s=seen / max(time.time() - t0, 1e-9))
+            mean_loss = epoch_loss / max(nb, 1)
+            writer.write("epoch", epoch, loss=mean_loss)
+            store.save(f"encoder_ep{epoch:02d}",
+                       {"model": model.state_dict(), "optimizer": opt.state_dict()},
+                       step=state.step, metric=mean_loss)
+    return state
+
+
+def restore_model(cfg: Config, ckpt_dir: str, num_std_fields: int,
+                  device: torch.device | str) -> tuple[SimCSEModel, dict | None]:
+    """The best checkpoint's model, or a seeded random init when there is
+    none (the JAX stages' fallback)."""
+    model = build_model(cfg, StdVocab().size, num_std_fields, device, seed=0)
+    try:
+        payload, entry = CheckpointStore(ckpt_dir, maximize=False).restore_best(device)
+    except FileNotFoundError:
+        return model.eval(), None
+    model.load_state_dict(payload["model"])
+    return model.eval(), entry
+
+
+# -- materialization + retrieval ------------------------------------------
+
+@torch.inference_mode()
+def encode_items(model: SimCSEModel, data: dict, batch_size: int) -> torch.Tensor:
+    """Deterministic encoder forward over device-resident item tensors."""
+    model.eval()
+    n = data["std"].shape[0]
+    outs = [model.encode(*(data[k][s:s + batch_size] for k in MODEL_INPUTS))
+            for s in range(0, n, batch_size)]
+    return torch.cat(outs)
+
+
+def materialize_item_vectors(cfg: Config, model: SimCSEModel, tensors: dict,
+                             out_path: str, batch_size: int | None = None,
+                             device: torch.device | str | None = None) -> np.ndarray:
+    """Encoder forward over the whole catalog -> (N+1, D) matrix (row 0 =
+    PAD) + id sidecar at ``out_path``."""
+    device = device or next(model.parameters()).device
+    bs = batch_size or cfg.serve.batch_size * cfg.serve.fast_mode_multiplier
+    mat = encode_items(model, item_tensors_to(tensors, device), bs).cpu().numpy()
+    full = np.concatenate([np.zeros((1, mat.shape[1]), mat.dtype), mat])
+    save_array_with_ids(out_path, full, tensors["item_ids"],
+                        meta={"dim": int(mat.shape[1]), "pad_row": 0})
+    return full
+
+
+def topk_items(item_matrix: np.ndarray, queries: np.ndarray, k: int = 50,
+               device: torch.device | str = "cpu"):
+    """Exact dot-product top-k against the catalog; rows are L2-normalized
+    so dot == cosine. Returns (scores, indices into the padded matrix); row
+    0 (PAD) is excluded."""
+    q = torch.as_tensor(queries, dtype=torch.float32, device=device)
+    m = torch.as_tensor(item_matrix, dtype=torch.float32, device=device)
+    scores = q @ m.T
+    scores[:, 0] = -torch.inf
+    vals, idx = torch.topk(scores, k, dim=1)
+    return vals.cpu().numpy(), idx.cpu().numpy()
