@@ -2,8 +2,9 @@
 
     python3 chip_smoke.py
 
-Builds kernel K1 (recsys_tpu_torch/csrc/diag_ce.cu, sm_90a) from the
-checkout, then:
+Builds kernels K1 (recsys_tpu_torch/csrc/diag_ce.cu) and K2
+(recsys_tpu_torch/csrc/spmm.cu) for sm_90a from the checkout, both at once,
+then:
 
   1. kernel vs plain: K1's forward and both backward kernels against their
      plain PyTorch forms on the card, at the SimCSE shape (B=192, D=128),
@@ -19,12 +20,32 @@ checkout, then:
      ingest -> process-pending -> similarity; served vectors must match the
      vectorize matrix.
 
-The last line is {"ok": true, "device": {...}}; any failure exits non-zero
+  4. kernel vs plain: K2 against its plain form, forward and gradient, on
+     the small test graph (700 users, 500 items; D = 64 and 32; 1e-5 abs)
+     and on a reference-scale graph made here from a seed (200,000 users,
+     47,000 items, 11.3M interactions -> 22.6M directed edges; D = 64).
+     There a hub row sums ~1e5 terms, which the kernel adds in edge order
+     and ``index_add_`` in the order its atomics land, so both are held
+     against the plain form in fp64: the kernel's error may be at most
+     REF_ERR_MULT times the plain fp32 form's (plus REF_ERR_FLOOR), and the
+     two fp32 forms may differ by at most REF_TOL. Two kernel calls must give
+     the same bits. CUDA-event times of kernel, plain form and
+     ``torch.sparse.mm`` on a CSR tensor, beside the byte bound.
+  5. GNN slice: etl -> train-gnn -> distill -> gnn-eval through the CLI on
+     the world of phase 2, default widths, two epochs; K2's counts are
+     zeroed before and read after.
+  6. the trainer at a real size: ``train_lightgcl`` on the graph of 4, batch
+     8192, ten steps; K2 must launch four times a step; then
+     ``final_embeddings`` through K2.
+
+One line holds every kernel with its launches, error, times and bound. The
+last line is {"ok": true, "device": {...}}; any failure exits non-zero
 without it. TF32 is off, so the plain fp32 oracle is full fp32.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import shutil
 import subprocess
@@ -50,16 +71,26 @@ try:
     import torch
 
     from recsys_tpu_torch.ops import contrastive_kernel as K
+    from recsys_tpu_torch.ops import spmm as S
     from recsys_tpu_torch.ops.contrastive import bidirectional_infonce, inbatch_logq_loss
 except ImportError as e:  # run outside the repository
     fail(f"cannot import the port ({e}); run from the repository root")
 
-KERNEL_SOURCE = "recsys_tpu_torch/csrc/diag_ce.cu"
+SOURCES = {"diag_ce": "recsys_tpu_torch/csrc/diag_ce.cu",
+           "spmm": "recsys_tpu_torch/csrc/spmm.cu"}
 REPLACES = {
     "diag_ce_fwd": "recsys_tpu/ops/pallas_contrastive.py:73",
     "diag_ce_bwd_dq": "recsys_tpu/ops/pallas_contrastive.py:97",
     "diag_ce_bwd_dk": "recsys_tpu/ops/pallas_contrastive.py:97",
+    "spmm_csr": "recsys_tpu/ops/pallas_spmm.py:237",
+    "spmm_hub_reduce": "recsys_tpu/ops/pallas_spmm.py:237",
 }
+# published peaks of one H100 SXM: device memory and fp32 outside the tensor cores
+PEAK_BYTES_PER_S, PEAK_FP32_FLOPS = 3.35e12, 67e12
+SPMM_TOL = 1e-5          # small graph, as tests/test_spmm.py
+REF_TOL = 5e-5           # reference scale: kernel vs plain, both fp32 (see docstring)
+REF_ERR_MULT, REF_ERR_FLOOR = 4.0, 1e-6
+REF_USERS, REF_ITEMS, REF_INTERACTIONS, REF_BATCH = 200_000, 47_000, 11_300_000, 8192
 LOSS_TOL, GRAD_TOL = 1e-4, 1e-5
 SERVE_TOL = 2e-2  # served vs materialized rows, as tests/test_serve.py
 MAIN_B, D = 192, 128
@@ -130,6 +161,25 @@ def interleaved_ms(kernel_fn, plain_fn, iters: int) -> tuple[float, float]:
     """plain, kernel, kernel, plain: the mean of each pair."""
     p1, k1, k2, p2 = (cuda_ms(f, iters) for f in (plain_fn, kernel_fn, kernel_fn, plain_fn))
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def bound(n_bytes: float, n_ops: float) -> dict:
+    """The least time the card could take: bytes over its memory rate or
+    operations over its fp32 rate, whichever is larger."""
+    by_bytes, by_ops = 1e3 * n_bytes / PEAK_BYTES_PER_S, 1e3 * n_ops / PEAK_FP32_FLOPS
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def diag_ce_bounds(B: int, dim: int) -> dict:
+    """Each K1 kernel reads q, k and the per-row vectors once. The forward
+    is one (B, B, D) product pass and writes loss and lse; each backward
+    half recomputes the logits and multiplies them out (two passes), reads
+    lse and g as well, and writes one (B, D) gradient."""
+    rows, vec, pass_ops = 4 * B * dim, 4 * B, 2.0 * B * B * dim
+    return {"diag_ce_fwd": bound(2 * rows + 4 * vec + 2 * vec, pass_ops),
+            "diag_ce_bwd_dq": bound(2 * rows + 6 * vec + rows, 2 * pass_ops),
+            "diag_ce_bwd_dk": bound(2 * rows + 6 * vec + rows, 2 * pass_ops)}
 
 
 def kernel_phase(device) -> tuple[list[dict], dict]:
@@ -308,6 +358,241 @@ def slice_phase(root: str, device: str = "cuda", extra_sets: tuple = ()) -> dict
             "launches": dict(K.LAUNCHES)}
 
 
+# -- phase 4: K2 against its plain form ---------------------------------------
+
+def normalized_edges(u, i, num_users: int, num_items: int):
+    """Interactions -> both edge directions with D^-1/2 A D^-1/2 weights."""
+    n = num_users + num_items
+    deg = np.bincount(u, minlength=n).astype(np.float64)
+    deg[num_users:] += np.bincount(i, minlength=num_items)
+    d_inv = 1.0 / np.sqrt(np.clip(deg, 1.0, None))
+    w = (d_inv[u] * d_inv[num_users + i]).astype(np.float32)
+    return (np.concatenate([u, num_users + i]).astype(np.int32),
+            np.concatenate([num_users + i, u]).astype(np.int32),
+            np.concatenate([w, w]))
+
+
+def reference_scale_graph(seed: int):
+    """The LightGCL reference anchor's graph: uniform users, item index
+    ~ U^2.5 (popularity skew), interactions not deduped, random rank-5
+    factors for the global view (its cost does not depend on their values).
+    Returns (BipartiteGraph, users, items) of the interactions."""
+    from recsys_tpu_torch.ops.graph import BipartiteGraph
+
+    rng = np.random.default_rng(seed)
+    u = rng.integers(0, REF_USERS, REF_INTERACTIONS).astype(np.int64)
+    i = (REF_ITEMS * rng.random(REF_INTERACTIONS) ** 2.5).astype(np.int64)
+    src, dst, weight = normalized_edges(u, i, REF_USERS, REF_ITEMS)
+    n, q = REF_USERS + REF_ITEMS, 5
+    graph = BipartiteGraph(REF_USERS, REF_ITEMS, src, dst, weight,
+                           rng.normal(0, 0.01, (n, q)).astype(np.float32),
+                           np.abs(rng.normal(1.0, 0.1, q)).astype(np.float32),
+                           rng.normal(0, 0.01, (n, q)).astype(np.float32))
+    return graph, u, i
+
+
+def spmm_value_and_grad(layout, x, g):
+    xk = x.clone().requires_grad_(True)
+    out = S.spmm(layout, xk)
+    (dx,) = torch.autograd.grad((out * g).sum(), xk)
+    return out.detach(), dx
+
+
+def max_err(a, b) -> float:
+    return float((a - b).abs().max())
+
+
+def spmm_phase(device, graph) -> dict:
+    rng = np.random.default_rng(0)
+    # (a) the small test graph
+    nu, ni = 700, 500
+    pairs = np.unique(np.stack([rng.integers(0, nu, 8000), rng.integers(0, ni, 8000)], 1),
+                      axis=0)
+    src, dst, w = normalized_edges(pairs[:, 0], pairs[:, 1], nu, ni)
+    small_err = 0.0
+    for dim, max_segment in ((64, S.MAX_SEGMENT), (32, S.MAX_SEGMENT), (64, 8)):
+        layout = S.csr_graph(src, dst, w, nu + ni, max_segment=max_segment, device=device)
+        x, g = (torch.as_tensor(rng.normal(size=(nu + ni, dim)).astype(np.float32),
+                                device=device) for _ in range(2))
+        out, dx = spmm_value_and_grad(layout, x, g)
+        err = max(max_err(out, S.spmm_plain(layout, x)), max_err(dx, S.spmm_plain(layout, g)))
+        check(err <= SPMM_TOL, f"K2 small graph D={dim} segment={max_segment}: err {err}")
+        small_err = max(small_err, err)
+
+    # (b) the reference-scale graph
+    t0 = time.perf_counter()
+    layout = S.csr_graph(graph.src, graph.dst, graph.weight, graph.num_nodes, device=device)
+    layout_s = time.perf_counter() - t0
+    n, dim = graph.num_nodes, 64
+    x, g = (torch.as_tensor(rng.normal(size=(n, dim)).astype(np.float32), device=device)
+            for _ in range(2))
+    S.reset_launch_counts()
+    out, dx = spmm_value_and_grad(layout, x, g)
+    torch.cuda.synchronize()
+    check(S.LAUNCHES == {"spmm_csr": 2, "spmm_hub_reduce": 2},
+          f"K2 forward + backward launches: {S.LAUNCHES}")
+    check(torch.equal(S.spmm_cuda(layout, x), out), "K2: two calls differ in their bits")
+    errs = {}
+    for name, got, inp in (("fwd", out, x), ("grad", dx, g)):
+        plain = S.spmm_plain(layout, inp)
+        exact = S.spmm_plain(layout, inp.double())
+        errs[name] = {"kernel_vs_plain": max_err(got, plain),
+                      "kernel_vs_fp64": max_err(got.double(), exact),
+                      "plain_vs_fp64": max_err(plain.double(), exact)}
+        del plain, exact
+        e = errs[name]
+        check(e["kernel_vs_plain"] <= REF_TOL, f"K2 reference scale {name}: {e}")
+        check(e["kernel_vs_fp64"] <= REF_ERR_MULT * e["plain_vs_fp64"] + REF_ERR_FLOOR,
+              f"K2 reference scale {name}: kernel further from fp64 than plain: {e}")
+
+    # each kernel alone against its plain form, with times
+    partial = torch.empty((layout.num_partials, dim), device=device)
+    scratch = torch.empty_like(x)
+    stream = torch.cuda.current_stream().cuda_stream
+    lib = S.load_library()
+
+    def segments_only():  # spmm_csr without the hub pass; direct library call, not counted
+        code = lib.spmm_csr(layout.seg_ptr.data_ptr(), layout.seg_out.data_ptr(),
+                            layout.col.data_ptr(), layout.val.data_ptr(), x.data_ptr(),
+                            scratch.data_ptr(), partial.data_ptr(), layout.num_segments,
+                            dim, stream)
+        check(code == 0, f"spmm_csr: cudaError_t {code}")
+
+    def hub_only():
+        code = lib.spmm_hub_reduce(layout.hub_row.data_ptr(), layout.hub_ptr.data_ptr(),
+                                   partial.data_ptr(), scratch.data_ptr(),
+                                   layout.num_hubs, dim, stream)
+        check(code == 0, f"spmm_hub_reduce: cudaError_t {code}")
+
+    def hub_plain():  # the same sum of partial rows in plain PyTorch
+        owner = torch.repeat_interleave(layout.hub_row.long(), layout.hub_ptr.diff().long())
+        return torch.zeros_like(x).index_add_(0, owner, partial)
+
+    hub_offsets = layout.hub_ptr.long()
+
+    def hub_library():  # one PyTorch call for the per-hub sums (rows not scattered)
+        return torch.segment_reduce(partial, "sum", offsets=hub_offsets, axis=0)
+
+    segments_only()
+    hub_rows = S.spmm_cuda(layout, x)[layout.hub_row.long()]
+    hub_err = max_err(hub_plain()[layout.hub_row.long()], hub_rows)
+    check(hub_err <= REF_TOL, f"spmm_hub_reduce vs plain: {hub_err}")
+    hub_lib_err = max_err(hub_library(), hub_rows)
+    check(hub_lib_err <= REF_TOL, f"spmm_hub_reduce vs segment_reduce: {hub_lib_err}")
+    a_csr = torch.sparse_csr_tensor(layout.rowptr, layout.col, layout.val, size=(n, n))
+    lib_err = max_err(torch.sparse.mm(a_csr, x), out)
+    csr_ms, plain_ms = interleaved_ms(segments_only, lambda: S.spmm_plain(layout, x), 20)
+    both_ms, library_ms = interleaved_ms(lambda: S.spmm_cuda(layout, x),
+                                         lambda: torch.sparse.mm(a_csr, x), 20)
+    hub_ms, hub_plain_ms = interleaved_ms(hub_only, hub_plain, 50)
+    _, hub_library_ms = interleaved_ms(hub_only, hub_library, 50)
+    E, P, H = layout.num_edges, layout.num_partials, layout.num_hubs
+    stats = {
+        "small_graph_err": small_err, "reference_scale": errs, "layout_seconds": layout_s,
+        "shape": {"nodes": n, "edges": E, "dim": dim, "segments": layout.num_segments,
+                  "hub_rows": H, "partials": P,
+                  "max_row": int(layout.rowptr.diff().max())},
+        "spmm_csr": {"max_abs_err": max(errs["fwd"]["kernel_vs_plain"],
+                                        errs["grad"]["kernel_vs_plain"], small_err),
+                     "ms": csr_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                     "with_hub_reduce_ms": both_ms, "library_vs_kernel_err": lib_err,
+                     # x, col, val, rowptr read once; out written once; one FMA per edge x feature
+                     **bound(4 * (2 * n * dim + 2 * E + n + 1), 2.0 * E * dim)},
+        "spmm_hub_reduce": {"max_abs_err": hub_err, "ms": hub_ms, "plain_ms": hub_plain_ms,
+                            # after spmm_csr, as the wrapper runs it: its partial rows
+                            # are then no longer all in cache
+                            "ms_after_spmm_csr": both_ms - csr_ms,
+                            "library_ms": hub_library_ms,
+                            "library_vs_kernel_err": hub_lib_err,
+                            **bound(4 * (P * dim + H * dim + 2 * H + 1), float(P * dim))},
+    }
+    return stats
+
+
+# -- phase 5: the GNN slice through the CLI -------------------------------
+
+def gnn_slice_phase(root: str) -> dict:
+    from recsys_tpu_torch.pipeline import cli
+
+    sets = ["--set", f"data.root={root}", "--set", "gnn.epochs=2"]  # --device: the default
+    S.reset_launch_counts()  # the GNN path's run starts here
+    etl = cli.main(["etl", *sets])
+    check(etl["sanity"]["target_users"] > 0, f"etl: {etl}")
+    train = cli.main(["train-gnn", *sets])
+    launches = dict(S.LAUNCHES)
+    # forward and backward of two layers a step; the export and the check propagate once each
+    expected = 4 * train["steps"] + 2 * 2
+    check(train["device"].startswith("cuda") and train["steps"] > 0
+          and launches == {"spmm_csr": expected, "spmm_hub_reduce": expected},
+          f"train-gnn on {train['device']}: {train['steps']} steps, K2 launches {launches}")
+    check(train["check"]["ok"], f"propagation check: {train['check']}")
+    losses = train["epoch_losses"]
+    check(len(losses) == 2 and all(np.isfinite(losses)), f"train-gnn losses: {losses}")
+    check(losses[1] < losses[0], f"train-gnn loss did not fall: {losses}")
+    distill = cli.main(["distill", *sets])
+    check(all(np.isfinite(distill["epoch_losses"])), f"distill: {distill['epoch_losses']}")
+    check(distill["epoch_losses"][-1] < distill["epoch_losses"][0],
+          f"distill loss did not fall: {distill['epoch_losses']}")
+    rows = cli.main(["gnn-eval", *sets])
+    with open(f"{root}/gnn_eval.json") as f:
+        check(json.load(f) == json.loads(json.dumps(rows)), "gnn_eval.json differs")
+    check(rows["n_eval_users"] > 0, f"gnn-eval: {rows}")
+    check(rows["gnn_dot"]["recall@100"] > 0, f"gnn_dot recall: {rows['gnn_dot']}")
+    return {"train": {k: train[k] for k in ("steps", "seconds", "step_ms_median",
+                                            "epoch_losses", "check")},
+            "distill": {"epoch_losses": [distill["epoch_losses"][0],
+                                         distill["epoch_losses"][-1]],
+                        "fidelity": distill["fidelity"]},
+            "gnn_eval": {k: rows[k] for k in ("n_eval_users", "gnn_dot", "gnn_cos",
+                                              "distill_cos", "fidelity") if k in rows},
+            "launches": launches}
+
+
+# -- phase 6: the trainer at a real size -----------------------------------
+
+def trainer_phase(root: str, graph, edges_u, edges_i) -> dict:
+    import statistics
+
+    from recsys_tpu_torch.config import load_config
+    from recsys_tpu_torch.train.gnn import (final_embeddings, select_propagation,
+                                            train_lightgcl)
+
+    steps = 10
+    cfg = load_config(None, {"gnn": {"epochs": 1, "steps_per_epoch_max": steps}})
+    check(cfg.gnn.batch_size == REF_BATCH and cfg.gnn.emb_dim == 64
+          and cfg.gnn.propagation == "auto", f"not the default GNN config: {cfg.gnn}")
+    S.reset_launch_counts()  # the trainer's run starts here
+    t0 = time.perf_counter()
+    # as the train-gnn stage does: one layout for the trainer and the export
+    propagation = select_propagation(cfg.gnn, graph, graph.num_nodes, "cuda")
+    check(isinstance(propagation[1], S.CsrGraph), "auto did not pick K2 on the card")
+    layout_s = time.perf_counter() - t0
+    state, model = train_lightgcl(cfg, graph, edges_u, edges_i, f"{root}/ckpt_gnn_ref",
+                                  "cuda", propagation=propagation)
+    seconds = time.perf_counter() - t0
+    launches = dict(S.LAUNCHES)
+    per_step = 2 * cfg.gnn.num_layers  # forward and backward of every layer
+    check(state.step == steps and launches == {"spmm_csr": per_step * steps,
+                                               "spmm_hub_reduce": per_step * steps},
+          f"trainer: {state.step} steps, launches {launches}")
+    check(len(state.losses) == 1 and np.isfinite(state.losses[0]),
+          f"trainer loss: {state.losses}")
+    t0 = time.perf_counter()
+    users, items = final_embeddings(model, graph, cfg.gnn.num_layers, "cuda",
+                                    layout=propagation[1])
+    export_s = time.perf_counter() - t0
+    check(S.LAUNCHES["spmm_csr"] == launches["spmm_csr"] + cfg.gnn.num_layers,
+          f"final_embeddings did not go through K2: {S.LAUNCHES}")
+    check(users.shape == (REF_USERS, 64) and items.shape == (REF_ITEMS, 64)
+          and bool(np.isfinite(users).all() and np.isfinite(items).all()),
+          "final embeddings: wrong shape or non-finite")
+    step_ms = [1e3 * t for t in state.step_seconds]
+    return {"steps": steps, "batch": cfg.gnn.batch_size, "epoch_loss": state.losses[0],
+            "seconds": seconds, "layout_seconds": layout_s, "step_ms_median": statistics.median(step_ms[1:]),
+            "first_step_ms": step_ms[0], "final_embeddings_s": export_s,
+            "launches": dict(S.LAUNCHES), "launches_per_step": per_step}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
@@ -318,29 +603,49 @@ def main() -> None:
                       "python": sys.version.split()[0], "allow_tf32": False}), flush=True)
     print(card_line(), flush=True)
     t0 = time.perf_counter()
-    K.load_library()
-    print(json.dumps({"build": KERNEL_SOURCE, "seconds": time.perf_counter() - t0,
-                      "nvcc_seconds": K.BUILD_INFO.get("seconds"),
-                      "cached": K.BUILD_INFO.get("cached"),
-                      "ptxas": [ln.strip() for ln in K.BUILD_INFO.get("ptxas", "").splitlines()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:  # one nvcc per source, together
+        for job in [pool.submit(K.load_library), pool.submit(S.load_library)]:
+            job.result()
+    print(json.dumps({"build": SOURCES, "seconds": time.perf_counter() - t0,
+                      "nvcc_seconds": {"diag_ce": K.BUILD_INFO.get("seconds"),
+                                       "spmm": S.BUILD_INFO.get("seconds")},
+                      "cached": [K.BUILD_INFO.get("cached"), S.BUILD_INFO.get("cached")],
+                      "ptxas": [ln.strip() for info in (K.BUILD_INFO, S.BUILD_INFO)
+                                for ln in info.get("ptxas", "").splitlines()
                                 if "registers" in ln or "spill" in ln]}), flush=True)
 
     _rows, kstats = kernel_phase(device)
     root = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         result = slice_phase(root)
+        print(json.dumps({"phase": "slice", **result}), flush=True)
+        graph, edges_u, edges_i = reference_scale_graph(seed=0)
+        sstats = spmm_phase(device, graph)
+        print(json.dumps({"phase": "spmm_kernel", **sstats}), flush=True)
+        gnn = gnn_slice_phase(root)
+        print(json.dumps({"phase": "gnn_slice", **gnn}), flush=True)
+        trainer = trainer_phase(root, graph, edges_u, edges_i)
+        print(json.dumps({"phase": "gnn_trainer", **trainer}), flush=True)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    print(json.dumps({"phase": "slice", **result}), flush=True)
 
-    kernels = [{"name": name, "route": "cuda", "source": KERNEL_SOURCE,
+    k1_bounds = diag_ce_bounds(MAIN_B, D)
+    kernels = [{"name": name, "route": "cuda", "source": SOURCES["diag_ce"],
                 "replaces": REPLACES[name], "launches": result["launches"][name],
                 "max_abs_err": kstats["errs"][name],
-                "ms": kstats["ms"][name][0], "plain_ms": kstats["ms"][name][1]}
+                "ms": kstats["ms"][name][0], "plain_ms": kstats["ms"][name][1],
+                **k1_bounds[name], "library_ms": None}
                for name in K.LAUNCHES]
+    # K2's launches are the trainer's at the real size; the CLI path's go beside them
+    kernels += [{"name": name, "route": "cuda", "source": SOURCES["spmm"],
+                 "replaces": REPLACES[name], "launches": trainer["launches"][name],
+                 "launches_cli_path": gnn["launches"][name],
+                 **{k: sstats[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                 "bound_by", "library_ms")}}
+                for name in S.LAUNCHES]
     check(all(k["launches"] > 0 for k in kernels), f"kernel not on the main path: {kernels}")
-    check(not any(m.split(".")[0] in ("jax", "flax", "optax") for m in sys.modules),
-          "the port pulled in JAX")
+    check(not any(m.split(".")[0] in ("jax", "flax", "optax", "recsys_tpu")
+                  for m in sys.modules), "the port pulled in JAX or the JAX package")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -8,7 +8,8 @@ path, with these leaf conversions:
   MHA out          kernel (H, hd, out)       -> weight (out, H*hd), bias
   Embed            embedding                 -> weight
   LayerNorm        scale, bias               -> weight, bias
-  raw params       (e.g. std_field_embedding, pos_embedding) as they are
+  raw params       (e.g. std_field_embedding, pos_embedding, LightGCL's
+                   user_emb / item_emb tables, logit_scale) as they are
 
 Inputs and outputs are nested dicts of numpy arrays, so neither direction
 needs Flax.

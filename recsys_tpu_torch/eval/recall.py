@@ -1,0 +1,144 @@
+"""Full-catalog retrieval evaluation: Recall@{20,100,500}.
+
+Counterpart of the dense, exact part of ``recsys_tpu/eval/recall.py``:
+normalize the item matrix once, score the whole catalog (``U @ I^T``), take
+top-max(K) on the device, then compute set-intersection recall on the host
+with users absent from the ground truth dropped from the denominator. The
+numpy helpers are the JAX package's code unchanged. Not ported yet: the
+row-sharded scoring over several devices; the approximate top-k is a TPU
+primitive and is refused.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def topk_scores(user_vecs: torch.Tensor, item_matrix: torch.Tensor, k: int,
+                normalize_items: bool = True, prior: torch.Tensor | None = None,
+                method: str = "exact"):
+    """(B, D) x (N+1, D) -> (vals, idx) (B, k); PAD row 0 excluded.
+
+    ``prior``: optional per-item additive score (N+1,) — e.g. a scaled
+    log-popularity blend — applied before top-k. Tied scores come back in no
+    promised order (``torch.topk``)."""
+    if method != "exact":
+        raise NotImplementedError(
+            f"topk_scores method {method!r}: only the exact top-k is ported")
+    items = item_matrix.float()
+    if normalize_items:
+        items = items / torch.linalg.norm(items, dim=-1, keepdim=True).clamp(min=1e-12)
+    scores = user_vecs.float() @ items.T
+    if prior is not None:
+        scores = scores + prior.float()[None, :]
+    scores[:, 0] = -torch.inf
+    return torch.topk(scores, k, dim=1)
+
+
+def recall_at_ks(topk_idx: np.ndarray, user_ids: list, targets_idx: dict,
+                 ks=(20, 100, 500)) -> dict:
+    """targets_idx: user_id -> set of target item indices. Users without
+    targets are dropped from the denominator (reference `:679-699`)."""
+    ks = sorted(ks)
+    sums = {k: 0.0 for k in ks}
+    n_eval = 0
+    for r, uid in enumerate(user_ids):
+        tgt = targets_idx.get(uid)
+        if not tgt:
+            continue
+        n_eval += 1
+        row = topk_idx[r]
+        for k in ks:
+            hits = len(tgt.intersection(row[:k].tolist()))
+            sums[k] += hits / len(tgt)
+    if n_eval == 0:
+        return {f"recall@{k}": 0.0 for k in ks} | {"n_eval": 0}
+    return {f"recall@{k}": sums[k] / n_eval for k in ks} | {"n_eval": n_eval}
+
+
+def recall_per_user(topk_idx: np.ndarray, user_ids, targets_idx: dict,
+                    k: int) -> tuple[np.ndarray, list]:
+    """Per-user recall@k over users WITH targets (same denominator semantics
+    as ``recall_at_ks``). Returns (values, kept_user_ids) — the raw material
+    for bootstrap confidence intervals and paired system comparisons."""
+    vals, kept = [], []
+    for r, uid in enumerate(user_ids):
+        tgt = targets_idx.get(uid)
+        if not tgt:
+            continue
+        vals.append(len(tgt.intersection(topk_idx[r, :k].tolist())) / len(tgt))
+        kept.append(uid)
+    return np.asarray(vals, np.float64), kept
+
+
+def bootstrap_mean_ci(values: np.ndarray, n_boot: int = 1000, seed: int = 0,
+                      level: float = 0.95) -> dict:
+    """Percentile bootstrap CI on the mean of per-user values. Chunked so a
+    200k-user eval doesn't allocate an (n_boot, n) resample matrix at once."""
+    values = np.asarray(values, np.float64)
+    n = len(values)
+    if n == 0:
+        return {"mean": 0.0, "lo": 0.0, "hi": 0.0, "n": 0}
+    rng = np.random.default_rng(seed)
+    means = np.empty(n_boot, np.float64)
+    chunk = max(1, min(n_boot, int(2e7) // max(n, 1)))
+    for s0 in range(0, n_boot, chunk):
+        b = min(chunk, n_boot - s0)
+        idx = rng.integers(0, n, (b, n))
+        means[s0:s0 + b] = values[idx].mean(1)
+    a = (1.0 - level) / 2.0
+    lo, hi = np.quantile(means, [a, 1.0 - a])
+    return {"mean": float(values.mean()), "lo": float(lo), "hi": float(hi),
+            "n": n}
+
+
+def paired_delta_ci(a: np.ndarray, b: np.ndarray, n_boot: int = 1000,
+                    seed: int = 0, level: float = 0.95) -> dict:
+    """Paired bootstrap on mean(a - b) over the SAME users — the honest test
+    for "system A beats system B": per-user differencing removes the shared
+    user-difficulty variance that independent CIs double-count.
+    ``p_improve`` = fraction of bootstrap resamples with a positive delta."""
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    if a.shape != b.shape:
+        raise ValueError(f"paired arrays differ: {a.shape} vs {b.shape}")
+    d = a - b
+    n = len(d)
+    if n == 0:
+        return {"delta": 0.0, "lo": 0.0, "hi": 0.0, "p_improve": 0.0, "n": 0}
+    rng = np.random.default_rng(seed)
+    means = np.empty(n_boot, np.float64)
+    chunk = max(1, min(n_boot, int(2e7) // max(n, 1)))
+    for s0 in range(0, n_boot, chunk):
+        bsz = min(chunk, n_boot - s0)
+        idx = rng.integers(0, n, (bsz, n))
+        means[s0:s0 + bsz] = d[idx].mean(1)
+    q = (1.0 - level) / 2.0
+    lo, hi = np.quantile(means, [q, 1.0 - q])
+    return {"delta": float(d.mean()), "lo": float(lo), "hi": float(hi),
+            "p_improve": float((means > 0).mean()), "n": n}
+
+
+def evaluate_retrieval(forward_fn, batches, item_matrix, targets_idx,
+                       ks=(20, 100, 500)) -> dict:
+    """Generic retrieval eval: ``forward_fn(batch) -> (B, D) user vectors``;
+    ``batches`` yields (batch, user_ids)."""
+    max_k = max(ks)
+    all_idx, all_uids = [], []
+    for batch, uids in batches:
+        u = forward_fn(batch)
+        _, idx = topk_scores(u, item_matrix, max_k)
+        all_idx.append(idx.cpu().numpy())
+        all_uids.extend(uids)
+    if not all_idx:
+        return {f"recall@{k}": 0.0 for k in ks} | {"n_eval": 0}
+    return recall_at_ks(np.concatenate(all_idx), all_uids, targets_idx, ks)
+
+
+def target_rows(user_ids, targets_idx: dict) -> np.ndarray:
+    """Row indices of users that have validation targets — the shared
+    eval-filtering step (recall_at_ks drops target-less users from the
+    denominator, so scoring them is pure waste)."""
+    return np.array([r for r, u in enumerate(user_ids) if u in targets_idx],
+                    np.int64)

@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from recsys_tpu.config import ItemTowerConfig, VocabConfig
+from recsys_tpu_torch.config import ItemTowerConfig, VocabConfig
 from recsys_tpu_torch.models.layers import (
     BF16,
     Dense,

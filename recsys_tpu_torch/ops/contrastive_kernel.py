@@ -21,30 +21,14 @@ differentiated by autograd; it is the oracle the kernel is held against.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-import time
-from pathlib import Path
 
 import torch
 
+from recsys_tpu_torch.ops._build import KernelLibrary, raise_on_error as _raise_on_error
 from recsys_tpu_torch.ops.contrastive import NEG
-
-_CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_SOURCE = _CSRC / "diag_ce.cu"
-_BUILD_DIR = _CSRC / "build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # launches per kernel; each wrapper adds one where it launches, nowhere else
 LAUNCHES = {"diag_ce_fwd": 0, "diag_ce_bwd_dq": 0, "diag_ce_bwd_dk": 0}
-BUILD_INFO: dict = {}
-
-_lib = None
-_lib_lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
@@ -52,53 +36,21 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = 0
 
 
-def _nvcc() -> str:
-    for cand in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
-                 shutil.which("nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME); the diag_ce kernel "
-                       "is built from csrc/diag_ce.cu at first use")
+def _bind(lib: ctypes.CDLL) -> None:
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.diag_ce_max_dim.restype = i32
+    lib.diag_ce_max_dim.argtypes = []
+    lib.diag_ce_fwd.restype = i32
+    lib.diag_ce_fwd.argtypes = [ptr] * 6 + [i32, i32, f32, ptr, ptr, ptr]
+    for name in ("diag_ce_bwd_dq", "diag_ce_bwd_dk"):
+        fn = getattr(lib, name)
+        fn.restype = i32
+        fn.argtypes = [ptr] * 8 + [i32, i32, f32, ptr, ptr]
 
 
-def _build() -> Path:
-    """Compile the kernel into csrc/build/, keyed by the source's hash."""
-    src = _SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = _BUILD_DIR / f"libdiag_ce_{digest}.so"
-    if so.exists():
-        BUILD_INFO.update(path=str(so), seconds=0.0, cached=True)
-        return so
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed to build {_SOURCE}:\n{proc.stderr}")
-    os.replace(tmp, so)
-    BUILD_INFO.update(path=str(so), seconds=time.perf_counter() - t0,
-                      cached=False, ptxas=proc.stderr)
-    return so
-
-
-def load_library():
-    """Build (once) and load the kernel library."""
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(_build()))
-            ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.diag_ce_max_dim.restype = i32
-            lib.diag_ce_max_dim.argtypes = []
-            lib.diag_ce_fwd.restype = i32
-            lib.diag_ce_fwd.argtypes = [ptr] * 6 + [i32, i32, f32, ptr, ptr, ptr]
-            for name in ("diag_ce_bwd_dq", "diag_ce_bwd_dk"):
-                fn = getattr(lib, name)
-                fn.restype = i32
-                fn.argtypes = [ptr] * 8 + [i32, i32, f32, ptr, ptr]
-            _lib = lib
-    return _lib
+LIBRARY = KernelLibrary("diag_ce.cu", _bind)
+BUILD_INFO = LIBRARY.info
+load_library = LIBRARY.load
 
 
 def _check_cuda_inputs(q, k, corr, pos, usr, valid):
@@ -119,11 +71,6 @@ def _check_cuda_inputs(q, k, corr, pos, usr, valid):
     max_d = load_library().diag_ce_max_dim()
     if D > max_d:
         raise ValueError(f"embedding width {D} > {max_d}, the kernel's limit")
-
-
-def _raise_on_error(code: int, name: str) -> None:
-    if code != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError_t {code}")
 
 
 def diag_ce_fwd_cuda(q, k, corr, pos, usr, valid, temperature: float):

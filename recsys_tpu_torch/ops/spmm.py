@@ -1,0 +1,242 @@
+"""Sparse propagation ``A_norm @ x`` (kernel K2) and its wrappers.
+
+Counterpart of ``recsys_tpu/ops/pallas_spmm.py``. ``spmm(layout, x)``
+returns ``out[d] = sum_{e: dst[e] = d} w[e] * x[src[e]]`` in fp32 for the
+symmetric normalized user-item adjacency, with zero rows for nodes without
+edges, and never builds the (E, D) message array.
+
+``csr_graph`` is the one-time host layout (the counterpart of
+``block_graph``): weight-0 padding edges are dropped, the kept edges are
+sorted by destination into CSR, and rows longer than ``max_segment`` edges
+are cut into segments so that no warp walks a hub row alone (see the note
+in ``csrc/spmm.cu``). It refuses a matrix that is not symmetric, because the
+backward is the same product on the incoming gradient.
+
+On CUDA tensors the forward and the backward are the hand-written kernels in
+``csrc/spmm.cu`` (sm_90a), built with ``nvcc`` into ``csrc/build/`` at first
+use and called through ``ctypes``. On CPU tensors the same autograd function
+runs ``spmm_plain``, the same sum written with ``index_select`` and
+``index_add_``. A CUDA tensor never takes the plain path: the kernel
+launches or the call raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from recsys_tpu_torch.ops._build import KernelLibrary, raise_on_error
+
+# launches per kernel; each wrapper adds one where it launches, nowhere else
+LAUNCHES = {"spmm_csr": 0, "spmm_hub_reduce": 0}
+MAX_SEGMENT = 256  # edges one warp walks; longer rows are cut (csrc/spmm.cu)
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.spmm_supports_dim.restype = i32
+    lib.spmm_supports_dim.argtypes = [i32]
+    lib.spmm_csr.restype = i32
+    lib.spmm_csr.argtypes = [ptr] * 7 + [i32, i32, ptr]
+    lib.spmm_hub_reduce.restype = i32
+    lib.spmm_hub_reduce.argtypes = [ptr] * 4 + [i32, i32, ptr]
+
+
+LIBRARY = KernelLibrary("spmm.cu", _bind)
+BUILD_INFO = LIBRARY.info
+load_library = LIBRARY.load
+
+
+# -- host layout --------------------------------------------------------------
+
+@dataclass
+class CsrGraph:
+    """Device-resident CSR of the kept edges plus the warp segments.
+
+    ``rowptr``/``row``/``col``/``val`` are the matrix (``row`` is each edge's
+    destination, for the plain form). Segment ``s`` covers the edges
+    ``seg_ptr[s]:seg_ptr[s + 1]``; ``seg_out[s] >= 0`` is the output row it
+    owns alone, otherwise ``-(slot + 1)`` names its partial-sum slot. Hub
+    row ``hub_row[h]`` is the sum of the slots ``hub_ptr[h]:hub_ptr[h + 1]``.
+    """
+
+    num_nodes: int
+    rowptr: torch.Tensor    # (N + 1,) int32
+    row: torch.Tensor       # (E,) int32
+    col: torch.Tensor       # (E,) int32
+    val: torch.Tensor       # (E,) float32
+    seg_ptr: torch.Tensor   # (S + 1,) int32
+    seg_out: torch.Tensor   # (S,) int32
+    hub_row: torch.Tensor   # (H,) int32
+    hub_ptr: torch.Tensor   # (H + 1,) int32
+
+    @property
+    def num_edges(self) -> int:
+        return self.col.shape[0]
+
+    @property
+    def num_segments(self) -> int:
+        return self.seg_out.shape[0]
+
+    @property
+    def num_hubs(self) -> int:
+        return self.hub_row.shape[0]
+
+    @property
+    def num_partials(self) -> int:
+        return self.num_segments - (self.num_nodes - self.num_hubs)
+
+    @property
+    def device(self) -> torch.device:
+        return self.col.device
+
+
+def _symmetric_order(src, dst, weight, num_nodes: int):
+    """The edge order by (dst, src), and whether A^T == A: under symmetry
+    the k-th edge by (dst, src) is the transpose of the k-th by (src, dst).
+    Duplicate pairs of unequal weight tie in a stable sort, so a failed
+    comparison is retried with the weight as a third key."""
+    key_dst, key_src = dst * num_nodes + src, src * num_nodes + dst
+
+    def orders(by_weight):
+        for key in (key_dst, key_src):
+            if by_weight is None:
+                yield torch.sort(key, stable=True).indices
+            else:  # stable sort of a weight-sorted list: (key, weight) order
+                yield by_weight[torch.sort(key[by_weight], stable=True).indices]
+
+    for by_weight in (None, torch.sort(weight, stable=True).indices):
+        by_dst, by_src = orders(by_weight)
+        if (torch.equal(key_dst[by_dst], key_src[by_src])
+                and torch.equal(weight[by_dst], weight[by_src])):
+            return by_dst, True
+    return by_dst, False
+
+
+def csr_graph(src, dst, weight, num_nodes: int, max_segment: int = MAX_SEGMENT,
+              device: torch.device | str = "cpu") -> CsrGraph:
+    """COO edge list (arrays or tensors) -> :class:`CsrGraph` on ``device``.
+    Done once per graph; the sorts run on ``device``."""
+    src, dst, weight = (a if torch.is_tensor(a) else torch.as_tensor(np.asarray(a))
+                        for a in (src, dst, weight))
+    if not (src.shape == dst.shape == weight.shape and src.dim() == 1):
+        raise ValueError("src, dst and weight must be 1-d arrays of one length")
+    if max_segment < 1:
+        raise ValueError(f"max_segment must be >= 1, got {max_segment}")
+    src, dst = src.to(device, torch.int64), dst.to(device, torch.int64)
+    weight = weight.to(device, torch.float32)
+    keep = weight != 0
+    src, dst, weight = src[keep], dst[keep], weight[keep]
+    E = src.shape[0]
+    if E and (int(torch.minimum(src.min(), dst.min())) < 0
+              or int(torch.maximum(src.max(), dst.max())) >= num_nodes):
+        raise ValueError(f"edge endpoint outside [0, {num_nodes})")
+    if E >= 2**31 - 32 or num_nodes >= 2**31 - 1:
+        raise ValueError("the kernel indexes edges and nodes in 32 bits")
+
+    by_dst, symmetric = _symmetric_order(src, dst, weight, num_nodes)
+    if not symmetric:
+        raise ValueError("the adjacency is not symmetric: the backward of spmm "
+                         "is the same product and needs A^T == A")
+    row, col, val = dst[by_dst], src[by_dst], weight[by_dst]
+    counts = torch.bincount(row, minlength=num_nodes)
+    zero = torch.zeros(1, dtype=torch.int64, device=device)
+    rowptr = torch.cat([zero, counts.cumsum(0)])
+
+    # every row gets ceil(count / max_segment) segments, an empty row one
+    segs_per_row = torch.clamp(-(-counts // max_segment), min=1)
+    seg_row = torch.repeat_interleave(torch.arange(num_nodes, device=device), segs_per_row)
+    first_seg = torch.cat([zero, segs_per_row.cumsum(0)])
+    seg_in_row = torch.arange(seg_row.shape[0], device=device) - first_seg[seg_row]
+    seg_start = rowptr[seg_row] + seg_in_row * max_segment
+    seg_ptr = torch.cat([seg_start, torch.full_like(zero, E)])
+    is_hub_seg = segs_per_row[seg_row] > 1
+    seg_out = seg_row.clone()
+    seg_out[is_hub_seg] = -(torch.arange(int(is_hub_seg.sum()), device=device) + 1)
+    hub_row = torch.nonzero(segs_per_row > 1).flatten()
+    hub_ptr = torch.cat([zero, segs_per_row[hub_row].cumsum(0)])
+
+    i32 = torch.int32
+    return CsrGraph(num_nodes=int(num_nodes), rowptr=rowptr.to(i32), row=row.to(i32),
+                    col=col.to(i32), val=val.contiguous(), seg_ptr=seg_ptr.to(i32),
+                    seg_out=seg_out.to(i32), hub_row=hub_row.to(i32),
+                    hub_ptr=hub_ptr.to(i32))
+
+
+# -- the product ----------------------------------------------------------------
+
+def _check_input(layout: CsrGraph, x: torch.Tensor) -> None:
+    if x.device != layout.device:
+        raise ValueError(f"x is on {x.device}, the graph layout on {layout.device}")
+    if x.dtype != torch.float32 or x.dim() != 2 or not x.is_contiguous():
+        raise ValueError(f"x: want a contiguous float32 matrix, got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    if x.shape[0] != layout.num_nodes:
+        raise ValueError(f"x has {x.shape[0]} rows, the graph {layout.num_nodes} nodes")
+
+
+def spmm_cuda(layout: CsrGraph, x: torch.Tensor) -> torch.Tensor:
+    """The kernels: (N, D) fp32 on the card, deterministic."""
+    if not x.is_cuda:
+        raise RuntimeError("the spmm kernel takes CUDA tensors only")
+    _check_input(layout, x)
+    lib = load_library()
+    D = x.shape[1]
+    if not lib.spmm_supports_dim(D):
+        raise ValueError(f"embedding width {D}: the spmm kernel takes 32, 64 or 128 "
+                         "(gnn.propagation=segment_sum runs any width)")
+    out = torch.empty_like(x)
+    partial = torch.empty((layout.num_partials, D), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        code = lib.spmm_csr(layout.seg_ptr.data_ptr(), layout.seg_out.data_ptr(),
+                            layout.col.data_ptr(), layout.val.data_ptr(), x.data_ptr(),
+                            out.data_ptr(), partial.data_ptr(), layout.num_segments, D,
+                            stream)
+        raise_on_error(code, "spmm_csr")
+        LAUNCHES["spmm_csr"] += 1
+        if layout.num_hubs:
+            code = lib.spmm_hub_reduce(layout.hub_row.data_ptr(), layout.hub_ptr.data_ptr(),
+                                       partial.data_ptr(), out.data_ptr(),
+                                       layout.num_hubs, D, stream)
+            raise_on_error(code, "spmm_hub_reduce")
+            LAUNCHES["spmm_hub_reduce"] += 1
+    return out
+
+
+def spmm_plain(layout: CsrGraph, x: torch.Tensor) -> torch.Tensor:
+    """The same sum in plain PyTorch (any float dtype, either device)."""
+    msgs = x.index_select(0, layout.col) * layout.val.to(x.dtype)[:, None]
+    out = torch.zeros((layout.num_nodes, x.shape[1]), dtype=x.dtype, device=x.device)
+    return out.index_add_(0, layout.row, msgs)
+
+
+class Spmm(torch.autograd.Function):
+    """``A @ x``; kernels on CUDA, plain math on CPU. ``A`` is symmetric, so
+    the backward is the same product on the incoming gradient."""
+
+    @staticmethod
+    def forward(ctx, x, layout):
+        ctx.layout = layout
+        return spmm_cuda(layout, x) if x.is_cuda else spmm_plain(layout, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.float().contiguous()
+        grad = spmm_cuda(ctx.layout, g) if g.is_cuda else spmm_plain(ctx.layout, g)
+        return grad, None
+
+
+def spmm(layout: CsrGraph, x: torch.Tensor) -> torch.Tensor:
+    """(N, D) -> (N, D) fp32, differentiable in ``x``; see the module docstring."""
+    x = x.float().contiguous()
+    _check_input(layout, x)
+    return Spmm.apply(x, layout)

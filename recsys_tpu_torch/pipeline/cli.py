@@ -1,12 +1,15 @@
-"""Pipeline CLI of the port: the stages of the item-vector slice.
+"""Pipeline CLI of the port: the stages of the item-vector and GNN slices.
 
 Counterpart of ``recsys_tpu/pipeline/cli.py``, with the same ``--set``
 overrides, artifact paths and one JSON line per stage:
 
-  gen-data     synthetic persona world -> parquet (the JAX package's stage)
-  etl          splits + features + validation targets (the JAX package's stage)
-  train-item   stage-1 SimCSE in PyTorch             -> checkpoints
+  gen-data     synthetic persona world -> parquet (items/users/transactions)
+  etl          splits + item/user/sequence features + validation targets
+  train-item   stage-1 SimCSE                        -> checkpoints
   vectorize    materialize the (N+1, 128) item matrix artifact
+  train-gnn    LightGCL (``--resume``, ``--fine-tune``) -> graph embeddings
+  distill      magnitude->cosine projector           -> distilled vectors
+  gnn-eval     GNN recall rows + distillation fidelity -> gnn_eval.json
   serve        HTTP server; ``--model-backed`` vectorizes with the trained
                encoder
 
@@ -20,43 +23,97 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import time
 
-import torch
+import numpy as np
+import pandas as pd
 
-from recsys_tpu.config import Config, load_config
-from recsys_tpu.pipeline import cli as jax_cli
+from recsys_tpu_torch.config import Config, load_config
+from recsys_tpu_torch.device import resolve_device
 
 
-def resolve_device(name: str) -> torch.device:
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {name}: no CUDA device is available")
-    return device
+def _paths(cfg: Config) -> dict:
+    root = cfg.data.root
+    return {
+        "root": root,
+        "items": f"{root}/items.parquet",
+        "users": f"{root}/users.parquet",
+        "tx": f"{root}/transactions.parquet",
+        "item_feats": f"{root}/features_item.parquet",
+        "user_feats": f"{root}/features_user.parquet",
+        "seqs": f"{root}/features_sequence.parquet",
+        "targets": f"{root}/targets_val.json",
+        "item_ckpts": f"{root}/ckpt_item",
+        "user_ckpts": f"{root}/ckpt_user",
+        "gnn_ckpts": f"{root}/ckpt_gnn",
+        "item_matrix": f"{root}/item_matrix",
+        "text_pretrain": f"{root}/text_pretrain.npz",
+        "gnn_prefix": f"{root}/gnn",
+        "distilled": f"{root}/gnn_distilled_items",
+        "distilled_users": f"{root}/gnn_distilled_users",
+        "eval": f"{root}/eval.json",
+    }
+
+
+def _load_world(cfg: Config):
+    p = _paths(cfg)
+    items = pd.read_parquet(p["items"])
+    users = pd.read_parquet(p["users"])
+    tx = pd.read_parquet(p["tx"])
+    return items, users, tx
 
 
 def _item_tensors(cfg: Config) -> dict:
-    from recsys_tpu.data.dataset import tokenize_items
-    from recsys_tpu.data.vocab import StdVocab
+    from recsys_tpu_torch.data.dataset import tokenize_items
+    from recsys_tpu_torch.data.vocab import StdVocab
 
-    items, _, _ = jax_cli._load_world(cfg)
+    items, _, _ = _load_world(cfg)
     return tokenize_items(items, StdVocab(), cfg.vocab)
 
 
 def cmd_gen_data(cfg: Config, args) -> dict:
-    return jax_cli.cmd_gen_data(cfg, args)
+    from recsys_tpu_torch.data.synthetic import generate_dataset
+    p = _paths(cfg)
+    os.makedirs(p["root"], exist_ok=True)
+    items, users, tx = generate_dataset(cfg.data)
+    items.to_parquet(p["items"])
+    users.to_parquet(p["users"])
+    tx.to_parquet(p["tx"])
+    # learnability diagnostic: latent-cluster oracle vs popularity Recall@100
+    # (sampled; tells whether the world has per-user structure worth training on)
+    from recsys_tpu_torch.data.synthetic import cluster_oracle_recall
+    split_day = int(tx["day"].max()) - cfg.data.valid_days + 1
+    oracle = cluster_oracle_recall(items, tx, split_day)
+    return {"items": len(items), "users": len(users), "transactions": len(tx),
+            "oracle": oracle}
 
 
 def cmd_etl(cfg: Config, args) -> dict:
-    return jax_cli.cmd_etl(cfg, args)
+    from recsys_tpu_torch.data import etl
+    p = _paths(cfg)
+    items, users, tx = _load_world(cfg)
+    train_tx, valid_tx, split_day = etl.time_split(tx, cfg.data.valid_days)
+    item_feats = etl.make_item_features(train_tx, items, split_day)
+    user_feats, _ = etl.make_user_features(train_tx, users, split_day)
+    seqs = etl.make_sequences(train_tx, cfg.data.max_seq_len)
+    targets = etl.make_validation_target(valid_tx)
+    item_feats.to_parquet(p["item_feats"])
+    user_feats.to_parquet(p["user_feats"])
+    seqs.to_parquet(p["seqs"])
+    with open(p["targets"], "w") as f:
+        json.dump(targets, f)
+    sanity = etl.final_sanity_check(seqs, targets)
+    missing = etl.deep_inspect_missing_items(tx, items)
+    return {"split_day": split_day, "sanity": sanity, "missing": missing}
 
 
 def cmd_train_item(cfg: Config, args) -> dict:
     from recsys_tpu_torch.train.simcse import train_simcse
 
     device = resolve_device(args.device)
-    p = jax_cli._paths(cfg)
+    p = _paths(cfg)
     tensors = _item_tensors(cfg)
     t0 = time.perf_counter()
     state = train_simcse(cfg, tensors, p["item_ckpts"], device,
@@ -73,7 +130,7 @@ def cmd_vectorize(cfg: Config, args) -> dict:
     from recsys_tpu_torch.train.simcse import materialize_item_vectors, restore_model
 
     device = resolve_device(args.device)
-    p = jax_cli._paths(cfg)
+    p = _paths(cfg)
     tensors = _item_tensors(cfg)
     model, entry = restore_model(cfg, p["item_ckpts"], tensors["std"].shape[1], device)
     t0 = time.perf_counter()
@@ -84,17 +141,108 @@ def cmd_vectorize(cfg: Config, args) -> dict:
             "seconds": seconds, "items_per_s": (mat.shape[0] - 1) / seconds}
 
 
+def cmd_train_gnn(cfg: Config, args) -> dict:
+    from recsys_tpu_torch.data.etl import time_split
+    from recsys_tpu_torch.ops.spmm import CsrGraph
+    from recsys_tpu_torch.train.gnn import (
+        export_gnn_artifacts, gnn_propagation_check, graph_from_transactions,
+        select_propagation, train_lightgcl)
+
+    device = resolve_device(args.device)
+    p = _paths(cfg)
+    items, users, tx = _load_world(cfg)
+    train_tx, _, _ = time_split(tx, cfg.data.valid_days)
+    user_ids = sorted(train_tx["user_id"].unique())
+    item_ids = sorted(items["item_id"].astype(str))
+    user_map = {u: r for r, u in enumerate(user_ids)}
+    item_map = {i: r for r, i in enumerate(item_ids)}
+    graph = graph_from_transactions(train_tx, user_map, item_map, cfg.gnn,
+                                    cfg.data.seed)
+    eu = np.array([user_map[u] for u in train_tx["user_id"]])
+    ei = np.array([item_map[i] for i in train_tx["item_id"]])
+    # one graph layout serves the trainer, the export and the check
+    propagation = select_propagation(cfg.gnn, graph, graph.num_nodes, device)
+    layout = propagation[1] if isinstance(propagation[1], CsrGraph) else None
+    t0 = time.perf_counter()
+    state, model = train_lightgcl(cfg, graph, eu, ei, p["gnn_ckpts"], device,
+                                  resume=getattr(args, "resume", False),
+                                  fine_tune=getattr(args, "fine_tune", False),
+                                  propagation=propagation)
+    seconds = time.perf_counter() - t0
+    export_gnn_artifacts(model, graph, user_ids, item_ids, p["gnn_prefix"],
+                         cfg.gnn.num_layers, device, layout)
+    steady = state.step_seconds[1:] or state.step_seconds
+    return {"check": gnn_propagation_check(model, graph, device, layout),
+            "device": str(device), "steps": state.step, "seconds": seconds,
+            "epoch_losses": state.losses,
+            "step_ms_median": 1e3 * statistics.median(steady) if steady else None}
+
+
+def cmd_distill(cfg: Config, args) -> dict:
+    from recsys_tpu_torch.eval.gnn_eval import distill_fidelity
+    from recsys_tpu_torch.train.checkpoint import load_array_with_ids, save_array_with_ids
+    from recsys_tpu_torch.train.gnn import distilled_vectors, train_distill
+
+    device = resolve_device(args.device)
+    p = _paths(cfg)
+    tu, uids, _ = load_array_with_ids(p["gnn_prefix"] + "_users")
+    ti, ids, _ = load_array_with_ids(p["gnn_prefix"] + "_items")
+    state, model = train_distill(cfg, tu, ti, p["gnn_ckpts"], device)
+    out = distilled_vectors(model, ti)
+    save_array_with_ids(p["distilled"], out, ids,
+                        meta={"space": "gnn_cosine_distilled"})
+    # BOTH sides pass through the student: the distill trains user-item
+    # cos * exp(scale) against teacher dot, so raw users against distilled
+    # items is a pairing it never trained
+    su = distilled_vectors(model, tu)
+    save_array_with_ids(p["distilled_users"], su, uids,
+                        meta={"space": "gnn_cosine_distilled"})
+    fid = distill_fidelity(tu, ti, out, su, device=device)
+    return {"distilled": p["distilled"], "shape": list(out.shape),
+            "fidelity": fid, "device": str(device), "epoch_losses": state.losses}
+
+
+def cmd_gnn_eval(cfg: Config, args) -> dict:
+    """GNN standalone retrieval rows (raw dot) + cosine/distilled variants +
+    teacher-student distillation fidelity. Pure artifact consumer: needs
+    gnn_{users,items} (train-gnn) and optionally
+    gnn_distilled_{items,users} (distill)."""
+    from recsys_tpu_torch.eval.gnn_eval import distill_fidelity, standalone_rows
+    from recsys_tpu_torch.train.checkpoint import load_array_with_ids
+
+    device = resolve_device(args.device)
+    p = _paths(cfg)
+    gu, gu_ids, _ = load_array_with_ids(p["gnn_prefix"] + "_users")
+    gi, gi_ids, _ = load_array_with_ids(p["gnn_prefix"] + "_items")
+    di = du = None
+    try:
+        di, _, _ = load_array_with_ids(p["distilled"])
+        du, _, _ = load_array_with_ids(p["distilled_users"])
+    except FileNotFoundError:
+        pass
+    with open(p["targets"]) as f:
+        targets = json.load(f)
+    out = standalone_rows(gu, list(gu_ids), gi, list(gi_ids), targets,
+                          ks=cfg.user_train.eval_ks,
+                          distilled_items=di, distilled_users=du, device=device)
+    if di is not None:
+        out["fidelity"] = distill_fidelity(gu, gi, di, du, device=device)
+    with open(p["root"] + "/gnn_eval.json", "w") as f:
+        json.dump(out, f, indent=1)
+    return out
+
+
 def build_app(cfg: Config, args):
     """The serving context of ``serve``: store, index and vectorizer."""
     from recsys_tpu_torch.serve.app import build_app_context, model_vectorizer
 
     vec = None
     if getattr(args, "model_backed", False):
-        from recsys_tpu.data.vocab import StdVocab
+        from recsys_tpu_torch.data.vocab import StdVocab
         from recsys_tpu_torch.train.simcse import restore_model
 
         device = resolve_device(args.device)
-        p = jax_cli._paths(cfg)
+        p = _paths(cfg)
         model, _ = restore_model(cfg, p["item_ckpts"], StdVocab().num_fields, device)
         vec = model_vectorizer(cfg, model, device)
     return build_app_context(cfg, vec)
@@ -114,6 +262,9 @@ COMMANDS = {
     "etl": cmd_etl,
     "train-item": cmd_train_item,
     "vectorize": cmd_vectorize,
+    "train-gnn": cmd_train_gnn,
+    "distill": cmd_distill,
+    "gnn-eval": cmd_gnn_eval,
     "serve": cmd_serve,
 }
 
@@ -129,6 +280,10 @@ def parse_args(argv=None):
     parser.add_argument("--port", type=int, default=None)
     parser.add_argument("--model-backed", action="store_true", dest="model_backed")
     parser.add_argument("--init-ckpt", default=None, dest="init_ckpt")
+    parser.add_argument("--resume", action="store_true",
+                        help="train-gnn: continue from the latest checkpoint")
+    parser.add_argument("--fine-tune", action="store_true", dest="fine_tune",
+                        help="train-gnn: previous weights, fresh optimizer, cosine decay")
     return parser.parse_args(argv)
 
 

@@ -1,9 +1,9 @@
 """Serving application context: the vectorization flows over the store and
 the ANN index.
 
-Counterpart of ``recsys_tpu/serve/app.py`` (which imports JAX through its
-checkpoint module). The store (``serve/store.py``), the native indexes
-(``serve/ann.py``) and the dynamic batcher are the JAX package's own,
+Counterpart of ``recsys_tpu/serve/app.py``. The store
+(``serve/store.py``), the native indexes (``serve/ann.py``) and the dynamic
+batcher (``serve/batcher.py``) are the port's copies of the JAX package's
 framework-free modules. ``model_vectorizer`` runs the torch item encoder
 under ``torch.inference_mode`` on the configured device.
 
@@ -23,9 +23,9 @@ from typing import Callable
 import numpy as np
 import torch
 
-from recsys_tpu.config import Config
-from recsys_tpu.serve.ann import HnswIndex, VectorIndex
-from recsys_tpu.serve.store import ServeStore, TrainingItem
+from recsys_tpu_torch.config import Config
+from recsys_tpu_torch.serve.ann import HnswIndex, VectorIndex
+from recsys_tpu_torch.serve.store import ServeStore, TrainingItem
 from recsys_tpu_torch.train.checkpoint import save_array_with_ids
 
 
@@ -85,8 +85,8 @@ def model_vectorizer(cfg: Config, model, device: torch.device | str
     """The encoder-backed vectorizer: store rows -> item tensors -> the
     torch item encoder on ``device``. PyTorch runs eagerly, so ragged
     request sizes need no shape buckets."""
-    from recsys_tpu.data.dataset import tokenize_items
-    from recsys_tpu.data.vocab import StdVocab
+    from recsys_tpu_torch.data.dataset import tokenize_items
+    from recsys_tpu_torch.data.vocab import StdVocab
     from recsys_tpu_torch.train.simcse import MODEL_INPUTS
 
     vocab = StdVocab()
@@ -300,12 +300,12 @@ def build_app_context(cfg: Config, vectorizer: Callable | None = None) -> AppCon
     elif backend in ("ivf", "int8"):
         raise NotImplementedError(
             f"serve.ann_backend={backend!r} is a device index the port does "
-            "not have yet (ROADMAP Queue 1, item 6: ops/ivf.py, ops/quant.py)")
+            "not have yet (ROADMAP Queue 1, rest of serving: ops/ivf.py, ops/quant.py)")
     else:
         raise ValueError(f"unknown serve.ann_backend {backend!r}")
     vec_fn = vectorizer or hash_vectorizer(cfg.item_tower.dim)
     if cfg.serve.batch_window_ms > 0:
-        from recsys_tpu.serve.batcher import DynamicBatcher
+        from recsys_tpu_torch.serve.batcher import DynamicBatcher
 
         vec_fn = DynamicBatcher(vec_fn, max_batch=cfg.serve.max_dynamic_batch,
                                 max_wait_ms=cfg.serve.batch_window_ms)

@@ -43,13 +43,14 @@ class CheckpointStore:
         return os.path.abspath(os.path.join(self.dir, f"{name}.pt"))
 
     def save(self, name: str, state: dict[str, Any], *, step: int,
-             metric: float | None = None) -> str:
-        """``state``: a dict of state dicts, e.g. {"model": ..., "optimizer": ...}."""
+             metric: float | None = None, extra: dict | None = None) -> str:
+        """``state``: a dict of state dicts, e.g. {"model": ..., "optimizer": ...};
+        ``extra`` goes into the manifest entry (e.g. the epoch, for resume)."""
         path = self._payload_path(name)
         torch.save(state, path)
         entry = {"name": name, "path": path, "step": int(step),
                  "metric": None if metric is None else float(metric),
-                 "extra": {}}
+                 "extra": extra or {}}
         self.manifest["checkpoints"] = [
             c for c in self.manifest["checkpoints"] if c["name"] != name] + [entry]
         self._maybe_update_best(entry)
@@ -67,6 +68,15 @@ class CheckpointStore:
         if best is None:
             raise FileNotFoundError(f"no best checkpoint in {self.dir}")
         return self.restore("best", map_location), best
+
+    def restore_latest(self, map_location: str | torch.device = "cpu"
+                       ) -> tuple[dict, dict] | None:
+        """Resume support: the highest-step checkpoint and its entry, or None."""
+        cks = self.manifest["checkpoints"]
+        if not cks:
+            return None
+        entry = max(cks, key=lambda c: c["step"])
+        return self.restore(entry["name"], map_location), entry
 
     def _maybe_update_best(self, entry: dict) -> None:
         if entry["metric"] is None:

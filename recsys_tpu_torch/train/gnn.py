@@ -1,0 +1,415 @@
+"""LightGCL training / resume / fine-tune + post-hoc export + distillation.
+
+Counterpart of ``recsys_tpu/train/gnn.py``:
+
+  * full-graph forward every step — fp32 graph math at dim 64, BPR +
+    clamped SSL InfoNCE + L2 reg. On a CUDA device the propagation is the
+    hand-written CSR sparse product (``ops/spmm.py``), forward and backward:
+    four launches a step at two layers;
+  * vectorized host-side rejection sampling for BPR negatives (the JAX
+    package's numpy code unchanged, so both packages draw the same batches
+    from the same seed);
+  * model + optimizer + epoch checkpoints, resume, fine-tune with a fresh
+    optimizer and cosine decay;
+  * post-hoc n-layer propagation of the trained layer-0 tables for export
+    and eval (dot-product recall, not cosine);
+  * magnitude->cosine distillation of the teacher's dot scores.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import math
+import time
+from typing import Callable, Mapping
+
+import numpy as np
+import torch
+
+from recsys_tpu_torch.config import Config, GNNConfig
+from recsys_tpu_torch.device import resolve_device
+from recsys_tpu_torch.models.lightgcl import (
+    LightGCL,
+    MagnitudeEncoder,
+    bpr_loss,
+    distill_loss,
+    reg_loss,
+    ssl_loss,
+)
+from recsys_tpu_torch.ops.graph import (
+    BipartiteGraph,
+    build_graph,
+    propagate,
+    propagate_chunked,
+)
+from recsys_tpu_torch.ops.spmm import CsrGraph, csr_graph, spmm
+from recsys_tpu_torch.train.checkpoint import CheckpointStore, save_array_with_ids
+from recsys_tpu_torch.train.metrics import MetricWriter
+from recsys_tpu_torch.train.state import TrainState
+
+
+def graph_from_transactions(tx_df, user_map, item_map, cfg: GNNConfig,
+                            seed: int = 0) -> BipartiteGraph:
+    """Transactions + id maps -> normalized bipartite COO graph. User/item
+    indices here are 0-based dense graph indices (no PAD row)."""
+    u = np.array([user_map[uid] for uid in tx_df["user_id"]], np.int64)
+    i = np.array([item_map[iid] for iid in tx_df["item_id"]], np.int64)
+    return build_graph(u, i, len(user_map), len(item_map),
+                       svd_rank=cfg.svd_rank, svd_iters=cfg.svd_iters, seed=seed)
+
+
+def edge_key_index(graph_u: np.ndarray, graph_i: np.ndarray,
+                   num_items: int) -> np.ndarray:
+    """Sorted unique (user*num_items+item) keys for O(log E) membership."""
+    return np.unique(graph_u.astype(np.int64) * num_items
+                     + graph_i.astype(np.int64))
+
+
+def _in_edges(sorted_keys: np.ndarray, users: np.ndarray, neg: np.ndarray,
+              num_items: int) -> np.ndarray:
+    cand = users.astype(np.int64) * num_items + neg.astype(np.int64)
+    so = np.argsort(cand, kind="stable")  # ordered probes: fewer cache misses
+    pos = np.minimum(np.searchsorted(sorted_keys, cand[so]),
+                     len(sorted_keys) - 1)
+    out = np.zeros(len(cand), bool)
+    out[so] = sorted_keys[pos] == cand[so]
+    return out
+
+
+def sample_bpr_batches(graph_u: np.ndarray, graph_i: np.ndarray, num_items: int,
+                       batch_size: int, rng: np.random.Generator,
+                       sorted_keys: np.ndarray | None = None):
+    """Shuffled (users, pos, rejection-sampled neg) batches over all edges.
+
+    Negative rejection is a searchsorted probe against the sorted edge-key
+    array — pure numpy, no Python set membership. Pass ``sorted_keys``
+    (from :func:`edge_key_index`) to amortize the sort across epochs."""
+    if sorted_keys is None:
+        sorted_keys = edge_key_index(graph_u, graph_i, num_items)
+    order = rng.permutation(len(graph_u))
+    end = len(order) - len(order) % batch_size
+    if end == 0 and len(order) > 0:
+        end = len(order)  # single short batch for tiny graphs
+    for s in range(0, end, batch_size):
+        idx = order[s:s + batch_size]
+        users, pos = graph_u[idx], graph_i[idx]
+        neg = rng.integers(0, num_items, size=len(idx))
+        for _ in range(10):  # vectorized rejection rounds
+            bad = _in_edges(sorted_keys, users, neg, num_items)
+            if not bad.any():
+                break
+            neg[bad] = rng.integers(0, num_items, size=int(bad.sum()))
+        yield users.astype(np.int32), pos.astype(np.int32), neg.astype(np.int32)
+
+
+def select_propagation(cfg: GNNConfig, graph: BipartiteGraph, num_nodes: int,
+                       device: torch.device | str = "cuda"):
+    """Pick the propagation backend + its device-resident args.
+
+    ``auto`` -> the CSR sparse-product kernel when ``device`` is a CUDA
+    device, the plain gather + ``index_add_`` on the CPU. ``spmm`` -> that
+    kernel (its plain form on CPU tensors). ``segment_sum`` -> the plain
+    form on either device. ``segment_sum_sharded`` (the edge list sharded
+    over several devices) is not ported yet."""
+    device = resolve_device(device)
+    mode = cfg.propagation
+    if mode == "auto":
+        mode = "spmm" if device.type == "cuda" else "segment_sum"
+    if mode == "segment_sum_sharded":
+        raise NotImplementedError(
+            "gnn.propagation='segment_sum_sharded' needs the multi-GPU port "
+            "(edge-sharded propagation); use auto | spmm | segment_sum")
+    if mode == "spmm":
+        layout = csr_graph(graph.src, graph.dst, graph.weight, num_nodes, device=device)
+        return spmm, layout
+    if mode != "segment_sum":
+        raise ValueError(f"unknown gnn.propagation {cfg.propagation!r}")
+    args = (torch.as_tensor(graph.src, device=device).long(),
+            torch.as_tensor(graph.dst, device=device).long(),
+            torch.as_tensor(graph.weight, device=device))
+    return (lambda a, x: propagate(x, a[0], a[1], a[2], num_nodes)), args
+
+
+def make_gnn_step(state: TrainState, graph: BipartiteGraph, cfg: GNNConfig,
+                  prop_args):
+    """``step(users, pos, neg) -> {"loss", "bpr", "ssl", "reg"}`` (detached
+    device scalars); one optimizer update per call, on the model's device."""
+    model = state.model
+    device = model.user_emb.device
+    svd = tuple(torch.as_tensor(a, device=device)
+                for a in (graph.svd_u, graph.svd_s, graph.svd_v))
+
+    def step(users, pos, neg):
+        lu, li, gu, gi = model(prop_args, *svd)
+        l_bpr = bpr_loss(lu, li, users, pos, neg)
+        l_ssl = (ssl_loss(lu, gu, users, cfg.temperature, cfg.logit_clamp)
+                 + ssl_loss(li, gi, pos, cfg.temperature, cfg.logit_clamp))
+        l_reg = reg_loss(model, users, pos, neg)
+        total = l_bpr + cfg.lambda_ssl * l_ssl + cfg.lambda_reg * l_reg
+        state.optimizer.zero_grad(set_to_none=True)
+        total.backward()
+        state.optimizer.step()
+        if state.scheduler is not None:
+            state.scheduler.step()
+        state.step += 1
+        return {"loss": total.detach(), "bpr": l_bpr.detach(),
+                "ssl": l_ssl.detach(), "reg": l_reg.detach()}
+
+    return step
+
+
+def _cosine_factor(total_steps: int, alpha: float):
+    """Multiplier of the base lr: 1 -> ``alpha`` over ``total_steps`` on a
+    half cosine, then flat (optax ``cosine_decay_schedule``)."""
+    def factor(step: int) -> float:
+        t = min(step, total_steps) / max(total_steps, 1)
+        return (1.0 - alpha) * 0.5 * (1.0 + math.cos(math.pi * t)) + alpha
+
+    return factor
+
+
+def _adam(model: torch.nn.Module, lr: float) -> torch.optim.Adam:
+    return torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8)
+
+
+def train_lightgcl(cfg: Config, graph: BipartiteGraph, edges_u: np.ndarray,
+                   edges_i: np.ndarray, workdir: str,
+                   device: torch.device | str = "cuda", *,
+                   resume: bool = False, fine_tune: bool = False,
+                   writer: MetricWriter | None = None, propagation=None,
+                   step_hook: Callable[[int], None] | None = None):
+    """Train (or resume / cosine-fine-tune) LightGCL over the whole edge set.
+
+    Returns ``(state, model)``; ``state.losses`` holds each epoch's mean loss
+    and ``state.step_seconds`` each step's time (CUDA events on the card, so
+    no step waits for the host). ``propagation`` is a ``select_propagation``
+    result to reuse; by default one is built here. ``step_hook(step)`` is
+    called after every step (a profiler's switch; it may wait for the card)."""
+    g = cfg.gnn
+    device = resolve_device(device)
+    prop_fn, prop_args = propagation or select_propagation(g, graph, graph.num_nodes,
+                                                            device)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(cfg.data.seed)
+        model = LightGCL(graph.num_users, graph.num_items, g, prop_fn=prop_fn)
+    model = model.to(device)
+    passes = max(1, -(-g.steps_per_epoch_min //
+                      max(len(edges_u) // g.batch_size, 1)))
+    steps_per_epoch = max(len(edges_u) // g.batch_size, 1) * passes
+    if g.steps_per_epoch_max:
+        steps_per_epoch = min(steps_per_epoch, g.steps_per_epoch_max)
+
+    def fresh_state() -> TrainState:
+        if not fine_tune:
+            return TrainState(model, _adam(model, g.lr))
+        opt = _adam(model, g.lr * 0.4)
+        sched = torch.optim.lr_scheduler.LambdaLR(
+            opt, _cosine_factor(steps_per_epoch * g.epochs, 1e-5 / (g.lr * 0.4)))
+        return TrainState(model, opt, sched)
+
+    store = CheckpointStore(workdir, maximize=False)
+    start_epoch = 1
+    restored = store.restore_latest(device) if (resume or fine_tune) else None
+    if restored is not None:
+        payload, entry = restored
+        model.load_state_dict(payload["model"])
+    state = fresh_state()  # fine-tune: fresh optimizer, previous params
+    if restored is not None and resume:
+        state.optimizer.load_state_dict(payload["optimizer"])
+        if state.scheduler is not None and "scheduler" in payload:
+            state.scheduler.load_state_dict(payload["scheduler"])
+        state.step = entry["step"]
+        start_epoch = entry["extra"].get("epoch", 0) + 1
+    step_fn = make_gnn_step(state, graph, g, prop_args)
+    rng = np.random.default_rng(cfg.data.seed)
+    sorted_keys = edge_key_index(edges_u, edges_i, graph.num_items)
+    on_card = device.type == "cuda"
+
+    def mark():
+        if not on_card:
+            return time.perf_counter()
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        return event
+
+    with contextlib.ExitStack() as stack:
+        if writer is None:
+            writer = stack.enter_context(contextlib.closing(
+                MetricWriter(f"{workdir}/metrics.jsonl", "lightgcl")))
+        model.train()
+        for epoch in range(start_epoch, g.epochs + 1):
+            losses: list = []   # device scalars: a float() per step would
+            marks = [mark()]    # make every step wait for the host
+            ep_steps = 0
+            for _pass in range(passes):   # steps floor: shuffled re-passes
+                for users, pos, neg in sample_bpr_batches(edges_u, edges_i,
+                                                          graph.num_items,
+                                                          g.batch_size, rng,
+                                                          sorted_keys):
+                    aux = step_fn(torch.as_tensor(users, device=device),
+                                  torch.as_tensor(pos, device=device),
+                                  torch.as_tensor(neg, device=device))
+                    losses.append(aux["loss"])
+                    marks.append(mark())
+                    ep_steps += 1
+                    if step_hook is not None:
+                        step_hook(state.step)
+                    if state.step % 100 == 0:
+                        writer.write("train", state.step, loss=aux["loss"],
+                                     bpr=aux["bpr"], ssl=aux["ssl"])
+                    if g.steps_per_epoch_max and ep_steps >= steps_per_epoch:
+                        break
+                if g.steps_per_epoch_max and ep_steps >= steps_per_epoch:
+                    break
+            mean = float(torch.stack(losses).mean()) if losses else 0.0
+            if on_card:
+                torch.cuda.synchronize(device)
+                state.step_seconds += [a.elapsed_time(b) / 1e3
+                                       for a, b in zip(marks, marks[1:])]
+            else:
+                state.step_seconds += [b - a for a, b in zip(marks, marks[1:])]
+            state.losses.append(mean)
+            writer.write("epoch", epoch, loss=mean)
+            payload = {"model": model.state_dict(),
+                       "optimizer": state.optimizer.state_dict()}
+            if state.scheduler is not None:
+                payload["scheduler"] = state.scheduler.state_dict()
+            store.save(f"ep{epoch:03d}", payload, step=state.step, metric=mean,
+                       extra={"epoch": epoch})
+    return state, model
+
+
+def _layer0_tables(params) -> tuple[torch.Tensor, torch.Tensor]:
+    """``params``: a LightGCL module, or a mapping with ``user_emb`` and
+    ``item_emb`` (a state_dict or numpy arrays)."""
+    if isinstance(params, torch.nn.Module):
+        params = params.state_dict()
+    return (torch.as_tensor(params["user_emb"]).detach(),
+            torch.as_tensor(params["item_emb"]).detach())
+
+
+@torch.no_grad()
+def final_embeddings(params: torch.nn.Module | Mapping, graph: BipartiteGraph,
+                     num_layers: int = 2, device: torch.device | str = "cuda",
+                     layout: CsrGraph | None = None):
+    """Post-hoc n-layer propagation of the trained layer-0 tables (the
+    export/eval path) -> (users, items) numpy arrays.
+
+    On a CUDA device the propagation is the CSR sparse-product kernel, which
+    never builds the (E, D) message array (``layout`` reuses the trainer's;
+    otherwise one is built here). On the CPU it is the edge-chunked plain
+    form, which bounds that array."""
+    device = resolve_device(device)
+    user_emb, item_emb = _layer0_tables(params)
+    x0 = torch.cat([user_emb, item_emb]).to(device=device, dtype=torch.float32)
+    if device.type == "cuda":
+        if layout is None:
+            layout = csr_graph(graph.src, graph.dst, graph.weight, graph.num_nodes,
+                               device=device)
+
+        def prop(x):
+            return spmm(layout, x)
+    else:
+        def prop(x):
+            return propagate_chunked(x, graph.src, graph.dst, graph.weight,
+                                     graph.num_nodes)
+    acc, x = x0, x0
+    for _ in range(num_layers):
+        x = prop(x)
+        acc = acc + x
+    out = (acc / (num_layers + 1)).cpu().numpy()
+    return out[: graph.num_users], out[graph.num_users:]
+
+
+def export_gnn_artifacts(params, graph: BipartiteGraph, user_ids, item_ids,
+                         out_prefix: str, num_layers: int = 2,
+                         device: torch.device | str = "cuda",
+                         layout: CsrGraph | None = None):
+    """Save propagated user/item embeddings with id sidecars (graph indices
+    are dense 0-based; NO pad row — meta records that)."""
+    u, i = final_embeddings(params, graph, num_layers, device, layout)
+    save_array_with_ids(out_prefix + "_users", u, list(user_ids),
+                        meta={"pad_row": None, "space": "gnn_dot"})
+    save_array_with_ids(out_prefix + "_items", i, list(item_ids),
+                        meta={"pad_row": None, "space": "gnn_dot"})
+    return u, i
+
+
+def gnn_propagation_check(params, graph: BipartiteGraph,
+                          device: torch.device | str = "cuda",
+                          layout: CsrGraph | None = None) -> dict:
+    """The before/after propagation sanity check as data: propagation must
+    change the embedding statistics."""
+    before = torch.cat(_layer0_tables(params)).float().cpu().numpy()
+    u, i = final_embeddings(params, graph, device=device, layout=layout)
+    after = np.concatenate([u, i])
+    delta = float(np.abs(after - before).mean())
+    return {"mean_abs_delta": delta, "ok": delta > 1e-7}
+
+
+# -- magnitude -> cosine distillation --------------------------------------
+
+def train_distill(cfg: Config, teacher_users: np.ndarray, teacher_items: np.ndarray,
+                  workdir: str, device: torch.device | str = "cuda",
+                  writer: MetricWriter | None = None):
+    """Distill the teacher's dot-product geometry into a cosine-only space.
+    Returns ``(state, model)``; ``state.losses`` holds each epoch's mean."""
+    d = cfg.distill
+    device = resolve_device(device)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = MagnitudeEncoder(teacher_items.shape[1], d.hidden_dim, d.out_dim)
+    model = model.to(device).train()
+    state = TrainState(model, _adam(model, d.lr))
+    tu = torch.as_tensor(teacher_users, dtype=torch.float32, device=device)
+    ti = torch.as_tensor(teacher_items, dtype=torch.float32, device=device)
+
+    def step(uu, ii):
+        su, scale = model(uu)
+        si, _ = model(ii)
+        loss = distill_loss(su, si, scale, uu, ii)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        state.optimizer.step()
+        state.step += 1
+        return loss.detach()
+
+    def rows_of(table, idx):
+        return table[torch.as_tensor(idx, device=device)]
+
+    rng = np.random.default_rng(0)
+    bs = min(d.batch_size, len(teacher_users), len(teacher_items))
+    # teacher-top-k hard-pair mining (cfg.distill.hard_frac): without it
+    # the item batch is uniform over the catalog, so the pairs that decide
+    # top-100 ordering are a sliver of the MSE mass and the student never
+    # learns the tail
+    n_hard = int(bs * min(max(d.hard_frac, 0.0), 1.0))
+    mine_k = min(d.hard_k, ti.shape[0])
+    with contextlib.ExitStack() as stack:
+        if writer is None:
+            writer = stack.enter_context(contextlib.closing(
+                MetricWriter(f"{workdir}/metrics.jsonl", "distill")))
+        for epoch in range(1, d.epochs + 1):
+            tot = 0.0
+            for _ in range(max(d.steps_per_epoch, 1)):
+                uu = rows_of(tu, rng.integers(0, len(teacher_users), bs))
+                if n_hard:
+                    mined = torch.topk(uu @ ti.T, mine_k, dim=1).indices
+                    pool = np.unique(mined.cpu().numpy())
+                    rows = np.concatenate([
+                        pool[rng.integers(0, len(pool), n_hard)],
+                        rng.integers(0, len(teacher_items), bs - n_hard)])
+                    ii = rows_of(ti, rows)
+                else:
+                    ii = rows_of(ti, rng.integers(0, len(teacher_items), bs))
+                tot += float(step(uu, ii))
+            state.losses.append(tot / max(d.steps_per_epoch, 1))
+            writer.write("epoch", epoch, loss=state.losses[-1])
+    return state, model
+
+
+@torch.no_grad()
+def distilled_vectors(model: MagnitudeEncoder, vecs: np.ndarray) -> np.ndarray:
+    device = next(model.parameters()).device
+    out, _ = model(torch.as_tensor(vecs, dtype=torch.float32, device=device))
+    return out.cpu().numpy()

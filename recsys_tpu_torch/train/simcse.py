@@ -19,9 +19,10 @@ import time
 import numpy as np
 import torch
 
-from recsys_tpu.config import Config
-from recsys_tpu.data.dataset import batch_iterator
-from recsys_tpu.data.vocab import StdVocab
+from recsys_tpu_torch.config import Config
+from recsys_tpu_torch.data.dataset import batch_iterator
+from recsys_tpu_torch.device import resolve_device
+from recsys_tpu_torch.data.vocab import StdVocab
 from recsys_tpu_torch.models.item_tower import SimCSEModel
 from recsys_tpu_torch.ops import select_infonce
 from recsys_tpu_torch.ops.augment import two_views
@@ -90,7 +91,7 @@ def train_simcse(cfg: Config, tensors: dict, workdir: str,
                  init_ckpt: str | None = None) -> TrainState:
     """Full stage-1 training over pre-tokenized item tensors."""
     sc = cfg.simcse
-    device = torch.device(device)
+    device = resolve_device(device)
     n = tensors["std"].shape[0]
     steps_per_epoch = max(n // sc.batch_size, 1)
     # small catalogs re-pass (fresh shuffles + fresh views) until an epoch
@@ -180,10 +181,11 @@ def materialize_item_vectors(cfg: Config, model: SimCSEModel, tensors: dict,
 
 
 def topk_items(item_matrix: np.ndarray, queries: np.ndarray, k: int = 50,
-               device: torch.device | str = "cpu"):
+               device: torch.device | str = "cuda"):
     """Exact dot-product top-k against the catalog; rows are L2-normalized
     so dot == cosine. Returns (scores, indices into the padded matrix); row
     0 (PAD) is excluded."""
+    device = resolve_device(device)
     q = torch.as_tensor(queries, dtype=torch.float32, device=device)
     m = torch.as_tensor(item_matrix, dtype=torch.float32, device=device)
     scores = q @ m.T

@@ -21,7 +21,7 @@ from torch import nn
 class TrainState:
     model: nn.Module
     optimizer: torch.optim.Optimizer
-    scheduler: torch.optim.lr_scheduler.LRScheduler
+    scheduler: torch.optim.lr_scheduler.LRScheduler | None = None
     step: int = 0
     losses: list[float] = field(default_factory=list)         # per step
     step_seconds: list[float] = field(default_factory=list)   # host clock, synced

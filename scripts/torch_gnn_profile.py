@@ -1,0 +1,105 @@
+"""Where one LightGCL training step of the PyTorch port spends its time.
+
+    python3 scripts/torch_gnn_profile.py [--steps 10] [--warmup 5] [--out DIR]
+
+Needs one NVIDIA GPU. Builds the reference-scale graph of ``chip_smoke.py``
+(200,000 users, 47,000 items, 11.3M interactions) from a seed and runs
+``train_lightgcl`` itself at the default width (batch 8192, two layers, K2
+propagation) for ``warmup + 2 * steps`` steps, host batch sampling included:
+
+  * the first ``--steps`` steps after the warm-up run unprofiled; their times
+    are the trainer's own CUDA-event step times;
+  * the next ``--steps`` steps run under ``torch.profiler``, switched on and
+    off by the trainer's step hook. Printed: device time per step by kernel
+    name (largest first), the launches per step, and the share of those
+    steps' wall time in which the device was busy (the rest is the card
+    waiting for the host).
+
+Prints the card's name and power limit first. With ``--out`` the chrome
+trace goes there as ``gnn_step_trace.json``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import sys
+import tempfile
+import time
+from collections import defaultdict
+
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import chip_smoke  # noqa: E402  (the graph recipe and the card line)
+from recsys_tpu_torch.config import load_config  # noqa: E402
+from recsys_tpu_torch.ops import spmm as S  # noqa: E402
+from recsys_tpu_torch.train.gnn import train_lightgcl  # noqa: E402
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument("--steps", type=int, default=10)
+    parser.add_argument("--warmup", type=int, default=5)
+    parser.add_argument("--out", default=None)
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(chip_smoke.card_line(), flush=True)
+
+    from torch.profiler import ProfilerActivity, profile
+
+    first, last = args.warmup + args.steps, args.warmup + 2 * args.steps
+    cfg = load_config(None, {"gnn": {"epochs": 1, "steps_per_epoch_max": last}})
+    graph, edges_u, edges_i = chip_smoke.reference_scale_graph(seed=0)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    wall = {}
+
+    def hook(step: int) -> None:
+        if step == first:
+            torch.cuda.synchronize()
+            prof.start()
+            wall["start"] = time.perf_counter()
+        elif step == last:
+            torch.cuda.synchronize()
+            wall["stop"] = time.perf_counter()
+            prof.stop()
+
+    S.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as workdir:
+        state, _ = train_lightgcl(cfg, graph, edges_u, edges_i, workdir, step_hook=hook)
+    step_ms = [1e3 * t for t in state.step_seconds]
+    unprofiled = statistics.median(step_ms[args.warmup:first])
+    print(json.dumps({"steps": args.steps, "warmup": args.warmup,
+                      "step_ms_median": unprofiled, "step_ms": step_ms[args.warmup:first],
+                      "k2_launches_per_step": {k: v / last for k, v in S.LAUNCHES.items()}}),
+          flush=True)
+
+    by_name: dict = defaultdict(lambda: [0.0, 0])
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[ev.name][0] += ev.device_time_total / 1e3   # us -> ms
+            by_name[ev.name][1] += 1
+    busy = sum(v[0] for v in by_name.values()) / args.steps
+    launches = sum(v[1] for v in by_name.values()) / args.steps
+    profiled = 1e3 * (wall["stop"] - wall["start"]) / args.steps
+    print(json.dumps({"device_busy_ms_per_step": busy, "launches_per_step": launches,
+                      "profiled_step_ms": profiled,
+                      "profiled_step_ms_by_events": statistics.median(step_ms[first:last]),
+                      "device_busy_share_of_profiled_step": busy / profiled,
+                      "device_busy_share_of_unprofiled_step": busy / unprofiled}),
+          flush=True)
+    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]:
+        print(f"{ms / args.steps:9.3f} ms/step  {n / args.steps:7.1f} launches/step  "
+              f"{name[:110]}", flush=True)
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(args.out, "gnn_step_trace.json"))
+
+
+if __name__ == "__main__":
+    main()

@@ -68,6 +68,126 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                                torch.zeros(4), torch.zeros(4), 0.1)
 
 
+# -- propagation dispatch of the GNN trainer ------------------------------------
+
+def _tiny_graph():
+    from recsys_tpu_torch.ops.graph import build_graph
+
+    rng = np.random.default_rng(0)
+    return build_graph(rng.integers(0, 30, 200), rng.integers(0, 20, 200), 30, 20,
+                       svd_rank=2, pad_multiple=64)
+
+
+@pytest.mark.parametrize("mode", ["auto", "segment_sum"])
+def test_select_propagation_takes_the_plain_form_on_the_cpu(mode, monkeypatch):
+    """``auto`` on the CPU and ``segment_sum`` are ``ops/graph.propagate`` over
+    the COO arrays; no CSR layout is built and no kernel wrapper is reached."""
+    from recsys_tpu_torch.config import GNNConfig
+    from recsys_tpu_torch.ops import spmm as S
+    from recsys_tpu_torch.ops.graph import propagate
+    from recsys_tpu_torch.train import gnn as G
+
+    def boom(*a, **k):
+        raise AssertionError("kernel path taken on the CPU")
+
+    monkeypatch.setattr(G, "csr_graph", boom)
+    monkeypatch.setattr(S, "spmm_cuda", boom)
+    graph = _tiny_graph()
+    prop_fn, args = G.select_propagation(GNNConfig(propagation=mode), graph,
+                                         graph.num_nodes, "cpu")
+    assert isinstance(args, tuple) and len(args) == 3 and args[0].device.type == "cpu"
+    x = torch.randn(graph.num_nodes, 8)
+    assert torch.equal(prop_fn(args, x), propagate(x, *args, graph.num_nodes))
+
+
+def test_select_propagation_spmm_mode_uses_the_plain_version_on_cpu_tensors():
+    from recsys_tpu_torch.config import GNNConfig
+    from recsys_tpu_torch.ops import spmm as S
+    from recsys_tpu_torch.train import gnn as G
+
+    graph = _tiny_graph()
+    prop_fn, layout = G.select_propagation(GNNConfig(propagation="spmm"), graph,
+                                           graph.num_nodes, "cpu")
+    assert isinstance(layout, S.CsrGraph) and prop_fn is S.spmm
+    x = torch.randn(graph.num_nodes, 8)
+    S.reset_launch_counts()
+    assert torch.equal(prop_fn(layout, x), S.spmm_plain(layout, x))
+    assert S.LAUNCHES == {"spmm_csr": 0, "spmm_hub_reduce": 0}
+
+
+def test_select_propagation_refuses_what_is_not_ported():
+    from recsys_tpu_torch.config import GNNConfig
+    from recsys_tpu_torch.train import gnn as G
+
+    graph = _tiny_graph()
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
+        G.select_propagation(GNNConfig(propagation="segment_sum_sharded"), graph,
+                             graph.num_nodes, "cpu")
+    with pytest.raises(ValueError, match="unknown"):
+        G.select_propagation(GNNConfig(propagation="pallas"), graph, graph.num_nodes, "cpu")
+
+
+@pytest.mark.parametrize("stage", ["train-gnn", "distill", "gnn-eval"])
+def test_gnn_stages_refuse_device_cuda_without_a_card(stage, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    from recsys_tpu_torch.pipeline import cli
+
+    assert cli.parse_args([stage]).device == "cuda"      # the default is the card
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main([stage, "--set", f"data.root={tmp_path}", "--device", "cuda"])
+
+
+@pytest.mark.parametrize("entry", [
+    "select_propagation", "final_embeddings", "export_gnn_artifacts",
+    "gnn_propagation_check", "train_lightgcl", "train_distill",
+    "topk_rows", "standalone_rows", "distill_fidelity", "topk_items"])
+def test_entry_points_take_the_card_by_default_and_raise_without_one(entry, tmp_path):
+    """With no ``device`` given an entry point of the GNN slice runs on the
+    card; without one it raises before any work and never runs on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    from recsys_tpu_torch.config import Config, GNNConfig
+    from recsys_tpu_torch.eval import gnn_eval as E
+    from recsys_tpu_torch.models.lightgcl import LightGCL
+    from recsys_tpu_torch.train import gnn as G
+    from recsys_tpu_torch.train import simcse
+
+    graph = _tiny_graph()
+    model = LightGCL(graph.num_users, graph.num_items, GNNConfig(emb_dim=8, svd_rank=2))
+    u = np.random.default_rng(1).normal(size=(30, 8)).astype(np.float32)
+    i = np.random.default_rng(2).normal(size=(20, 8)).astype(np.float32)
+    edges = (np.zeros(4, np.int64), np.arange(4))
+    calls = {
+        "select_propagation": lambda: G.select_propagation(GNNConfig(), graph, graph.num_nodes),
+        "final_embeddings": lambda: G.final_embeddings(model, graph),
+        "export_gnn_artifacts": lambda: G.export_gnn_artifacts(
+            model, graph, list(range(30)), list(range(20)), str(tmp_path / "gnn")),
+        "gnn_propagation_check": lambda: G.gnn_propagation_check(model, graph),
+        "train_lightgcl": lambda: G.train_lightgcl(Config(), graph, *edges, str(tmp_path)),
+        "train_distill": lambda: G.train_distill(Config(), u, i, str(tmp_path)),
+        "topk_rows": lambda: E.topk_rows(u, i, 5, normalize=False),
+        "standalone_rows": lambda: E.standalone_rows(
+            u, [str(k) for k in range(30)], i, [str(k) for k in range(20)], {"0": ["1"]}),
+        "distill_fidelity": lambda: E.distill_fidelity(u, i, i, u, k=5),
+        "topk_items": lambda: simcse.topk_items(i, u, k=3),
+    }
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[entry]()
+    assert not list(tmp_path.iterdir())                  # nothing was written
+
+
+def test_spmm_wrapper_refuses_cpu_tensors_and_a_layout_elsewhere():
+    from recsys_tpu_torch.ops import spmm as S
+
+    graph = _tiny_graph()
+    layout = S.csr_graph(graph.src, graph.dst, graph.weight, graph.num_nodes)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        S.spmm_cuda(layout, torch.zeros(graph.num_nodes, 64))
+    with pytest.raises(ValueError, match="layout on"):
+        S.spmm(layout, torch.zeros(graph.num_nodes, 64, device="meta"))
+
+
 def test_port_imports_no_jax_in_a_fresh_interpreter():
     """Every module of recsys_tpu_torch imports with jax/flax/optax blocked,
     and none of them is in sys.modules afterwards."""

@@ -338,7 +338,7 @@ def test_simcse_training_learns_and_retrieves(item_tensors, tmp_path):
                                       str(tmp_path / "item_matrix"), batch_size=32)
     assert mat.shape == (65, 128)
     np.testing.assert_allclose(np.linalg.norm(mat[1:], axis=1), 1.0, rtol=1e-3)
-    _, idx = TS.topk_items(mat, mat[1:9], k=3)
+    _, idx = TS.topk_items(mat, mat[1:9], k=3, device="cpu")
     assert (idx[:, 0] == np.arange(1, 9)).all()
     arr, ids, meta = load_array_with_ids(str(tmp_path / "item_matrix"))
     assert ids[0] == "<pad>" and len(ids) == 65 and meta["pad_row"] == 0

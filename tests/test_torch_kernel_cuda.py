@@ -1,4 +1,5 @@
-"""Kernel K1 (csrc/diag_ce.cu) against its plain PyTorch form, on the card.
+"""Kernels K1 (csrc/diag_ce.cu) and K2 (csrc/spmm.cu) against their plain
+PyTorch forms, on the card.
 
 Needs an NVIDIA GPU and nvcc; skips elsewhere. This file imports no JAX, so
 on the GPU machine it runs without the JAX test harness:
@@ -7,7 +8,10 @@ on the GPU machine it runs without the JAX test harness:
 
 Tolerances are the JAX suite's for the Pallas kernel
 (tests/test_pallas.py): loss 1e-4 abs, grads 1e-5 abs. Both sides are fp32
-with TF32 off; the kernel sums in another order than cuBLAS.
+with TF32 off; the kernel sums in another order than cuBLAS. K2 is held to
+1e-5 abs (tests/test_spmm.py) on graphs whose rows sum up to a few thousand
+terms of size ~1e-2; it sums a row in edge order, ``index_add_`` in the
+order its atomics land.
 """
 
 import numpy as np
@@ -15,6 +19,7 @@ import pytest
 import torch
 
 from recsys_tpu_torch.ops import contrastive_kernel as K
+from recsys_tpu_torch.ops import spmm as S
 from recsys_tpu_torch.ops.contrastive import bidirectional_infonce, inbatch_logq_loss
 
 pytestmark = pytest.mark.cuda
@@ -104,3 +109,67 @@ def test_kernel_rejects_bad_inputs(device):
     with pytest.raises(ValueError):
         K.diag_ce_fwd_cuda(q, q.t().contiguous().t(), torch.zeros(8, device=device),
                            ids, ids, ids, 0.1)
+
+
+# -- K2: the CSR sparse product ---------------------------------------------
+
+def _normalized_edges(u, i, nu, ni):
+    """Deduped (user, item) pairs -> both edge directions with D^-1/2 A D^-1/2
+    weights, plus a tail of weight-0 padding edges on node 0."""
+    pairs = np.unique(np.stack([u, i], 1), axis=0)
+    u, i = pairs[:, 0], pairs[:, 1] + nu
+    deg = np.bincount(np.concatenate([u, i]), minlength=nu + ni).clip(1)
+    w = (1.0 / np.sqrt(deg[u] * deg[i])).astype(np.float32)
+    pad = np.zeros(100, np.int64)
+    return (np.concatenate([u, i, pad]), np.concatenate([i, u, pad]),
+            np.concatenate([w, w, pad.astype(np.float32)]), nu + ni)
+
+
+def _small_graph():
+    rng = np.random.default_rng(0)
+    return _normalized_edges(rng.integers(0, 700, 8000), rng.integers(0, 500, 8000),
+                             700, 500)
+
+
+def _skewed_graph():
+    """~1M directed edges; item popularity ~ U^2.5, so the top items are hub
+    rows of thousands of edges while a user has ~25."""
+    rng = np.random.default_rng(1)
+    nu, ni, e = 20_000, 5_000, 520_000
+    return _normalized_edges(rng.integers(0, nu, e),
+                             (ni * rng.random(e) ** 2.5).astype(np.int64), nu, ni)
+
+
+@pytest.mark.parametrize("D", [64, 32])
+@pytest.mark.parametrize("graph,max_segment", [("small", 256), ("small", 8),
+                                               ("skewed", 256)])
+def test_spmm_kernel_matches_plain(device, graph, max_segment, D):
+    src, dst, w, n = _small_graph() if graph == "small" else _skewed_graph()
+    layout = S.csr_graph(src, dst, w, n, max_segment=max_segment, device=device)
+    assert layout.num_hubs > 0 or max_segment == 256 and graph == "small"
+    rng = np.random.default_rng(D)
+    x = torch.as_tensor(rng.normal(size=(n, D)).astype(np.float32), device=device)
+    g = torch.as_tensor(rng.normal(size=(n, D)).astype(np.float32), device=device)
+    S.reset_launch_counts()
+    xk = x.clone().requires_grad_(True)
+    out = S.spmm(layout, xk)
+    (dx,) = torch.autograd.grad((out * g).sum(), xk)
+    torch.cuda.synchronize()
+    assert S.LAUNCHES["spmm_csr"] == 2  # forward and backward
+    assert S.LAUNCHES["spmm_hub_reduce"] == (2 if layout.num_hubs else 0)
+    assert float((out.detach() - S.spmm_plain(layout, x)).abs().max()) <= 1e-5
+    assert float((dx - S.spmm_plain(layout, g)).abs().max()) <= 1e-5
+    assert torch.equal(S.spmm_cuda(layout, x), out.detach())  # deterministic
+    isolated = torch.as_tensor(np.setdiff1d(np.arange(n), dst[w != 0]), device=device)
+    assert float(out.detach()[isolated].abs().sum()) == 0.0
+
+
+def test_spmm_kernel_rejects_bad_inputs(device):
+    src, dst, w, n = _small_graph()
+    layout = S.csr_graph(src, dst, w, n, device=device)
+    x = torch.randn(n, 64, device=device)
+    for bad in (x.double(), x[:-1], x.t().contiguous().t(), x.cpu()):
+        with pytest.raises(ValueError):
+            S.spmm_cuda(layout, bad) if bad.is_cuda else S.spmm(layout, bad)
+    with pytest.raises(ValueError, match="32, 64 or 128"):
+        S.spmm_cuda(layout, torch.randn(n, 48, device=device))
