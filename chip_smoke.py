@@ -2,9 +2,9 @@
 
     python3 chip_smoke.py
 
-Builds kernels K1 (recsys_tpu_torch/csrc/diag_ce.cu) and K2
-(recsys_tpu_torch/csrc/spmm.cu) for sm_90a from the checkout, both at once,
-then:
+Builds kernels K1 (recsys_tpu_torch/csrc/diag_ce.cu), K2
+(recsys_tpu_torch/csrc/spmm.cu) and K3 (recsys_tpu_torch/csrc/fm.cu) for
+sm_90a from the checkout, all at once, then:
 
   1. kernel vs plain: K1's forward and both backward kernels against their
      plain PyTorch forms on the card, at the SimCSE shape (B=192, D=128),
@@ -37,6 +37,24 @@ then:
   6. the trainer at a real size: ``train_lightgcl`` on the graph of 4, batch
      8192, ten steps; K2 must launch four times a step; then
      ``final_embeddings`` through K2.
+
+  7. kernel vs plain: K3's forward and backward kernels against the plain FM
+     form and its autograd gradient on the card, at (200, 12, 16), a ragged
+     (2049, 3, 8), the DeepFM training shape (2048, 20, 16) and the
+     large-candidate scoring shape (131072, 20, 16), the last also in bf16.
+     rtol 1e-4 / atol 1e-3 as the JAX suite's; two calls must give the same
+     bits. CUDA-event times of each kernel and its plain form beside the byte
+     bound, at the training and the scoring shape.
+  8. reranker slice: train-reranker through the CLI on the world of phase 2
+     with the default reranker config and 200 boosting iterations; both AUCs
+     above 0.5; reranker_gbdt.pkl loads again and reproduces the stage's AUC.
+  9. DeepFM at full width: the stage's rows with 19 sparse fields (item and
+     user index, the items' and users' categorical columns) and the 10 dense
+     features, ``train_deepfm`` for a few epochs at the default widths, the
+     scorer over 131,072 candidate rows in one call, ``ReRankingSystem`` for a
+     few users. K3's counts are zeroed before and read after: the forward
+     kernel must have launched once a step and once a scoring call, the
+     backward once a step, exactly.
 
 One line holds every kernel with its launches, error, times and bound. The
 last line is {"ok": true, "device": {...}}; any failure exits non-zero
@@ -71,19 +89,24 @@ try:
     import torch
 
     from recsys_tpu_torch.ops import contrastive_kernel as K
+    from recsys_tpu_torch.ops import fm_kernel as FM
     from recsys_tpu_torch.ops import spmm as S
     from recsys_tpu_torch.ops.contrastive import bidirectional_infonce, inbatch_logq_loss
+    from recsys_tpu_torch.ops.fm import fm_interaction
 except ImportError as e:  # run outside the repository
     fail(f"cannot import the port ({e}); run from the repository root")
 
 SOURCES = {"diag_ce": "recsys_tpu_torch/csrc/diag_ce.cu",
-           "spmm": "recsys_tpu_torch/csrc/spmm.cu"}
+           "spmm": "recsys_tpu_torch/csrc/spmm.cu",
+           "fm": "recsys_tpu_torch/csrc/fm.cu"}
 REPLACES = {
     "diag_ce_fwd": "recsys_tpu/ops/pallas_contrastive.py:73",
     "diag_ce_bwd_dq": "recsys_tpu/ops/pallas_contrastive.py:97",
     "diag_ce_bwd_dk": "recsys_tpu/ops/pallas_contrastive.py:97",
     "spmm_csr": "recsys_tpu/ops/pallas_spmm.py:237",
     "spmm_hub_reduce": "recsys_tpu/ops/pallas_spmm.py:237",
+    "fm_fwd": "recsys_tpu/ops/pallas_fm.py:31",
+    "fm_bwd": "recsys_tpu/ops/pallas_fm.py:31",
 }
 # published peaks of one H100 SXM: device memory and fp32 outside the tensor cores
 PEAK_BYTES_PER_S, PEAK_FP32_FLOPS = 3.35e12, 67e12
@@ -94,6 +117,15 @@ REF_USERS, REF_ITEMS, REF_INTERACTIONS, REF_BATCH = 200_000, 47_000, 11_300_000,
 LOSS_TOL, GRAD_TOL = 1e-4, 1e-5
 SERVE_TOL = 2e-2  # served vs materialized rows, as tests/test_serve.py
 MAIN_B, D = 192, 128
+FM_RTOL, FM_ATOL = 1e-4, 1e-3   # as tests/test_pallas.py holds the Pallas FM kernel
+# DeepFM at full width: 19 sparse fields + the dense block, K = fm_embed_dim
+FM_FIELDS, FM_K, FM_TRAIN_B, FM_SCORE_B = 20, 16, 2048, 131072
+ITEM_FIELDS = ("product_type_name", "graphical_appearance_name", "colour_group_name",
+               "department_name", "section_name", "perceived_colour_value_name",
+               "material", "detail", "season", "gender", "style")
+USER_FIELDS = ("age_group", "gender", "style", "persona", "club_member_status",
+               "fashion_news_frequency")
+DEEPFM_EPOCHS, RERANK_USERS = 3, 4
 
 
 def card_line() -> str:
@@ -593,6 +625,242 @@ def trainer_phase(root: str, graph, edges_u, edges_i) -> dict:
             "launches": dict(S.LAUNCHES), "launches_per_step": per_step}
 
 
+# -- phase 7: K3 against its plain form -----------------------------------------
+
+def fm_bounds(B: int, F: int, K: int, itemsize: int) -> dict:
+    """The forward reads v once and writes (B,) fp32: one add and one
+    multiply-add a value, a square and a subtraction a (b, k). The backward
+    reads v and g and writes dv: the field sums again, then a subtraction and
+    a multiply a value."""
+    n = B * F * K
+    return {"fm_fwd": bound(n * itemsize + 4 * B, 3.0 * n + 3.0 * B * K),
+            "fm_bwd": bound(2 * n * itemsize + 4 * B, 4.0 * n)}
+
+
+def fm_value_and_grad(fn, v, g):
+    x = v.clone().requires_grad_(True)
+    out = fn(x)
+    (dv,) = torch.autograd.grad((out * g).sum(), x)
+    return out.detach(), dv
+
+
+def fm_phase(device) -> dict:
+    shapes = [(200, 12, 16, torch.float32), (2049, 3, 8, torch.float32),
+              (FM_TRAIN_B, FM_FIELDS, FM_K, torch.float32),
+              (FM_SCORE_B, FM_FIELDS, FM_K, torch.float32),
+              (FM_SCORE_B, FM_FIELDS, FM_K, torch.bfloat16)]
+    errs = {"fm_fwd": 0.0, "fm_bwd": 0.0}
+    rows = []
+    for B, F, Kd, dtype in shapes:
+        rng = np.random.default_rng(B + F)
+        v = torch.as_tensor(rng.normal(size=(B, F, Kd)).astype(np.float32),
+                            device=device).to(dtype)
+        g = torch.as_tensor(rng.normal(size=B).astype(np.float32), device=device)
+        ref_out, ref_dv = fm_value_and_grad(fm_interaction, v, g)
+        FM.reset_launch_counts()
+        out, dv = fm_value_and_grad(FM.fused_fm_interaction, v, g)
+        torch.cuda.synchronize()
+        check(FM.LAUNCHES == {"fm_fwd": 1, "fm_bwd": 1}, f"K3 launches: {FM.LAUNCHES}")
+        check(out.dtype == torch.float32 and dv.dtype == dtype and dv.shape == v.shape,
+              f"K3 output types: {out.dtype}, {dv.dtype} {tuple(dv.shape)}")
+        # dv is rounded to v's type on both sides: they may land one unit apart
+        ulp = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7}[dtype]
+        fwd_err, bwd_err = max_err(out, ref_out), max_err(dv.float(), ref_dv.float())
+        fwd_ok = bool(torch.isclose(out, ref_out, rtol=FM_RTOL, atol=FM_ATOL).all())
+        bwd_ok = bool(torch.isclose(dv.float(), ref_dv.float(), rtol=FM_RTOL + ulp,
+                                    atol=FM_ATOL).all())
+        name = f"({B}, {F}, {Kd}) {str(dtype).split('.')[-1]}"
+        check(fwd_ok and bwd_ok, f"K3 {name}: fwd err {fwd_err}, bwd err {bwd_err}")
+        check(torch.equal(FM.fm_fwd_cuda(v), out) and torch.equal(FM.fm_bwd_cuda(v, g), dv),
+              f"K3 {name}: two calls differ in their bits")
+        if dtype == torch.float32:   # bf16 gradients differ by their rounding, not the kernel's
+            errs["fm_fwd"], errs["fm_bwd"] = max(errs["fm_fwd"], fwd_err), max(errs["fm_bwd"], bwd_err)
+        row = {"shape": [B, F, Kd], "dtype": str(dtype).split(".")[-1],
+               "fwd_err": fwd_err, "bwd_err": bwd_err}
+        if B in (FM_TRAIN_B, FM_SCORE_B):
+            iters = 200 if B == FM_TRAIN_B else 30
+            fwd = interleaved_ms(lambda: FM.fm_fwd_cuda(v), lambda: fm_interaction(v), iters)
+            bwd = interleaved_ms(lambda: FM.fm_bwd_cuda(v, g), lambda: FM.fm_bwd_plain(v, g),
+                                 iters)
+            bounds = fm_bounds(B, F, Kd, v.element_size())
+            row.update({"fm_fwd": {"ms": fwd[0], "plain_ms": fwd[1], **bounds["fm_fwd"]},
+                        "fm_bwd": {"ms": bwd[0], "plain_ms": bwd[1], **bounds["fm_bwd"]}})
+        rows.append(row)
+        print(json.dumps({"phase": "fm_kernel", **row}), flush=True)
+    timed = {(tuple(r["shape"]), r["dtype"]): r for r in rows if "fm_fwd" in r}
+    return {"errs": errs,
+            "train": timed[((FM_TRAIN_B, FM_FIELDS, FM_K), "float32")],
+            "score": timed[((FM_SCORE_B, FM_FIELDS, FM_K), "float32")],
+            "score_bf16": timed[((FM_SCORE_B, FM_FIELDS, FM_K), "bfloat16")]}
+
+
+# -- phase 8: train-reranker through the CLI -------------------------------------
+
+def reranker_slice_phase(root: str) -> tuple[dict, dict]:
+    from recsys_tpu_torch.pipeline import cli
+    from recsys_tpu_torch.train.reranker import GBDTRanker
+
+    sets = ["--set", f"data.root={root}"]  # --device: the default
+    args = cli.parse_args(["train-reranker", *sets])
+    cfg = cli.config_from_args(args)
+    rc = cfg.reranker
+    check((rc.cross_layers, tuple(rc.deep_hidden), rc.batch_size, rc.lr, rc.epochs,
+           rc.negative_source, rc.candidate_top_k, rc.fm_embed_dim)
+          == (3, (128, 64), FM_TRAIN_B, 3e-3, 30, "candidates", 100, FM_K),
+          f"not the default reranker config: {rc}")
+    out = cli.main(["train-reranker", *sets])
+    check(out["device"].startswith("cuda") and out["examples"] > 0, f"train-reranker: {out}")
+    for key in ("gbdt_auc", "dcn_auc"):
+        check(np.isfinite(out[key]) and out[key] > 0.5, f"train-reranker {key}: {out[key]}")
+    check(out["negative_source"] == "candidates" and out["dcn_loss"] == "bce",
+          f"train-reranker: {out}")
+    # the artifact, read back, scores the stage's held-out rows to the stage's AUC
+    rows = cli.reranker_rows(cfg)
+    check(len(rows["y"]) == out["examples"], "the stage's rows were not rebuilt")
+    X, y, split = rows["X"], rows["y"], rows["split"]
+    model = GBDTRanker.load(f"{root}/reranker_gbdt.pkl")
+    check(model.n_iter_ == out["gbdt_iterations"], "reranker_gbdt.pkl: another forest")
+    proba = model.predict_proba(X[split:])
+    check(round(model.auc(X[split:], y[split:]), 4) == out["gbdt_auc"],
+          "reranker_gbdt.pkl does not reproduce the stage's AUC")
+    check(np.array_equal(GBDTRanker.load(f"{root}/reranker_gbdt.pkl").predict_proba(X[split:]),
+                         proba), "two loads of reranker_gbdt.pkl differ")
+    return out, rows
+
+
+# -- phase 9: DeepFM at full width -------------------------------------------------
+
+def deepfm_phase(root: str, rows: dict) -> dict:
+    import statistics
+
+    import pandas as pd
+
+    from recsys_tpu_torch.config import load_config
+    from recsys_tpu_torch.data.ranker_features import build_rank_features
+    from recsys_tpu_torch.eval.recall import topk_scores
+    from recsys_tpu_torch.train.reranker import ReRankingSystem, auc_score, train_deepfm
+
+    cfg = load_config(None, {"reranker": {"epochs": DEEPFM_EPOCHS}})
+    mat, item_map, item_meta = rows["item_matrix"], rows["item_map"], rows["item_meta"]
+    items = pd.read_parquet(f"{root}/items.parquet").set_index("item_id")
+    users = pd.read_parquet(f"{root}/users.parquet").set_index("user_id")
+    check(all(c in items.columns for c in ITEM_FIELDS)
+          and all(c in users.columns for c in USER_FIELDS), "the world lacks a field column")
+
+    def codes(frame, columns, order):
+        """(len(order) + 1, len(columns)) ids, row 0 and unknown values = 0."""
+        frame = frame.reindex(order)
+        out = np.zeros((len(order) + 1, len(columns)), np.int32)
+        for c, col in enumerate(columns):
+            out[1:, c] = pd.factorize(frame[col])[0] + 1
+        return out
+
+    user_order = sorted(users.index)
+    user_row = {u: r + 1 for r, u in enumerate(user_order)}
+    item_codes = codes(items, ITEM_FIELDS, list(item_map.ids))
+    user_codes = codes(users, USER_FIELDS, user_order)
+    uvec_table = np.stack([mat[0]] + [rows["user_vecs"].get(u, mat[0]) for u in user_order])
+
+    def sparse_ids(uidx, iidx):
+        return np.concatenate([iidx[:, None], uidx[:, None], item_codes[iidx],
+                               user_codes[uidx]], axis=1).astype(np.int32)
+
+    def dense_rows(uidx, iidx):
+        return build_rank_features(uvec_table[uidx], mat[iidx],
+                                   np.zeros((len(uidx), 3), np.float32), item_meta[iidx])
+
+    uidx = np.array([user_row[u] for u in rows["user_ids"]])
+    iidx, y, split = rows["item_idx"].astype(np.int64), rows["y"], rows["split"]
+    ids = sparse_ids(uidx, iidx)
+    field_sizes = (len(mat), len(user_order) + 1, *(int(m) + 1 for m in item_codes.max(0)),
+                   *(int(m) + 1 for m in user_codes.max(0)))
+    check(ids.shape[1] + 1 == FM_FIELDS and ids.shape[1] >= 16,
+          f"{ids.shape[1]} sparse fields")
+    check(np.array_equal(dense_rows(uidx, iidx), rows["X"]), "dense rows differ from the stage's")
+    # standardized on the training rows, as train_dcn does: with no user price
+    # history the price-ratio column is ~1e6
+    mu = rows["X"][:split].mean(axis=0, keepdims=True)
+    sd = rows["X"][:split].std(axis=0, keepdims=True) + 1e-6
+
+    def standardized(feats):
+        return ((feats - mu) / sd).astype(np.float32)
+
+    dense = standardized(rows["X"])
+
+    FM.reset_launch_counts()  # the DeepFM path's run starts here
+    t0 = time.perf_counter()
+    state, model, scorer = train_deepfm(cfg, ids[:split], dense[:split], y[:split],
+                                        field_sizes)
+    train_s = time.perf_counter() - t0
+    device = next(model.parameters()).device
+    check(device.type == "cuda", "train_deepfm did not take the card")
+    check(state.step == DEEPFM_EPOCHS * (split // min(FM_TRAIN_B, split)) and state.step > 0,
+          f"train_deepfm took {state.step} steps on {split} rows")
+    check(all(np.isfinite(state.losses)) and state.losses[-1] < state.losses[0],
+          f"DeepFM loss did not fall: {state.losses}")
+    scoring_calls = 0
+
+    def score(i, d):
+        nonlocal scoring_calls
+        scoring_calls += 1
+        return scorer(i, d)
+
+    auc = auc_score(y[split:], score(ids[split:], dense[split:]))
+    check(auc > 0.5, f"DeepFM held-out AUC {auc}")
+
+    # the large-candidate scoring path: 131,072 (user, item) rows in one call
+    rng = np.random.default_rng(cfg.data.seed)
+    cu = rng.integers(1, len(user_order) + 1, FM_SCORE_B)
+    ci = rng.integers(1, len(mat), FM_SCORE_B)
+    cand_ids, cand_dense = sparse_ids(cu, ci), standardized(dense_rows(cu, ci))
+    score(cand_ids[:256], cand_dense[:256])   # first use of this shape family, untimed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    proba = score(cand_ids, cand_dense)
+    score_s = time.perf_counter() - t0
+    check(proba.shape == (FM_SCORE_B,) and bool(np.isfinite(proba).all())
+          and 0.0 <= proba.min() and proba.max() <= 1.0, "candidate scores out of range")
+    kernel_fm = model.fm
+    model.fm = fm_interaction   # the same model with the plain FM form (no launch)
+    try:
+        plain_proba = scorer(cand_ids, cand_dense)
+    finally:
+        model.fm = kernel_fm
+    plain_err = float(np.abs(proba - plain_proba).max())
+    check(plain_err <= 1e-4, f"scorer with K3 vs with the plain FM form: {plain_err}")
+
+    # retrieve-then-rerank with that scorer: the adapter repeats the system's
+    # retrieval to know which items the feature rows belong to
+    items_on_card = torch.as_tensor(mat, device=device)
+    recommended = []
+    for u in rng.choice(np.unique(uidx), RERANK_USERS, replace=False):
+        uvec = uvec_table[u]
+
+        def rerank_scorer(feats, u=u, uvec=uvec):
+            _, idx = topk_scores(torch.as_tensor(uvec[None], device=device), items_on_card, 100)
+            idx = idx[0].cpu().numpy()
+            check(np.allclose(feats[:, 0], (uvec[None] * mat[idx]).sum(-1), atol=1e-5),
+                  "rerank features do not belong to the retrieved items")
+            return score(sparse_ids(np.full(len(idx), u), idx), standardized(feats))
+
+        system = ReRankingSystem(mat, item_meta, rerank_scorer, retrieve_k=100, final_k=10)
+        got, p = system.recommend(uvec, np.zeros(3, np.float32))
+        check(len(got) == 10 and len(set(got.tolist())) == 10 and (got > 0).all()
+              and bool((p[:-1] >= p[1:]).all()), f"recommend: {got} {p}")
+        recommended.append(got.tolist())
+    torch.cuda.synchronize()
+    launches = dict(FM.LAUNCHES)
+    check(launches == {"fm_fwd": state.step + scoring_calls, "fm_bwd": state.step},
+          f"K3 launches {launches}: {state.step} steps, {scoring_calls} scoring calls")
+    step_ms = [1e3 * t for t in state.step_seconds]
+    return {"rows": int(split), "fields": FM_FIELDS, "field_sizes": list(field_sizes),
+            "steps": state.step, "epoch_losses": state.losses, "train_seconds": train_s,
+            "step_ms_median": statistics.median(step_ms[1:]), "first_step_ms": step_ms[0],
+            "held_out_auc": auc, "scoring_calls": scoring_calls,
+            "score_131072_seconds": score_s, "scorer_vs_plain_fm_err": plain_err,
+            "recommended": recommended, "launches": launches}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
@@ -603,15 +871,16 @@ def main() -> None:
                       "python": sys.version.split()[0], "allow_tf32": False}), flush=True)
     print(card_line(), flush=True)
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:  # one nvcc per source, together
-        for job in [pool.submit(K.load_library), pool.submit(S.load_library)]:
+    modules = {"diag_ce": K, "spmm": S, "fm": FM}
+    with concurrent.futures.ThreadPoolExecutor(len(modules)) as pool:  # one nvcc per source, together
+        for job in [pool.submit(m.load_library) for m in modules.values()]:
             job.result()
     print(json.dumps({"build": SOURCES, "seconds": time.perf_counter() - t0,
-                      "nvcc_seconds": {"diag_ce": K.BUILD_INFO.get("seconds"),
-                                       "spmm": S.BUILD_INFO.get("seconds")},
-                      "cached": [K.BUILD_INFO.get("cached"), S.BUILD_INFO.get("cached")],
-                      "ptxas": [ln.strip() for info in (K.BUILD_INFO, S.BUILD_INFO)
-                                for ln in info.get("ptxas", "").splitlines()
+                      "nvcc_seconds": {n: m.BUILD_INFO.get("seconds")
+                                       for n, m in modules.items()},
+                      "cached": [m.BUILD_INFO.get("cached") for m in modules.values()],
+                      "ptxas": [ln.strip() for m in modules.values()
+                                for ln in m.BUILD_INFO.get("ptxas", "").splitlines()
                                 if "registers" in ln or "spill" in ln]}), flush=True)
 
     _rows, kstats = kernel_phase(device)
@@ -626,6 +895,12 @@ def main() -> None:
         print(json.dumps({"phase": "gnn_slice", **gnn}), flush=True)
         trainer = trainer_phase(root, graph, edges_u, edges_i)
         print(json.dumps({"phase": "gnn_trainer", **trainer}), flush=True)
+        del graph, edges_u, edges_i
+        fstats = fm_phase(device)
+        reranker, rows = reranker_slice_phase(root)
+        print(json.dumps({"phase": "reranker_slice", **reranker}), flush=True)
+        deepfm = deepfm_phase(root, rows)
+        print(json.dumps({"phase": "deepfm", **deepfm}), flush=True)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -643,6 +918,15 @@ def main() -> None:
                  **{k: sstats[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                  "bound_by", "library_ms")}}
                 for name in S.LAUNCHES]
+    # K3's times are at the training shape, where most of its launches are; the
+    # scoring shape (one launch a request) goes beside them
+    kernels += [{"name": name, "route": "cuda", "source": SOURCES["fm"],
+                 "replaces": REPLACES[name], "launches": deepfm["launches"][name],
+                 "max_abs_err": fstats["errs"][name], **fstats["train"][name],
+                 "library_ms": None,
+                 "scoring_shape": fstats["score"][name],
+                 "scoring_shape_bf16": fstats["score_bf16"][name]}
+                for name in FM.LAUNCHES]
     check(all(k["launches"] > 0 for k in kernels), f"kernel not on the main path: {kernels}")
     check(not any(m.split(".")[0] in ("jax", "flax", "optax", "recsys_tpu")
                   for m in sys.modules), "the port pulled in JAX or the JAX package")

@@ -9,10 +9,18 @@ path, with these leaf conversions:
   Embed            embedding                 -> weight
   LayerNorm        scale, bias               -> weight, bias
   raw params       (e.g. std_field_embedding, pos_embedding, LightGCL's
-                   user_emb / item_emb tables, logit_scale) as they are
+                   user_emb / item_emb tables, logit_scale, DeepFM's scalar
+                   bias) as they are
+
+The reranker models map the same way: ``DCNRanker``'s ``nn.compact``
+auto-names (``CrossNet_0/cross_{i}``, ``MLP_0/Dense_{i}``, ``score``) and
+``DeepFM``'s ``fm_embed_{f}`` / ``fm_first_{f}`` (an Embed of width 1) /
+``dense_embed`` are the port's submodule names.
 
 Inputs and outputs are nested dicts of numpy arrays, so neither direction
-needs Flax.
+needs Flax. ``gbdt_from_sklearn`` carries a fitted scikit-learn histogram
+gradient-boosting classifier into the port's tree arrays; it reads attributes
+of the object it is given and imports nothing.
 """
 
 from __future__ import annotations
@@ -110,3 +118,30 @@ def load_flax_params(model: nn.Module, params: Mapping) -> nn.Module:
     """Copy a Flax ``params`` tree into ``model`` (strict: every key maps)."""
     model.load_state_dict(flax_to_torch(params), strict=True)
     return model
+
+
+def gbdt_from_sklearn(model) -> dict:
+    """A fitted binary ``HistGradientBoostingClassifier`` -> the tree arrays
+    ``train.reranker.GBDTRanker.from_trees`` takes: (T, M) node arrays padded
+    with zero-valued leaves, ``depth`` of the deepest tree and ``baseline``
+    (the raw prediction before the first tree). Leaf values already carry the
+    learning rate; a row goes left when ``x <= threshold``."""
+    predictors = model._predictors
+    if any(len(per_class) != 1 for per_class in predictors):
+        raise ValueError("want a binary classifier (one tree an iteration)")
+    nodes = [per_class[0].nodes for per_class in predictors]
+    if any(n["is_categorical"].any() for n in nodes):
+        raise ValueError("categorical splits are not carried over")
+    M = max((len(n) for n in nodes), default=1)
+    fields = {"feature": ("feature_idx", np.int64), "threshold": ("num_threshold", np.float64),
+              "left": ("left", np.int64), "right": ("right", np.int64),
+              "value": ("value", np.float64), "is_leaf": ("is_leaf", bool),
+              "missing_left": ("missing_go_to_left", bool)}
+    out = {k: np.zeros((len(nodes), M), dt) for k, (_, dt) in fields.items()}
+    out["is_leaf"][:] = True
+    for t, n in enumerate(nodes):
+        for k, (name, dt) in fields.items():
+            out[k][t, :len(n)] = n[name].astype(dt)
+    out["depth"] = max((int(n["depth"].max()) for n in nodes), default=0)
+    out["baseline"] = float(np.asarray(model._baseline_prediction).reshape(-1)[0])
+    return out

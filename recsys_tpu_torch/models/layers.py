@@ -53,26 +53,30 @@ def lecun_normal_(weight: torch.Tensor) -> torch.Tensor:
 
 
 class Dense(nn.Linear):
-    """``nn.Dense(dtype=bf16)``: fp32 params, bf16 inputs and output."""
+    """``nn.Dense(dtype=...)``: fp32 params; inputs and output in ``dtype``
+    (bf16 by default, fp32 for the reranker models)."""
 
-    def __init__(self, in_features: int, out_features: int):
+    def __init__(self, in_features: int, out_features: int, dtype: torch.dtype = BF16):
         super().__init__(in_features, out_features)
+        self.compute_dtype = dtype
         lecun_normal_(self.weight)
         nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(BF16), self.weight.to(BF16), self.bias.to(BF16))
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
 class Embed(nn.Embedding):
-    """``nn.Embed(dtype=bf16)``: fp32 table, bf16 rows out."""
+    """``nn.Embed(dtype=...)``: fp32 table, rows out in ``dtype``."""
 
-    def __init__(self, num_embeddings: int, features: int):
+    def __init__(self, num_embeddings: int, features: int, dtype: torch.dtype = BF16):
         super().__init__(num_embeddings, features)
+        self.compute_dtype = dtype
         nn.init.normal_(self.weight, std=1.0 / math.sqrt(features))
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return super().forward(ids).to(BF16)
+        return super().forward(ids).to(self.compute_dtype)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -124,14 +128,15 @@ class MultiHeadDotProductAttention(nn.Module):
 
 class MLP(nn.Module):
     def __init__(self, in_dim: int, features: Sequence[int],
-                 activate_last: bool = False, dropout_rate: float = 0.0):
+                 activate_last: bool = False, dropout_rate: float = 0.0,
+                 dtype: torch.dtype = BF16):
         super().__init__()
         self.n = len(features)
         self.activate_last = activate_last
         self.dropout_rate = dropout_rate
         dims = [in_dim, *features]
         for i in range(self.n):
-            self.add_module(f"Dense_{i}", Dense(dims[i], dims[i + 1]))
+            self.add_module(f"Dense_{i}", Dense(dims[i], dims[i + 1], dtype))
 
     def forward(self, x, generator: torch.Generator | None = None):
         for i in range(self.n):

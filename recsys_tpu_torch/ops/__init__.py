@@ -50,3 +50,14 @@ def select_logq_loss(mode: str = "auto"):
         return fn(user_emb, item_emb, pos_item_ids, log_q, **kw)
 
     return logq_loss
+
+
+def select_fm(mode: str = "auto"):
+    """The FM second-order term (B, F, K) -> (B,) under ``mode``."""
+    from recsys_tpu_torch.ops.fm import fm_interaction
+    from recsys_tpu_torch.ops.fm_kernel import fused_fm_interaction
+
+    def fm(v):
+        return (fused_fm_interaction if use_kernel(mode, v.device) else fm_interaction)(v)
+
+    return fm

@@ -28,6 +28,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from recsys_tpu_torch.device import resolve_device
 from recsys_tpu_torch.ops._build import KernelLibrary, raise_on_error
 
 # launches per kernel; each wrapper adds one where it launches, nowhere else
@@ -122,9 +123,10 @@ def _symmetric_order(src, dst, weight, num_nodes: int):
 
 
 def csr_graph(src, dst, weight, num_nodes: int, max_segment: int = MAX_SEGMENT,
-              device: torch.device | str = "cpu") -> CsrGraph:
+              device: torch.device | str = "cuda") -> CsrGraph:
     """COO edge list (arrays or tensors) -> :class:`CsrGraph` on ``device``.
     Done once per graph; the sorts run on ``device``."""
+    device = resolve_device(device)
     src, dst, weight = (a if torch.is_tensor(a) else torch.as_tensor(np.asarray(a))
                         for a in (src, dst, weight))
     if not (src.shape == dst.shape == weight.shape and src.dim() == 1):

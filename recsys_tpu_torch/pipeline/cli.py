@@ -1,4 +1,5 @@
-"""Pipeline CLI of the port: the stages of the item-vector and GNN slices.
+"""Pipeline CLI of the port: the stages of the item-vector, GNN and reranker
+slices.
 
 Counterpart of ``recsys_tpu/pipeline/cli.py``, with the same ``--set``
 overrides, artifact paths and one JSON line per stage:
@@ -10,6 +11,8 @@ overrides, artifact paths and one JSON line per stage:
   train-gnn    LightGCL (``--resume``, ``--fine-tune``) -> graph embeddings
   distill      magnitude->cosine projector           -> distilled vectors
   gnn-eval     GNN recall rows + distillation fidelity -> gnn_eval.json
+  train-reranker  GBDT (``--iterations``) + DCN rerankers on tower candidates
+               -> reranker_gbdt.pkl
   serve        HTTP server; ``--model-backed`` vectorizes with the trained
                encoder
 
@@ -232,6 +235,86 @@ def cmd_gnn_eval(cfg: Config, args) -> dict:
     return out
 
 
+def reranker_rows(cfg: Config) -> dict:
+    """The reranker's training rows from the world, the item matrix and the
+    item features: per purchase one positive and ``neg_per_pos`` negatives
+    (from the tower's own top-k, or uniform), the 10 dense features ``X`` of
+    each row, labels, group ids and the 80/20 split on a group boundary.
+    Seeded by ``data.seed``: the same artifacts give the same rows."""
+    from recsys_tpu_torch.data.dataset import IdMap
+    from recsys_tpu_torch.data.etl import time_split
+    from recsys_tpu_torch.data.ranker_features import (
+        build_rank_features, import_interactions, import_interactions_candidates)
+    from recsys_tpu_torch.train.checkpoint import load_array_with_ids
+
+    p = _paths(cfg)
+    _, _, tx = _load_world(cfg)
+    train_tx, _, _ = time_split(tx, cfg.data.valid_days)
+    mat, ids, _ = load_array_with_ids(p["item_matrix"])
+    item_map = IdMap(ids[1:])
+    rng = np.random.default_rng(cfg.data.seed)
+    # user vector = mean of purchased item vectors (two-tower stand-in when
+    # the user tower hasn't been trained yet)
+    uvecs = {}
+    for uid, g in train_tx.groupby("user_id"):
+        rows = [item_map.idx(i) for i in g["item_id"]]
+        uvecs[uid] = mat[[r for r in rows if r > 0]].mean(0) if rows else mat[0]
+    if cfg.reranker.negative_source == "candidates":
+        uids, iidx, labels, groups = import_interactions_candidates(
+            train_tx.tail(20000), uvecs, mat, item_map, rng,
+            cfg.reranker.neg_per_pos, cfg.reranker.candidate_top_k)
+    else:
+        uids, iidx, labels, groups = import_interactions(
+            train_tx.tail(20000), len(item_map), item_map, rng,
+            cfg.reranker.neg_per_pos)
+    ifeats = pd.read_parquet(p["item_feats"]).set_index("item_id")
+    pop = np.zeros(len(mat), np.float32)
+    price = np.zeros(len(mat), np.float32)
+    for iid, r in zip(item_map.ids, range(1, len(mat))):
+        if iid in ifeats.index:
+            pop[r] = ifeats.loc[iid, "pop_1m_log"]
+            price[r] = ifeats.loc[iid, "avg_item_price_log"]
+    item_meta = np.stack([pop, price], axis=1)
+    u_arr = np.stack([uvecs.get(u, mat[0]) for u in uids])
+    um = np.zeros((len(uids), 3), np.float32)
+    X = build_rank_features(u_arr, mat[iidx], um, item_meta[iidx])
+    # split on a group boundary so pairwise groups stay intact
+    split = int(0.8 * len(labels))
+    if split < len(groups):
+        split -= int(np.sum(groups[:split] == groups[split]))
+    return {"X": X, "y": labels, "groups": groups, "split": split, "user_ids": uids,
+            "item_idx": iidx, "user_vecs": uvecs, "item_matrix": mat, "item_map": item_map,
+            "item_meta": item_meta}
+
+
+def cmd_train_reranker(cfg: Config, args) -> dict:
+    from recsys_tpu_torch.train.reranker import GBDTRanker, auc_score, train_dcn
+
+    device = resolve_device(args.device)
+    p = _paths(cfg)
+    rows = reranker_rows(cfg)
+    X, y, groups, split = rows["X"], rows["y"], rows["groups"], rows["split"]
+    t0 = time.perf_counter()
+    gbdt = GBDTRanker(iterations=getattr(args, "iterations", None) or 200,
+                      device=device).fit(X[:split], y[:split])
+    gbdt_seconds = time.perf_counter() - t0
+    gbdt_auc = gbdt.auc(X[split:], y[split:])
+    t0 = time.perf_counter()
+    state, _, predict = train_dcn(cfg, X[:split], y[:split], groups=groups[:split],
+                                  device=device)
+    dcn_seconds = time.perf_counter() - t0
+    dcn_auc = auc_score(y[split:], predict(X[split:]))
+    gbdt.save(f"{p['root']}/reranker_gbdt.pkl")
+    steady = state.step_seconds[1:] or state.step_seconds
+    return {"gbdt_auc": round(gbdt_auc, 4), "dcn_auc": round(dcn_auc, 4),
+            "negative_source": cfg.reranker.negative_source,
+            "dcn_loss": cfg.reranker.loss,
+            "examples": int(len(y)), "device": str(device),
+            "gbdt_iterations": gbdt.n_iter_, "gbdt_seconds": gbdt_seconds,
+            "dcn_steps": state.step, "dcn_seconds": dcn_seconds,
+            "dcn_step_ms_median": 1e3 * statistics.median(steady) if steady else None}
+
+
 def build_app(cfg: Config, args):
     """The serving context of ``serve``: store, index and vectorizer."""
     from recsys_tpu_torch.serve.app import build_app_context, model_vectorizer
@@ -265,6 +348,7 @@ COMMANDS = {
     "train-gnn": cmd_train_gnn,
     "distill": cmd_distill,
     "gnn-eval": cmd_gnn_eval,
+    "train-reranker": cmd_train_reranker,
     "serve": cmd_serve,
 }
 
@@ -284,6 +368,8 @@ def parse_args(argv=None):
                         help="train-gnn: continue from the latest checkpoint")
     parser.add_argument("--fine-tune", action="store_true", dest="fine_tune",
                         help="train-gnn: previous weights, fresh optimizer, cosine decay")
+    parser.add_argument("--iterations", type=int, default=None,
+                        help="train-reranker: boosting iterations (default 200)")
     return parser.parse_args(argv)
 
 

@@ -20,7 +20,6 @@ from __future__ import annotations
 
 import contextlib
 import math
-import time
 from typing import Callable, Mapping
 
 import numpy as np
@@ -45,7 +44,7 @@ from recsys_tpu_torch.ops.graph import (
 from recsys_tpu_torch.ops.spmm import CsrGraph, csr_graph, spmm
 from recsys_tpu_torch.train.checkpoint import CheckpointStore, save_array_with_ids
 from recsys_tpu_torch.train.metrics import MetricWriter
-from recsys_tpu_torch.train.state import TrainState
+from recsys_tpu_torch.train.state import StepTimer, TrainState
 
 
 def graph_from_transactions(tx_df, user_map, item_map, cfg: GNNConfig,
@@ -223,14 +222,6 @@ def train_lightgcl(cfg: Config, graph: BipartiteGraph, edges_u: np.ndarray,
     step_fn = make_gnn_step(state, graph, g, prop_args)
     rng = np.random.default_rng(cfg.data.seed)
     sorted_keys = edge_key_index(edges_u, edges_i, graph.num_items)
-    on_card = device.type == "cuda"
-
-    def mark():
-        if not on_card:
-            return time.perf_counter()
-        event = torch.cuda.Event(enable_timing=True)
-        event.record()
-        return event
 
     with contextlib.ExitStack() as stack:
         if writer is None:
@@ -239,7 +230,7 @@ def train_lightgcl(cfg: Config, graph: BipartiteGraph, edges_u: np.ndarray,
         model.train()
         for epoch in range(start_epoch, g.epochs + 1):
             losses: list = []   # device scalars: a float() per step would
-            marks = [mark()]    # make every step wait for the host
+            timer = StepTimer(device)   # make every step wait for the host
             ep_steps = 0
             for _pass in range(passes):   # steps floor: shuffled re-passes
                 for users, pos, neg in sample_bpr_batches(edges_u, edges_i,
@@ -250,7 +241,7 @@ def train_lightgcl(cfg: Config, graph: BipartiteGraph, edges_u: np.ndarray,
                                   torch.as_tensor(pos, device=device),
                                   torch.as_tensor(neg, device=device))
                     losses.append(aux["loss"])
-                    marks.append(mark())
+                    timer.mark()
                     ep_steps += 1
                     if step_hook is not None:
                         step_hook(state.step)
@@ -262,12 +253,7 @@ def train_lightgcl(cfg: Config, graph: BipartiteGraph, edges_u: np.ndarray,
                 if g.steps_per_epoch_max and ep_steps >= steps_per_epoch:
                     break
             mean = float(torch.stack(losses).mean()) if losses else 0.0
-            if on_card:
-                torch.cuda.synchronize(device)
-                state.step_seconds += [a.elapsed_time(b) / 1e3
-                                       for a, b in zip(marks, marks[1:])]
-            else:
-                state.step_seconds += [b - a for a, b in zip(marks, marks[1:])]
+            state.step_seconds += timer.seconds()
             state.losses.append(mean)
             writer.write("epoch", epoch, loss=mean)
             payload = {"model": model.state_dict(),

@@ -35,9 +35,10 @@ MODEL_INPUTS = ("std", "re_ids", "re_mask", "txt_ids", "txt_mask")
 
 
 def build_model(cfg: Config, std_vocab_size: int, num_std_fields: int,
-                device: torch.device | str = "cpu", seed: int | None = None
+                device: torch.device | str = "cuda", seed: int | None = None
                 ) -> SimCSEModel:
-    """A fresh model; ``seed`` makes its random init reproducible."""
+    """A fresh model on ``device``; ``seed`` makes its random init reproducible."""
+    device = resolve_device(device)
     with torch.random.fork_rng(devices=[]):
         if seed is not None:
             torch.manual_seed(seed)

@@ -10,6 +10,7 @@ not ported yet.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 from typing import Callable
 
@@ -24,7 +25,31 @@ class TrainState:
     scheduler: torch.optim.lr_scheduler.LRScheduler | None = None
     step: int = 0
     losses: list[float] = field(default_factory=list)         # per step
-    step_seconds: list[float] = field(default_factory=list)   # host clock, synced
+    step_seconds: list[float] = field(default_factory=list)   # see StepTimer
+
+
+class StepTimer:
+    """Per-step times of a training loop: CUDA events on the card, read at the
+    end so that no step waits for the host; the host clock on the CPU.
+    ``mark()`` after every step, ``seconds()`` once the loop is done."""
+
+    def __init__(self, device: torch.device):
+        self.device, self.marks = device, []
+        self.mark()
+
+    def mark(self) -> None:
+        if self.device.type == "cuda":
+            event = torch.cuda.Event(enable_timing=True)
+            event.record()
+            self.marks.append(event)
+        else:
+            self.marks.append(time.perf_counter())
+
+    def seconds(self) -> list[float]:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+            return [a.elapsed_time(b) / 1e3 for a, b in zip(self.marks, self.marks[1:])]
+        return [b - a for a, b in zip(self.marks, self.marks[1:])]
 
 
 def warmup_linear_factor(total_steps: int, warmup_frac: float = 0.1

@@ -57,7 +57,7 @@ def tensors():
 def test_flax_torch_flax_round_trip_is_exact(cfg, tensors):
     model = jax_build_model(cfg, StdVocab().size, tensors["std"].shape[1])
     params = jax.device_get(init_params(model, tensors, jax.random.PRNGKey(0)))
-    tm = build_model(cfg, StdVocab().size, tensors["std"].shape[1])
+    tm = build_model(cfg, StdVocab().size, tensors["std"].shape[1], "cpu")
     load_flax_params(tm, params)  # strict: every torch key is mapped
     back = _flat(torch_to_flax(tm))
     ref = _flat(params)
@@ -69,7 +69,7 @@ def test_flax_torch_flax_round_trip_is_exact(cfg, tensors):
 
 @pytest.mark.parametrize("cfg", [SMALL_CFG, DEEP_CFG], ids=["small", "deep"])
 def test_torch_flax_torch_round_trip_is_exact(cfg, tensors):
-    tm = build_model(cfg, StdVocab().size, tensors["std"].shape[1], seed=1)
+    tm = build_model(cfg, StdVocab().size, tensors["std"].shape[1], "cpu", seed=1)
     sd = flax_to_torch(torch_to_flax(tm))
     ref = tm.state_dict()
     assert set(sd) == set(ref)

@@ -141,7 +141,8 @@ def test_gnn_stages_refuse_device_cuda_without_a_card(stage, tmp_path):
 @pytest.mark.parametrize("entry", [
     "select_propagation", "final_embeddings", "export_gnn_artifacts",
     "gnn_propagation_check", "train_lightgcl", "train_distill",
-    "topk_rows", "standalone_rows", "distill_fidelity", "topk_items"])
+    "topk_rows", "standalone_rows", "distill_fidelity", "topk_items",
+    "csr_graph", "build_model"])
 def test_entry_points_take_the_card_by_default_and_raise_without_one(entry, tmp_path):
     """With no ``device`` given an entry point of the GNN slice runs on the
     card; without one it raises before any work and never runs on the CPU."""
@@ -150,6 +151,7 @@ def test_entry_points_take_the_card_by_default_and_raise_without_one(entry, tmp_
     from recsys_tpu_torch.config import Config, GNNConfig
     from recsys_tpu_torch.eval import gnn_eval as E
     from recsys_tpu_torch.models.lightgcl import LightGCL
+    from recsys_tpu_torch.ops import spmm as S
     from recsys_tpu_torch.train import gnn as G
     from recsys_tpu_torch.train import simcse
 
@@ -171,6 +173,8 @@ def test_entry_points_take_the_card_by_default_and_raise_without_one(entry, tmp_
             u, [str(k) for k in range(30)], i, [str(k) for k in range(20)], {"0": ["1"]}),
         "distill_fidelity": lambda: E.distill_fidelity(u, i, i, u, k=5),
         "topk_items": lambda: simcse.topk_items(i, u, k=3),
+        "csr_graph": lambda: S.csr_graph(graph.src, graph.dst, graph.weight, graph.num_nodes),
+        "build_model": lambda: simcse.build_model(Config(), 50, 6),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
@@ -181,7 +185,8 @@ def test_spmm_wrapper_refuses_cpu_tensors_and_a_layout_elsewhere():
     from recsys_tpu_torch.ops import spmm as S
 
     graph = _tiny_graph()
-    layout = S.csr_graph(graph.src, graph.dst, graph.weight, graph.num_nodes)
+    layout = S.csr_graph(graph.src, graph.dst, graph.weight, graph.num_nodes,
+                         device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         S.spmm_cuda(layout, torch.zeros(graph.num_nodes, 64))
     with pytest.raises(ValueError, match="layout on"):

@@ -82,7 +82,7 @@ def item_tensors():
 def models(item_tensors):
     jm = jax_build_model(SMALL_CFG, StdVocab().size, item_tensors["std"].shape[1])
     params = jax.device_get(init_params(jm, item_tensors, jax.random.PRNGKey(0)))
-    tm = TS.build_model(SMALL_CFG, StdVocab().size, item_tensors["std"].shape[1])
+    tm = TS.build_model(SMALL_CFG, StdVocab().size, item_tensors["std"].shape[1], "cpu")
     load_flax_params(tm, params)
     return jm, params, tm
 
@@ -206,7 +206,7 @@ def test_simcse_loss_and_grads_match_jax(item_tensors):
         return JC.bidirectional_infonce(e1, e2, cfg.simcse.temperature)
 
     ref_loss, ref_grads = jax.jit(jax.value_and_grad(jloss))(params)
-    tm = TS.build_model(cfg, StdVocab().size, 6)
+    tm = TS.build_model(cfg, StdVocab().size, 6, "cpu")
     load_flax_params(tm, params)
     tm.train()
     loss, _, _ = TS.loss_on_views(tm, cfg, {k: torch.tensor(v) for k, v in v1.items()},
@@ -231,7 +231,7 @@ def test_adamw_groups_and_schedule_match_optax(models):
     cfg = dataclasses.replace(SMALL_CFG, simcse=dataclasses.replace(
         SMALL_CFG.simcse, lr=1e-2, text_encoder_lr=1e-3))
     _, params, _ = models
-    tm = TS.build_model(cfg, StdVocab().size, 6)
+    tm = TS.build_model(cfg, StdVocab().size, 6, "cpu")
     load_flax_params(tm, params)
     state = JaxTrainState.create(params, jax_make_optimizer(cfg, params, 10))
     opt, sched = TS.make_optimizer(cfg, tm, 10)

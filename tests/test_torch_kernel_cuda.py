@@ -1,5 +1,5 @@
-"""Kernels K1 (csrc/diag_ce.cu) and K2 (csrc/spmm.cu) against their plain
-PyTorch forms, on the card.
+"""Kernels K1 (csrc/diag_ce.cu), K2 (csrc/spmm.cu) and K3 (csrc/fm.cu)
+against their plain PyTorch forms, on the card.
 
 Needs an NVIDIA GPU and nvcc; skips elsewhere. This file imports no JAX, so
 on the GPU machine it runs without the JAX test harness:
@@ -11,7 +11,8 @@ Tolerances are the JAX suite's for the Pallas kernel
 with TF32 off; the kernel sums in another order than cuBLAS. K2 is held to
 1e-5 abs (tests/test_spmm.py) on graphs whose rows sum up to a few thousand
 terms of size ~1e-2; it sums a row in edge order, ``index_add_`` in the
-order its atomics land.
+order its atomics land. K3 is held to rtol 1e-4 / atol 1e-3, the JAX suite's
+bound for the Pallas FM kernel (tests/test_pallas.py), forward and gradient.
 """
 
 import numpy as np
@@ -19,8 +20,11 @@ import pytest
 import torch
 
 from recsys_tpu_torch.ops import contrastive_kernel as K
+from recsys_tpu_torch.ops import fm_kernel as FK
+from recsys_tpu_torch.ops import select_fm
 from recsys_tpu_torch.ops import spmm as S
 from recsys_tpu_torch.ops.contrastive import bidirectional_infonce, inbatch_logq_loss
+from recsys_tpu_torch.ops.fm import fm_interaction
 
 pytestmark = pytest.mark.cuda
 
@@ -173,3 +177,65 @@ def test_spmm_kernel_rejects_bad_inputs(device):
             S.spmm_cuda(layout, bad) if bad.is_cuda else S.spmm(layout, bad)
     with pytest.raises(ValueError, match="32, 64 or 128"):
         S.spmm_cuda(layout, torch.randn(n, 48, device=device))
+
+
+# -- K3: the FM second-order term ---------------------------------------------
+
+def _fm_value_and_grad(fn, v, g):
+    x = v.clone().requires_grad_(True)
+    out = fn(x)
+    (dv,) = torch.autograd.grad((out * g).sum(), x)
+    return out.detach(), dv
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16],
+                         ids=["f32", "bf16", "f16"])
+@pytest.mark.parametrize("shape", [
+    (200, 12, 16),       # the JAX suite's shape
+    (2049, 3, 8),        # a ragged batch, four field groups a warp
+    (2048, 20, 16),      # DeepFM training
+    (131072, 20, 16),    # large-candidate scoring
+    (77, 7, 12), (33, 4, 48), (65, 5, 1), (40, 6, 32), (1, 1, 64),   # any F, any K
+])
+def test_fm_kernel_matches_plain(device, shape, dtype):
+    rng = np.random.default_rng(sum(shape))
+    v = torch.as_tensor(rng.normal(size=shape).astype(np.float32), device=device).to(dtype)
+    g = torch.as_tensor(rng.normal(size=shape[0]).astype(np.float32), device=device)
+    ref_out, ref_dv = _fm_value_and_grad(fm_interaction, v, g)
+    FK.reset_launch_counts()
+    out, dv = _fm_value_and_grad(FK.fused_fm_interaction, v, g)
+    torch.cuda.synchronize()
+    assert FK.LAUNCHES == {"fm_fwd": 1, "fm_bwd": 1}
+    assert out.dtype == torch.float32 and out.shape == (shape[0],)
+    assert dv.dtype == dtype and dv.shape == shape
+    torch.testing.assert_close(out, ref_out, rtol=1e-4, atol=1e-3)
+    # dv is rounded to v's type on both sides; one unit in the last place apart at most
+    ulp = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}[dtype]
+    torch.testing.assert_close(dv.float(), ref_dv.float(), rtol=1e-4 + ulp, atol=1e-3)
+    torch.testing.assert_close(dv.float(), FK.fm_bwd_plain(v, g).float(),
+                               rtol=1e-4 + ulp, atol=1e-3)
+    assert torch.equal(FK.fm_fwd_cuda(v), out)            # deterministic
+    assert torch.equal(FK.fm_bwd_cuda(v, g), dv)
+
+
+def test_fm_kernel_dispatch_and_bad_inputs(device):
+    v = torch.randn(8, 3, 16, device=device)
+    FK.reset_launch_counts()
+    assert torch.equal(select_fm("auto")(v), FK.fm_fwd_cuda(v))
+    assert torch.equal(select_fm("pallas")(v), FK.fm_fwd_cuda(v))
+    assert FK.LAUNCHES["fm_fwd"] == 4
+    select_fm("xla")(v)
+    assert FK.LAUNCHES["fm_fwd"] == 4                     # the plain form launches nothing
+    assert FK.fused_fm_interaction(v[:0]).shape == (0,)   # no rows: no launch
+    assert FK.LAUNCHES["fm_fwd"] == 4
+    # a view that is not contiguous is copied by the wrapper, refused by the kernel call
+    t = v.transpose(1, 2)
+    torch.testing.assert_close(FK.fused_fm_interaction(t), fm_interaction(t),
+                               rtol=1e-4, atol=1e-3)
+    for bad in (v.double(), t, v[0], v.cpu()):
+        with pytest.raises((ValueError, RuntimeError)):
+            FK.fm_fwd_cuda(bad)
+    with pytest.raises(ValueError):
+        FK.fm_bwd_cuda(v, torch.zeros(8, device=device, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        FK.fm_bwd_cuda(v, torch.zeros(7, device=device))

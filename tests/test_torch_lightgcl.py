@@ -79,7 +79,7 @@ def test_forward_through_the_spmm_prop_fn_matches(setup):
     g = setup["graph"]
     model = load_flax_params(TL.LightGCL(g.num_users, g.num_items, CFG, prop_fn=spmm),
                              setup["params"])
-    layout = csr_graph(g.src, g.dst, g.weight, g.num_nodes)
+    layout = csr_graph(g.src, g.dst, g.weight, g.num_nodes, device="cpu")
     ref = setup["jmodel"].apply({"params": setup["params"]}, *setup["jargs"])
     for got, want in zip(model(layout, *setup["targs"][1:]), ref):
         _close(got, want)
@@ -118,7 +118,7 @@ def test_total_loss_gradients_match(setup, backend):
     if backend == "spmm":
         model = load_flax_params(TL.LightGCL(g.num_users, g.num_items, CFG, prop_fn=spmm),
                                  setup["params"])
-        args = (csr_graph(g.src, g.dst, g.weight, g.num_nodes), *setup["targs"][1:])
+        args = (csr_graph(g.src, g.dst, g.weight, g.num_nodes, device="cpu"), *setup["targs"][1:])
     else:
         model, args = setup["tmodel"], setup["targs"]
     lu, li, gu, gi = model(*args)

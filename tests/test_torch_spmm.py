@@ -45,7 +45,7 @@ def _jax_blocked(graph, pack):
 @pytest.mark.parametrize("dim", [64, 32])
 def test_spmm_plain_matches_jax_propagate(graph, dim, max_segment):
     layout = S.csr_graph(graph.src, graph.dst, graph.weight, graph.num_nodes,
-                         max_segment=max_segment)
+                         max_segment=max_segment, device="cpu")
     x = _x(graph, dim, 1)
     ref = jax_propagate(jnp.asarray(x), jnp.asarray(graph.src), jnp.asarray(graph.dst),
                         jnp.asarray(graph.weight), graph.num_nodes)
@@ -58,7 +58,7 @@ def test_spmm_plain_matches_jax_propagate(graph, dim, max_segment):
 @pytest.mark.parametrize("pack", [1, 2])
 @pytest.mark.parametrize("dim", [64, 32])
 def test_spmm_plain_matches_the_jax_kernel(graph, dim, pack):
-    layout = S.csr_graph(graph.src, graph.dst, graph.weight, graph.num_nodes)
+    layout = S.csr_graph(graph.src, graph.dst, graph.weight, graph.num_nodes, device="cpu")
     x = _x(graph, dim, 2)
     meta, arrays = _jax_blocked(graph, pack)
     ref = jax_spmm(meta, arrays, jnp.asarray(x), "f32")
@@ -70,7 +70,7 @@ def test_spmm_plain_matches_the_jax_kernel(graph, dim, pack):
 def test_spmm_gradient_matches_jax_grad_of_the_kernel(graph, pack):
     """The CPU path of ``Spmm``: its backward is the same product on the
     cotangent, as the JAX kernel's custom VJP."""
-    layout = S.csr_graph(graph.src, graph.dst, graph.weight, graph.num_nodes)
+    layout = S.csr_graph(graph.src, graph.dst, graph.weight, graph.num_nodes, device="cpu")
     x, g = _x(graph, 64, 3), _x(graph, 64, 4)
     meta, arrays = _jax_blocked(graph, pack)
     ref = jax.grad(lambda xx: jnp.sum(jax_spmm(meta, arrays, xx, "f32") * g))(jnp.asarray(x))
@@ -85,7 +85,7 @@ def test_spmm_gradient_matches_jax_grad_of_the_kernel(graph, pack):
 
 def test_spmm_second_order_use_in_a_two_layer_stack(graph):
     """Two stacked products, as the LightGCL forward uses them."""
-    layout = S.csr_graph(graph.src, graph.dst, graph.weight, graph.num_nodes)
+    layout = S.csr_graph(graph.src, graph.dst, graph.weight, graph.num_nodes, device="cpu")
     x = _x(graph, 32, 5)
     args = tuple(jnp.asarray(a) for a in (graph.src, graph.dst, graph.weight))
 
@@ -102,7 +102,7 @@ def test_spmm_second_order_use_in_a_two_layer_stack(graph):
 @pytest.mark.parametrize("max_segment", [256, 16, 1])
 def test_layout_keeps_every_nonzero_edge_once(graph, max_segment):
     layout = S.csr_graph(graph.src, graph.dst, graph.weight, graph.num_nodes,
-                         max_segment=max_segment)
+                         max_segment=max_segment, device="cpu")
     keep = graph.weight != 0
     assert (~keep).any()                                 # the graph carries padding
     assert layout.num_edges == int(keep.sum())           # and the layout drops it
@@ -137,7 +137,7 @@ def test_isolated_nodes_get_zero_rows():
     src = np.array([1, 3, 3, 4, 0, 0])
     dst = np.array([3, 1, 4, 3, 0, 0])
     w = np.array([0.5, 0.5, 0.25, 0.25, 0.0, 0.0], np.float32)
-    layout = S.csr_graph(src, dst, w, 6)
+    layout = S.csr_graph(src, dst, w, 6, device="cpu")
     x = torch.arange(12, dtype=torch.float32).reshape(6, 2) + 1.0
     out = S.spmm(layout, x)
     assert torch.equal(out[[0, 2, 5]], torch.zeros(3, 2))
@@ -147,26 +147,26 @@ def test_isolated_nodes_get_zero_rows():
 
 def test_asymmetric_edge_list_is_refused(graph):
     with pytest.raises(ValueError, match="not symmetric"):
-        S.csr_graph([0, 1], [1, 2], [1.0, 1.0], 3)
+        S.csr_graph([0, 1], [1, 2], [1.0, 1.0], 3, device="cpu")
     keep = graph.weight != 0
     w = graph.weight[keep].copy()
     w[0] *= 2.0                                          # one direction heavier
     with pytest.raises(ValueError, match="not symmetric"):
-        S.csr_graph(graph.src[keep], graph.dst[keep], w, graph.num_nodes)
+        S.csr_graph(graph.src[keep], graph.dst[keep], w, graph.num_nodes, device="cpu")
     with pytest.raises(ValueError, match="outside"):
-        S.csr_graph([0, 7], [7, 0], [1.0, 1.0], 3)
+        S.csr_graph([0, 7], [7, 0], [1.0, 1.0], 3, device="cpu")
 
 
 def test_duplicate_pairs_sum(graph):
     """A pair listed twice (interactions not deduped) counts twice."""
     src, dst = np.array([0, 1, 0, 1]), np.array([1, 0, 1, 0])
     w = np.array([0.5, 0.5, 0.25, 0.25], np.float32)
-    out = S.spmm(S.csr_graph(src, dst, w, 2), torch.tensor([[1.0], [10.0]]))
+    out = S.spmm(S.csr_graph(src, dst, w, 2, device="cpu"), torch.tensor([[1.0], [10.0]]))
     assert out.tolist() == [[7.5], [0.75]]
 
 
 def test_wrapper_checks_its_input(graph):
-    layout = S.csr_graph(graph.src, graph.dst, graph.weight, graph.num_nodes)
+    layout = S.csr_graph(graph.src, graph.dst, graph.weight, graph.num_nodes, device="cpu")
     x = torch.zeros(graph.num_nodes, 8)
     with pytest.raises(ValueError, match="rows"):
         S.spmm(layout, x[:-1])
