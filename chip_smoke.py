@@ -3,8 +3,9 @@
     python3 chip_smoke.py
 
 Builds kernels K1 (recsys_tpu_torch/csrc/diag_ce.cu), K2
-(recsys_tpu_torch/csrc/spmm.cu) and K3 (recsys_tpu_torch/csrc/fm.cu) for
-sm_90a from the checkout, all at once, then:
+(recsys_tpu_torch/csrc/spmm.cu), K3 (recsys_tpu_torch/csrc/fm.cu) and K4
+(recsys_tpu_torch/csrc/ring.cu) for sm_90a from the checkout, all at once,
+then (phases 10 and 11 run after 6, while the graph of 4 is still there):
 
   1. kernel vs plain: K1's forward and both backward kernels against their
      plain PyTorch forms on the card, at the SimCSE shape (B=192, D=128),
@@ -56,6 +57,43 @@ sm_90a from the checkout, all at once, then:
      kernel must have launched once a step and once a scoring call, the
      backward once a step, exactly.
 
+  10. kernel vs plain: K4, the ring all-gather, over S virtual ranks laid over
+     the one card, each with its own buffers: one way and both ways at S = 2,
+     3, 4 and 8 on shards (768, 1000) fp32, (24, 128) bf16 and a ragged
+     (7, 33) fp32, and on the data axis of a 4 x 2 mesh (two rings of four).
+     Every rank's output must equal the plain hop loop's and ``torch.cat``'s
+     bit for bit, two calls must agree, 100 calls back to back with one
+     synchronise at the end must leave no error word, and a launch that leaves
+     a rank out must end by its spin budget and be reported. CUDA-event times
+     of kernel, plain loop and S calls of ``torch.cat`` beside the byte bound.
+     These are device-memory times of virtual ranks on one card; no time
+     between cards is taken here.
+  11. sharded retrieval at full width: 768 user vectors x 128 against a
+     47,000-row item matrix (row 0 = PAD) with a prior, k = 500, over a model
+     axis of 4 and of 8 virtual shards: ``topk_scores(mesh=...)`` (through
+     ``sharded_topk``), ``sharded_topk_ring_merge`` and ``ring_sharded_topk``
+     one way and both ways on the same per-shard scores. 36M fp32 scores hold
+     exact ties, and ``torch.topk`` promises no order among them, so a result
+     is held as a top-k, not as a list: its values must equal the dense top-k
+     values of the same scores bit for bit, every index must hold its value, be
+     distinct and never be the PAD row; the ring merge, which orders ties, must
+     equal the stable two-key sort exactly. Values also agree with the port's
+     dense ``topk_scores`` (one product over the whole catalog) within rtol
+     1e-6 + 1e-6. K4's counts are zeroed before and read after: one launch a
+     ``ring_sharded_topk`` call, exactly. Then the edge-sharded propagation on
+     the 22.6M-edge graph of 4 over 4 shards against the plain propagation,
+     forward and gradient (REF_TOL), and one ``train_lightgcl`` step with
+     ``gnn.propagation=segment_sum_sharded``.
+  12. the sharded path through the entry points: ``vectorize`` over a data
+     axis of 4 virtual shards (rows equal to phase 2's within SERVE_TOL),
+     ``train-item`` through the CLI with ``mesh.num_data=4 --virtual-shards``
+     at the full item-tower width, batch 192 (losses finite; K1's counts are
+     zeroed before and read after: the gathered views go through each K1
+     kernel twice a step, exactly, as on one device; with corruption and
+     dropout rates 0 the loss falls and the first step's loss is within
+     DP_LOSS_TOL of the ``num_data=1`` run from the same seed), then
+     ``dryrun_multichip(8)``.
+
 One line holds every kernel with its launches, error, times and bound. The
 last line is {"ok": true, "device": {...}}; any failure exits non-zero
 without it. TF32 is off, so the plain fp32 oracle is full fp32.
@@ -93,12 +131,14 @@ try:
     from recsys_tpu_torch.ops import spmm as S
     from recsys_tpu_torch.ops.contrastive import bidirectional_infonce, inbatch_logq_loss
     from recsys_tpu_torch.ops.fm import fm_interaction
+    from recsys_tpu_torch.parallel import ring as R
 except ImportError as e:  # run outside the repository
     fail(f"cannot import the port ({e}); run from the repository root")
 
 SOURCES = {"diag_ce": "recsys_tpu_torch/csrc/diag_ce.cu",
            "spmm": "recsys_tpu_torch/csrc/spmm.cu",
-           "fm": "recsys_tpu_torch/csrc/fm.cu"}
+           "fm": "recsys_tpu_torch/csrc/fm.cu",
+           "ring": "recsys_tpu_torch/csrc/ring.cu"}
 REPLACES = {
     "diag_ce_fwd": "recsys_tpu/ops/pallas_contrastive.py:73",
     "diag_ce_bwd_dq": "recsys_tpu/ops/pallas_contrastive.py:97",
@@ -107,6 +147,8 @@ REPLACES = {
     "spmm_hub_reduce": "recsys_tpu/ops/pallas_spmm.py:237",
     "fm_fwd": "recsys_tpu/ops/pallas_fm.py:31",
     "fm_bwd": "recsys_tpu/ops/pallas_fm.py:31",
+    "ring_uni": "recsys_tpu/parallel/pallas_ring.py:81",
+    "ring_bidi": "recsys_tpu/parallel/pallas_ring.py:127",
 }
 # published peaks of one H100 SXM: device memory and fp32 outside the tensor cores
 PEAK_BYTES_PER_S, PEAK_FP32_FLOPS = 3.35e12, 67e12
@@ -126,6 +168,14 @@ ITEM_FIELDS = ("product_type_name", "graphical_appearance_name", "colour_group_n
 USER_FIELDS = ("age_group", "gender", "style", "persona", "club_member_status",
                "fashion_news_frequency")
 DEEPFM_EPOCHS, RERANK_USERS = 3, 4
+# K4: the packed top-k candidates (768 rows x 2 x 500), a data shard's embeddings, a ragged shard
+RING_SHAPES = (((768, 1000), torch.float32), ((24, 128), torch.bfloat16),
+               ((7, 33), torch.float32))
+RING_SIZES, RING_TIMED_S = (2, 3, 4, 8), 8
+RETRIEVAL_USERS, RETRIEVAL_ROWS, RETRIEVAL_K = 768, 47_000, 500
+# first-step loss on 4 data shards (quarter batches through the bf16 tower)
+# against one device (the whole batch); both take K1 on the (192, 128) views
+DP_LOSS_TOL = 1e-3
 
 
 def card_line() -> str:
@@ -861,6 +911,323 @@ def deepfm_phase(root: str, rows: dict) -> dict:
             "recommended": recommended, "launches": launches}
 
 
+# -- phase 10: K4 against its plain form ------------------------------------------
+
+def ring_shards(S: int, shape, dtype, device, seed: int = 0) -> list:
+    rng = np.random.default_rng(1000 * seed + S)
+    return [torch.as_tensor(rng.normal(size=shape).astype(np.float32), device=device).to(dtype)
+            for _ in range(S)]
+
+
+def ring_name(S: int, bidirectional: bool) -> str:
+    return "ring_bidi" if bidirectional and S > 2 else "ring_uni"
+
+
+def bits_differ(a, b) -> float:
+    """0.0 when equal bit for bit, else the largest difference (inf for NaN)."""
+    if torch.equal(a, b):
+        return 0.0
+    d = float((a.double() - b.double()).abs().max())
+    return d if d > 0 else float("inf")
+
+
+def ring_phase(device) -> dict:
+    from recsys_tpu_torch.config import MeshConfig
+    from recsys_tpu_torch.parallel.mesh import build_mesh
+
+    errs = {"ring_uni": 0.0, "ring_bidi": 0.0}
+    cases = 0
+    for shape, dtype in RING_SHAPES:
+        for S in RING_SIZES:
+            shards = ring_shards(S, shape, dtype, device)
+            whole = torch.cat(shards)
+            for both in (False, True):
+                name = ring_name(S, both)
+                R.reset_launch_counts()
+                out = R.ring_all_gather(shards, both)
+                again = R.ring_all_gather(shards, both)
+                torch.cuda.synchronize()
+                R.check_errors()
+                check(R.LAUNCHES[name] == 2 and sum(R.LAUNCHES.values()) == 2,
+                      f"K4 S={S} {shape}: launches {R.LAUNCHES}")
+                plain = R.ring_all_gather_plain(shards, both)
+                check(len({o.data_ptr() for o in out}) == S, "K4: ranks share an output")
+                for r in range(S):
+                    err = max(bits_differ(out[r], plain[r]), bits_differ(out[r], whole),
+                              bits_differ(again[r], out[r]))
+                    errs[name] = max(errs[name], err)
+                    check(err == 0.0, f"K4 {name} S={S} {shape} {dtype} rank {r}: differs by {err}")
+                cases += 1
+
+    # the data axis of a 4 x 2 mesh: two rings of four, each over every second device
+    mesh = build_mesh(MeshConfig(num_data=4, num_model=2), ["cuda:0"] * 8)
+    rings = mesh.groups("data")
+    check(len(rings) == 2 and all(len(ring) == 4 for ring in rings), f"rings: {rings}")
+    for g, ring in enumerate(rings):
+        shards = [s.to(dev) for s, dev in
+                  zip(ring_shards(4, (8, 4), torch.float32, device, seed=g + 1), ring)]
+        for both in (False, True):
+            for o in R.ring_all_gather(shards, both):
+                check(torch.equal(o, torch.cat(shards)), f"K4 on the strided axis, ring {g}")
+
+    # 100 calls back to back, one synchronise at the end
+    sets = [ring_shards(8, (64, 100), torch.float32, device, seed=10 + i) for i in range(4)]
+    outs = [R.ring_all_gather(sets[i % 4], bool(i % 2)) for i in range(100)]
+    torch.cuda.synchronize()
+    R.check_errors()
+    check(all(torch.equal(o, torch.cat(sets[i % 4])) for i, out in enumerate(outs) for o in out),
+          "K4: 100 calls back to back")
+    del outs
+
+    # a rank left out of the launch: its neighbour's wait must end and be reported
+    pair = ring_shards(2, (16, 16), torch.float32, device, seed=20)
+    t0 = time.perf_counter()
+    R._launch(pair, first=0, count=1, spin_seconds=0.01)
+    torch.cuda.synchronize()
+    gave_up_s = time.perf_counter() - t0
+    try:
+        R.check_errors()
+        fail("K4: a wait that cannot end was not reported")
+    except RuntimeError as e:
+        check("rank 0" in str(e) and "hop 0" in str(e), f"K4 time-out report: {e}")
+    check(gave_up_s < 1.0, f"K4: the bounded wait took {gave_up_s} s")
+    out = R.ring_all_gather(pair)
+    torch.cuda.synchronize()
+    R.check_errors()
+    check(torch.equal(out[0], torch.cat(pair)) and torch.equal(out[1], out[0]),
+          "K4: the call after a time-out")
+
+    # times: the wrapper as the path calls it, the plain hop loop, S calls of torch.cat
+    timed = []
+    for shape, dtype in RING_SHAPES:
+        for S in (4, RING_TIMED_S):
+            shards = ring_shards(S, shape, dtype, device)
+            chunk_bytes = shards[0].numel() * shards[0].element_size()
+            row = {"S": S, "shape": list(shape), "dtype": str(dtype).split(".")[-1],
+                   "chunk_bytes": chunk_bytes,
+                   # every rank reads S chunks and writes S chunks; nothing is computed
+                   **bound(2 * S * S * chunk_bytes, 0.0)}
+            iters = 50 if chunk_bytes > 1 << 20 else 200
+            for both in (False, True):
+                k_ms, p_ms = interleaved_ms(lambda: R.ring_all_gather(shards, both),
+                                            lambda: R.ring_all_gather_plain(shards, both), iters)
+                k2_ms, lib_ms = interleaved_ms(lambda: R.ring_all_gather(shards, both),
+                                               lambda: [torch.cat(shards) for _ in range(S)],
+                                               iters)
+                row[ring_name(S, both)] = {"ms": (k_ms + k2_ms) / 2, "plain_ms": p_ms,
+                                           "library_ms": lib_ms}
+            torch.cuda.synchronize()
+            R.check_errors()
+            timed.append(row)
+            print(json.dumps({"phase": "ring_kernel", **row}), flush=True)
+    main = next(r for r in timed if r["S"] == RING_TIMED_S and r["shape"] == [768, 1000])
+    lib = R.load_library()
+    return {"errs": errs, "cases": cases, "gave_up_seconds": gave_up_s, "timed": timed,
+            "main": main, "resident_blocks": lib.ring_max_resident_blocks(0),
+            "blocks_per_rank": {name: R.blocks_per_rank(main["chunk_bytes"], RING_TIMED_S, d,
+                                                        lib.ring_max_resident_blocks(0))
+                                for name, d in (("ring_uni", 1), ("ring_bidi", 2))}}
+
+
+# -- phase 11: sharded retrieval and edge-sharded propagation at full width ---------
+
+def check_topk(name: str, vals, idx, scores, ref_vals) -> None:
+    """A (B, k) result held as a top-k of ``scores`` (see the docstring)."""
+    check(torch.equal(vals, ref_vals), f"{name}: values are not the dense top-k values")
+    check(torch.equal(scores.gather(1, idx), vals), f"{name}: an index does not hold its value")
+    check(int(idx.min()) > 0, f"{name}: the PAD row came back")
+    ordered = idx.sort(dim=1).values
+    check(bool((ordered[:, 1:] != ordered[:, :-1]).all()), f"{name}: an index twice in a row")
+
+
+def sharded_retrieval_phase(device, root: str, graph, edges_u, edges_i) -> dict:
+    from recsys_tpu_torch.config import MeshConfig, load_config
+    from recsys_tpu_torch.eval.recall import sharded_scores, topk_scores
+    from recsys_tpu_torch.ops.graph import make_edge_sharded_propagate, propagate
+    from recsys_tpu_torch.parallel.collectives import sharded_topk, sharded_topk_ring_merge
+    from recsys_tpu_torch.parallel.mesh import build_mesh
+    from recsys_tpu_torch.train.gnn import train_lightgcl
+
+    rng = np.random.default_rng(11)
+    users = rng.normal(size=(RETRIEVAL_USERS, D)).astype(np.float32)
+    users = torch.as_tensor(users / np.linalg.norm(users, axis=1, keepdims=True), device=device)
+    items = torch.as_tensor(rng.normal(size=(RETRIEVAL_ROWS, D)).astype(np.float32),
+                            device=device)
+    prior = torch.as_tensor((0.05 * rng.random(RETRIEVAL_ROWS)).astype(np.float32),
+                            device=device)
+    k = RETRIEVAL_K
+    dense_vals, dense_idx = topk_scores(users, items, k, prior=prior)
+    dense_ms = cuda_ms(lambda: topk_scores(users, items, k, prior=prior), 10)
+    out = {"users": RETRIEVAL_USERS, "rows": RETRIEVAL_ROWS, "k": k, "dense_ms": dense_ms,
+           "by_shards": {}}
+    R.reset_launch_counts()  # the sharded retrieval path's run starts here
+    ring_calls = {"ring_uni": 0, "ring_bidi": 0}
+    kept = {}
+    for shards_n in (4, 8):
+        mesh = build_mesh(MeshConfig(num_data=1, num_model=shards_n), ["cuda:0"] * shards_n)
+        per_shard = sharded_scores(users, items, mesh, True, prior)
+        check(len(per_shard) == shards_n
+              and per_shard[0].shape == (RETRIEVAL_USERS, RETRIEVAL_ROWS // shards_n),
+              f"per-shard scores: {[tuple(s.shape) for s in per_shard]}")
+        scores = torch.cat(per_shard, dim=1)     # the reference's view; no path uses it
+        check(bool(torch.isinf(scores[:, 0]).all() and torch.isfinite(scores[:, 1:]).all()),
+              "only the global PAD row is masked")
+        ref_vals, ref_idx = torch.topk(scores, k)
+        stable = torch.sort(scores, dim=1, descending=True, stable=True)
+        ties = int((ref_vals[:, 1:] == ref_vals[:, :-1]).sum())
+
+        vals, idx = topk_scores(users, items, k, mesh=mesh, prior=prior)
+        check_topk(f"topk_scores(mesh 1x{shards_n})", vals, idx, scores, ref_vals)
+        check(bool(torch.isclose(vals, dense_vals, rtol=1e-6, atol=1e-6).all()),
+              f"topk_scores(mesh 1x{shards_n}) vs the dense product: "
+              f"{max_err(vals, dense_vals)}")
+        agree = {"topk_scores_vs_dense": float((idx == dense_idx).float().mean())}
+        check(agree["topk_scores_vs_dense"] >= 0.99, f"indices vs dense: {agree}")
+        for r, (v, i) in enumerate(sharded_topk_ring_merge(per_shard, k)):
+            check(torch.equal(v, stable.values[:, :k]) and torch.equal(i, stable.indices[:, :k]),
+                  f"sharded_topk_ring_merge, shard {r} of {shards_n}: not the stable order")
+        for both in (False, True):
+            name = ring_name(shards_n, both)
+            before = dict(R.LAUNCHES)
+            got = R.ring_sharded_topk(per_shard, k, both)
+            torch.cuda.synchronize()
+            R.check_errors()
+            ring_calls[name] += 1
+            check(R.LAUNCHES[name] == before[name] + 1
+                  and sum(R.LAUNCHES.values()) == sum(before.values()) + 1,
+                  f"ring_sharded_topk launched {before} -> {R.LAUNCHES}")
+            for r, (v, i) in enumerate(got):
+                check_topk(f"ring_sharded_topk {name}, shard {r} of {shards_n}", v, i, scores,
+                           ref_vals)
+            agree[name + "_vs_topk"] = float((got[0][1] == ref_idx).float().mean())
+        out["by_shards"][shards_n] = {"exact_ties_in_topk": ties, "index_agreement": agree}
+        kept[shards_n] = (mesh, per_shard)
+        del scores, stable
+    check(R.LAUNCHES == ring_calls, f"K4 launches {R.LAUNCHES}, calls {ring_calls}")
+    out["launches"] = dict(R.LAUNCHES)    # read here; the timing loops below are not the path
+    for shards_n, (mesh, per_shard) in kept.items():
+        out["by_shards"][shards_n].update({
+            "topk_scores_mesh_ms": cuda_ms(
+                lambda: topk_scores(users, items, k, mesh=mesh, prior=prior), 10),
+            "sharded_topk_ms": cuda_ms(lambda: sharded_topk(per_shard, k), 10),
+            "ring_merge_ms": cuda_ms(lambda: sharded_topk_ring_merge(per_shard, k), 5),
+            "ring_sharded_topk_uni_ms": cuda_ms(
+                lambda: R.ring_sharded_topk(per_shard, k, False), 10),
+            "ring_sharded_topk_bidi_ms": cuda_ms(
+                lambda: R.ring_sharded_topk(per_shard, k, True), 10)})
+    torch.cuda.synchronize()
+    R.check_errors()
+    del kept, per_shard
+
+    # the edge-sharded propagation on the reference-scale graph, 4 shards
+    mesh = build_mesh(MeshConfig(num_data=1, num_model=4), ["cuda:0"] * 4)
+    n, dim = graph.num_nodes, 64
+    prop_fn, place_edges = make_edge_sharded_propagate(mesh, n, "model")
+    args = place_edges(graph.src, graph.dst, graph.weight)
+    check(len(args) == 4 and sum(len(s) for s, _, _ in args) >= len(graph.src),
+          "edge shards")
+    src, dst, w = (torch.as_tensor(a, device=device) for a in
+                   (graph.src.astype(np.int64), graph.dst.astype(np.int64), graph.weight))
+    x, g = (torch.as_tensor(rng.normal(size=(n, dim)).astype(np.float32), device=device)
+            for _ in range(2))
+
+    def value_and_grad(fn):
+        xk = x.clone().requires_grad_(True)
+        y = fn(xk)
+        (dx,) = torch.autograd.grad((y * g).sum(), xk)
+        return y.detach(), dx
+
+    got, ref = value_and_grad(lambda t: prop_fn(args, t)), \
+        value_and_grad(lambda t: propagate(t, src, dst, w, n))
+    prop_err = {"fwd": max_err(got[0], ref[0]), "grad": max_err(got[1], ref[1])}
+    check(max(prop_err.values()) <= REF_TOL, f"edge-sharded propagation vs plain: {prop_err}")
+    with torch.no_grad():
+        sharded_ms, plain_ms = interleaved_ms(lambda: prop_fn(args, x),
+                                              lambda: propagate(x, src, dst, w, n), 5)
+    del got, ref, src, dst, w, x, g
+    out["edge_sharded"] = {"shards": 4, "edges": int(len(graph.src)), "err": prop_err,
+                           "ms": sharded_ms, "plain_ms": plain_ms}
+
+    # one trainer step with the sharded propagation (no K2 on this branch)
+    cfg = load_config(None, {"gnn": {"epochs": 1, "steps_per_epoch_max": 1,
+                                     "propagation": "segment_sum_sharded"}})
+    S.reset_launch_counts()
+    state, _ = train_lightgcl(cfg, graph, edges_u, edges_i, f"{root}/ckpt_gnn_sharded", "cuda",
+                              mesh=mesh)
+    check(state.step == 1 and np.isfinite(state.losses[0]) and sum(S.LAUNCHES.values()) == 0,
+          f"sharded trainer step: {state.step} steps, loss {state.losses}, K2 {S.LAUNCHES}")
+    out["trainer_step"] = {"loss": state.losses[0], "step_ms": 1e3 * state.step_seconds[0]}
+    return out
+
+
+# -- phase 12: the sharded path through the entry points ---------------------------
+
+def sharded_slice_phase(root: str, n_items: int) -> dict:
+    import os
+
+    from recsys_tpu_torch.dryrun import dryrun_multichip
+    from recsys_tpu_torch.pipeline import cli
+    from recsys_tpu_torch.train.checkpoint import load_array_with_ids
+
+    ref_mat, _, _ = load_array_with_ids(f"{root}/item_matrix")     # phase 2's, one device
+
+    def world(name: str) -> list[str]:
+        """A data root with phase 2's world in it, and the stage's --set list."""
+        path = f"{root}/{name}"
+        os.makedirs(path)
+        for f in ("items.parquet", "users.parquet", "transactions.parquet"):
+            shutil.copy(f"{root}/{f}", path)
+        return ["--set", f"data.root={path}", "--set", "simcse.epochs=1",
+                "--set", "simcse.steps_per_epoch_min=1"]
+
+    dp = ["--set", "mesh.num_data=4", "--virtual-shards"]           # --device: the default
+    sets = world("dp")
+    shutil.copytree(f"{root}/ckpt_item", f"{root}/dp/ckpt_item")
+    vec = cli.main(["vectorize", *sets, *dp])
+    mat, _, _ = load_array_with_ids(f"{root}/dp/item_matrix")
+    vec_err = float(np.abs(mat - ref_mat).max())
+    check(mat.shape == (n_items + 1, 128) and vec_err <= SERVE_TOL,
+          f"vectorize on 4 data shards vs one device: {mat.shape}, {vec_err}")
+
+    K.reset_launch_counts()
+    train = cli.main(["train-item", *sets, *dp])
+    check(train["mesh"] == {"data": 4, "model": 1} and train["device"].startswith("cuda")
+          and train["steps"] >= 10 and all(np.isfinite(train["losses"])),
+          f"train-item on 4 data shards: {train}")
+    # the gathered (B, D) views go through K1 as on one device: each kernel once a
+    # direction of the loss, so twice a step
+    check(all(n == 2 * train["steps"] for n in K.LAUNCHES.values()),
+          f"K1 on the data-parallel step: {K.LAUNCHES} in {train['steps']} steps")
+    k1_launches = dict(K.LAUNCHES)
+
+    # corruption and dropout off: the loss falls, and the first step's loss is the one-device run's
+    quiet = ["--set", "simcse.feature_dropout=0.0", "--set", "item_tower.dropout=0.0"]
+    sharded = cli.main(["train-item", *world("dp_quiet"), *quiet, *dp])
+    single = cli.main(["train-item", *world("one_quiet"), *quiet])
+    check(single["mesh"] == {"data": 1, "model": 1}, f"the one-device run: {single['mesh']}")
+    first_err = abs(sharded["losses"][0] - single["losses"][0])
+    check(first_err <= DP_LOSS_TOL,
+          f"first-step loss on 4 shards {sharded['losses'][0]} vs one {single['losses'][0]}")
+    check(all(np.isfinite(sharded["losses"])) and sharded["losses"][-1] < sharded["losses"][0],
+          f"the sharded loss did not fall: {sharded['losses']}")
+    dry = dryrun_multichip(8)
+    check(dry["mesh"] == {"data": 4, "model": 2}
+          and all(np.isfinite(dry[key]) for key in ("stage1", "gnn", "ckpt_resume")),
+          f"dryrun_multichip: {dry}")
+    return {"vectorize": {"err_vs_one_device": vec_err, "seconds": vec["seconds"],
+                          "items_per_s": vec["items_per_s"]},
+            "train": {**{key: train[key] for key in ("steps", "seconds", "step_ms_median",
+                                                     "first_step_ms")},
+                      "k1_launches": k1_launches},
+            "losses": [train["losses"][0], train["losses"][-1]],
+            "quiet": {"first_loss_sharded": sharded["losses"][0],
+                      "first_loss_one_device": single["losses"][0], "first_loss_err": first_err,
+                      "last_loss_sharded": sharded["losses"][-1],
+                      "step_ms_median_sharded": sharded["step_ms_median"],
+                      "step_ms_median_one_device": single["step_ms_median"]},
+            "dryrun": {key: (list(v) if isinstance(v, tuple) else v) for key, v in dry.items()}}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
@@ -871,7 +1238,7 @@ def main() -> None:
                       "python": sys.version.split()[0], "allow_tf32": False}), flush=True)
     print(card_line(), flush=True)
     t0 = time.perf_counter()
-    modules = {"diag_ce": K, "spmm": S, "fm": FM}
+    modules = {"diag_ce": K, "spmm": S, "fm": FM, "ring": R}
     with concurrent.futures.ThreadPoolExecutor(len(modules)) as pool:  # one nvcc per source, together
         for job in [pool.submit(m.load_library) for m in modules.values()]:
             job.result()
@@ -895,12 +1262,19 @@ def main() -> None:
         print(json.dumps({"phase": "gnn_slice", **gnn}), flush=True)
         trainer = trainer_phase(root, graph, edges_u, edges_i)
         print(json.dumps({"phase": "gnn_trainer", **trainer}), flush=True)
+        rstats = ring_phase(device)
+        print(json.dumps({"phase": "ring_kernel_summary",
+                          **{k: v for k, v in rstats.items() if k != "timed"}}), flush=True)
+        retrieval = sharded_retrieval_phase(device, root, graph, edges_u, edges_i)
+        print(json.dumps({"phase": "sharded_retrieval", **retrieval}), flush=True)
         del graph, edges_u, edges_i
         fstats = fm_phase(device)
         reranker, rows = reranker_slice_phase(root)
         print(json.dumps({"phase": "reranker_slice", **reranker}), flush=True)
         deepfm = deepfm_phase(root, rows)
         print(json.dumps({"phase": "deepfm", **deepfm}), flush=True)
+        sharded = sharded_slice_phase(root, result["vectorize"]["shape"][0] - 1)
+        print(json.dumps({"phase": "sharded_slice", **sharded}), flush=True)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -927,6 +1301,15 @@ def main() -> None:
                  "scoring_shape": fstats["score"][name],
                  "scoring_shape_bf16": fstats["score_bf16"][name]}
                 for name in FM.LAUNCHES]
+    # K4's launches are phase 11's (one a ring_sharded_topk call); its times are at
+    # S = 8 virtual ranks on the one card and the packed top-k chunk: device-memory
+    # times, no time between cards
+    kernels += [{"name": name, "route": "cuda", "source": SOURCES["ring"],
+                 "replaces": REPLACES[name], "launches": retrieval["launches"][name],
+                 "max_abs_err": rstats["errs"][name], **rstats["main"][name],
+                 "bound_ms": rstats["main"]["bound_ms"], "bound_by": rstats["main"]["bound_by"],
+                 "virtual_ranks": RING_TIMED_S, "chunk_bytes": rstats["main"]["chunk_bytes"]}
+                for name in R.LAUNCHES]
     check(all(k["launches"] > 0 for k in kernels), f"kernel not on the main path: {kernels}")
     check(not any(m.split(".")[0] in ("jax", "flax", "optax", "recsys_tpu")
                   for m in sys.modules), "the port pulled in JAX or the JAX package")

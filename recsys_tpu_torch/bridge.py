@@ -15,7 +15,9 @@ path, with these leaf conversions:
 The reranker models map the same way: ``DCNRanker``'s ``nn.compact``
 auto-names (``CrossNet_0/cross_{i}``, ``MLP_0/Dense_{i}``, ``score``) and
 ``DeepFM``'s ``fm_embed_{f}`` / ``fm_first_{f}`` (an Embed of width 1) /
-``dense_embed`` are the port's submodule names.
+``dense_embed`` are the port's submodule names. The sharded path
+(``parallel/``, the data-parallel stage-1 step) adds no parameters and needs
+no converter: every shard runs the same ``SimCSEModel`` / ``LightGCL`` trees.
 
 Inputs and outputs are nested dicts of numpy arrays, so neither direction
 needs Flax. ``gbdt_from_sklearn`` carries a fitted scikit-learn histogram

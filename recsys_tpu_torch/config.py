@@ -226,7 +226,8 @@ class GNNConfig:
     # (ops/spmm.py) when the model is on a CUDA device, the plain
     # gather + index_add_ form on the CPU; spmm -> that kernel (its plain
     # form on a CPU tensor); segment_sum -> the plain form on either device;
-    # segment_sum_sharded (edge list sharded over devices) is not ported yet
+    # segment_sum_sharded -> the edge list sharded over the mesh's model axis
+    # (ops/graph.make_edge_sharded_propagate; needs a mesh)
     propagation: str = "auto"  # auto | spmm | segment_sum | segment_sum_sharded
     # Layout knobs of the JAX package's blocked kernel. The port keeps the
     # fields so that the same JSON and --set keys load in both packages; its

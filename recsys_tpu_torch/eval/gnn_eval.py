@@ -27,26 +27,35 @@ from recsys_tpu_torch.device import resolve_device
 from recsys_tpu_torch.eval.recall import recall_at_ks, topk_scores
 
 
-def _pad_matrix(items: np.ndarray) -> np.ndarray:
+def _pad_matrix(items: np.ndarray, multiple: int = 1) -> np.ndarray:
     """GNN artifacts are dense 0-based (no PAD row, export meta records
-    it); topk_scores masks row 0 — prepend a zero PAD row and shift."""
+    it); topk_scores masks row 0 — prepend a zero PAD row and shift. Zero
+    rows at the end bring the row count to a multiple (for row sharding)."""
+    tail = -(len(items) + 1) % multiple
     return np.concatenate([np.zeros((1, items.shape[1]), np.float32),
-                           np.asarray(items, np.float32)])
+                           np.asarray(items, np.float32),
+                           np.zeros((tail, items.shape[1]), np.float32)])
 
 
 def topk_rows(users: np.ndarray, items: np.ndarray, k: int,
               normalize: bool, batch: int = 4096,
-              device: torch.device | str = "cuda") -> np.ndarray:
+              device: torch.device | str = "cuda", mesh=None) -> np.ndarray:
     """(U, k) top-k item indices in PADDED indexing (real item i -> i+1).
-    Chunked scoring on ``device``."""
+    Chunked scoring on ``device``, or row-sharded over ``mesh``'s model axis
+    (rows added to make the catalog divide are kept out by a -inf prior)."""
     device = resolve_device(device)
     k = min(k, len(items))  # tiny catalogs: top_k caps at N real items
-    im = torch.as_tensor(_pad_matrix(items), device=device)
+    shards = 1 if mesh is None else mesh.shape[mesh.axis_names[1]]
+    im = torch.as_tensor(_pad_matrix(items, shards), device=device)
+    prior = None
+    if len(im) > len(items) + 1:
+        prior = torch.zeros(len(im), device=device)
+        prior[len(items) + 1:] = -torch.inf
     u = np.asarray(users, np.float32)
     if normalize:
         u = u / np.clip(np.linalg.norm(u, axis=-1, keepdims=True), 1e-12, None)
-    out = [topk_scores(torch.as_tensor(u[s:s + batch], device=device), im, k,
-                       normalize_items=normalize)[1].cpu().numpy()
+    out = [topk_scores(torch.as_tensor(u[s:s + batch], device=device), im, k, mesh=mesh,
+                       normalize_items=normalize, prior=prior)[1].cpu().numpy()
            for s in range(0, len(u), batch)]
     if not out:
         return np.zeros((0, k), np.int64)
@@ -58,7 +67,7 @@ def standalone_rows(gnn_users: np.ndarray, user_ids: list[str],
                     targets: dict, ks=(20, 100, 500),
                     distilled_items: np.ndarray | None = None,
                     distilled_users: np.ndarray | None = None,
-                    device: torch.device | str = "cuda") -> dict:
+                    device: torch.device | str = "cuda", mesh=None) -> dict:
     """Recall rows against ``targets`` ({user_id: [item_id, ...]}), all in
     the GNN artifact's own id space (reference protocol — no stage-2 map
     involved)."""
@@ -74,22 +83,22 @@ def standalone_rows(gnn_users: np.ndarray, user_ids: list[str],
     max_k = max(ks)
     out = {"n_eval_users": len(rows)}
     out["gnn_dot"] = recall_at_ks(
-        topk_rows(tu, gnn_items, max_k, normalize=False, device=device),
+        topk_rows(tu, gnn_items, max_k, normalize=False, device=device, mesh=mesh),
         uids, targets_idx, ks)
     out["gnn_cos"] = recall_at_ks(
-        topk_rows(tu, gnn_items, max_k, normalize=True, device=device),
+        topk_rows(tu, gnn_items, max_k, normalize=True, device=device, mesh=mesh),
         uids, targets_idx, ks)
     if distilled_items is not None:
         # the raw-user x distilled-item pairing only type-checks when the
         # student keeps the teacher's width (distill.out_dim == gnn.emb_dim)
         if distilled_items.shape[1] == gnn_users.shape[1]:
             out["distill_cos_raw_users"] = recall_at_ks(
-                topk_rows(tu, distilled_items, max_k, normalize=True, device=device),
+                topk_rows(tu, distilled_items, max_k, normalize=True, device=device, mesh=mesh),
                 uids, targets_idx, ks)
         if distilled_users is not None:
             su = np.asarray(distilled_users, np.float32)[rows]
             out["distill_cos"] = recall_at_ks(
-                topk_rows(su, distilled_items, max_k, normalize=True, device=device),
+                topk_rows(su, distilled_items, max_k, normalize=True, device=device, mesh=mesh),
                 uids, targets_idx, ks)
     return out
 

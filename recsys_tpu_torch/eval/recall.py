@@ -4,9 +4,11 @@ Counterpart of the dense, exact part of ``recsys_tpu/eval/recall.py``:
 normalize the item matrix once, score the whole catalog (``U @ I^T``), take
 top-max(K) on the device, then compute set-intersection recall on the host
 with users absent from the ground truth dropped from the denominator. The
-numpy helpers are the JAX package's code unchanged. Not ported yet: the
-row-sharded scoring over several devices; the approximate top-k is a TPU
-primitive and is refused.
+numpy helpers are the JAX package's code unchanged. On a mesh whose model
+axis is > 1 the item matrix and the prior are row-sharded, every shard
+scores its rows and ``parallel/collectives.sharded_topk`` merges, so eval and
+serving share one retrieval path. The approximate top-k is a TPU primitive
+and is refused.
 """
 
 from __future__ import annotations
@@ -14,21 +16,57 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from recsys_tpu_torch.parallel.collectives import sharded_topk
+from recsys_tpu_torch.parallel.mesh import Mesh, shard_rows
 
-def topk_scores(user_vecs: torch.Tensor, item_matrix: torch.Tensor, k: int,
-                normalize_items: bool = True, prior: torch.Tensor | None = None,
-                method: str = "exact"):
-    """(B, D) x (N+1, D) -> (vals, idx) (B, k); PAD row 0 excluded.
 
-    ``prior``: optional per-item additive score (N+1,) — e.g. a scaled
-    log-popularity blend — applied before top-k. Tied scores come back in no
-    promised order (``torch.topk``)."""
-    if method != "exact":
-        raise NotImplementedError(
-            f"topk_scores method {method!r}: only the exact top-k is ported")
+def _normalized(item_matrix: torch.Tensor, normalize_items: bool) -> torch.Tensor:
     items = item_matrix.float()
     if normalize_items:
         items = items / torch.linalg.norm(items, dim=-1, keepdim=True).clamp(min=1e-12)
+    return items
+
+
+def sharded_scores(user_vecs: torch.Tensor, item_matrix: torch.Tensor, mesh: Mesh,
+                   normalize_items: bool = True, prior: torch.Tensor | None = None
+                   ) -> list[torch.Tensor]:
+    """The score matrix column-sharded over the mesh's model axis: shard i
+    holds (B, N_local), its rows of the row-sharded item matrix (and prior)
+    against the replicated user vectors. Only the global PAD row is masked:
+    column 0 of shard 0. The rows must divide by the axis size."""
+    items = shard_rows(mesh, _normalized(item_matrix, normalize_items))
+    priors = None if prior is None else shard_rows(mesh, prior.float())
+    out = []
+    for i, it in enumerate(items):
+        scores = user_vecs.float().to(it.device) @ it.T
+        if priors is not None:
+            scores = scores + priors[i][None, :]
+        if i == 0:
+            scores[:, 0] = -torch.inf
+        out.append(scores)
+    return out
+
+
+def topk_scores(user_vecs: torch.Tensor, item_matrix: torch.Tensor, k: int,
+                mesh: Mesh | None = None, normalize_items: bool = True,
+                prior: torch.Tensor | None = None, method: str = "exact"):
+    """(B, D) x (N+1, D) -> (vals, idx) (B, k); PAD row 0 excluded.
+
+    With a mesh whose model axis is > 1 the item matrix is row-sharded and the
+    top-k is merged across the shards (the result of the axis's first shard,
+    on its device); otherwise one dense product and top-k.
+
+    ``prior``: optional per-item additive score (N+1,) — e.g. a scaled
+    log-popularity blend — applied before top-k; on a mesh it is sharded like
+    the item matrix. Tied scores come back in no promised order
+    (``torch.topk``)."""
+    if method != "exact":
+        raise NotImplementedError(
+            f"topk_scores method {method!r}: only the exact top-k is ported")
+    if mesh is not None and mesh.shape[mesh.axis_names[1]] > 1:
+        return sharded_topk(
+            sharded_scores(user_vecs, item_matrix, mesh, normalize_items, prior), k)[0]
+    items = _normalized(item_matrix, normalize_items)
     scores = user_vecs.float() @ items.T
     if prior is not None:
         scores = scores + prior.float()[None, :]
@@ -121,14 +159,14 @@ def paired_delta_ci(a: np.ndarray, b: np.ndarray, n_boot: int = 1000,
 
 
 def evaluate_retrieval(forward_fn, batches, item_matrix, targets_idx,
-                       ks=(20, 100, 500)) -> dict:
+                       ks=(20, 100, 500), mesh: Mesh | None = None) -> dict:
     """Generic retrieval eval: ``forward_fn(batch) -> (B, D) user vectors``;
     ``batches`` yields (batch, user_ids)."""
     max_k = max(ks)
     all_idx, all_uids = [], []
     for batch, uids in batches:
         u = forward_fn(batch)
-        _, idx = topk_scores(u, item_matrix, max_k)
+        _, idx = topk_scores(u, item_matrix, max_k, mesh=mesh)
         all_idx.append(idx.cpu().numpy())
         all_uids.extend(uids)
     if not all_idx:

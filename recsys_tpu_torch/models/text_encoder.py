@@ -11,7 +11,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from recsys_tpu_torch.models.layers import Embed, TransformerEncoder, masked_mean, normal_param
+from recsys_tpu_torch.models.layers import (BF16, Embed, TransformerEncoder, masked_mean,
+                                            normal_param)
 
 
 class HashTextEncoder(nn.Module):
@@ -29,7 +30,6 @@ class HashTextEncoder(nn.Module):
     def encode(self, ids: torch.Tensor, mask: torch.Tensor,
                generator: torch.Generator | None = None) -> torch.Tensor:
         """Contextual encoding + masked mean pool. (B, T) -> (B, dim)."""
-        x = self.token_embedding(ids) + self.pos_embedding[None, : ids.shape[1]].to(
-            torch.bfloat16)
+        x = self.token_embedding(ids) + self.pos_embedding[None, : ids.shape[1]].to(BF16)
         x = self.encoder(x, pad_mask=mask, generator=generator)
         return masked_mean(x, mask)

@@ -7,7 +7,7 @@ interactions. ``propagate`` is gather x weight followed by ``index_add_``
 (the counterpart of ``segment_sum``); ``propagate_chunked`` bounds the
 (E, D) message array over a host-resident edge list. The hand-written CUDA
 sparse product that the trainer uses on the card is ``ops/spmm.py``.
-Edge-sharded propagation over several devices is not ported yet.
+``make_edge_sharded_propagate`` shards the edge list over a mesh axis.
 """
 
 from __future__ import annotations
@@ -133,3 +133,34 @@ def svd_propagate(x: torch.Tensor, svd_u: torch.Tensor, svd_s: torch.Tensor,
                   svd_v: torch.Tensor) -> torch.Tensor:
     """Global (low-rank) view propagation: \\hat{A} x = U (S * (V^T x))."""
     return svd_u @ (svd_s[:, None] * (svd_v.T @ x))
+
+
+def make_edge_sharded_propagate(mesh, num_nodes: int, axis: str = "model"):
+    """Edge-sharded propagation: the edge list is sharded over ``axis``, each
+    shard sums its slice into a full (num_nodes, D) partial on its device, and
+    one sum over the shards merges. x stays whole on its own device; autograd
+    broadcasts the cotangent to every shard and adds the shards' gradients.
+
+    Returns ``(prop_fn, place_edges)``: ``place_edges(src, dst, weight)`` pads
+    the edge arrays to the axis size (dst 0 / weight 0 pads add nothing) and
+    puts one slice on each of the axis's devices; ``prop_fn(args, x)`` matches
+    the ``select_propagation`` contract and returns on x's device."""
+    from recsys_tpu_torch.parallel.mesh import pad_to_multiple, shard
+
+    n_shards = mesh.shape[axis]
+
+    def place_edges(src, dst, weight):
+        src, _ = pad_to_multiple(np.asarray(src), n_shards)
+        dst, _ = pad_to_multiple(np.asarray(dst), n_shards)
+        weight, _ = pad_to_multiple(np.asarray(weight, np.float32), n_shards, fill=0.0)
+        parts = [shard(mesh, a, axis) for a in (src, dst, weight)]
+        return [(s.long(), d.long(), w) for s, d, w in zip(*parts)]
+
+    def prop_fn(args, x):
+        out = None
+        for src, dst, w in args:
+            partial = propagate(x.to(src.device), src, dst, w, num_nodes).to(x.device)
+            out = partial if out is None else out + partial
+        return out
+
+    return prop_fn, place_edges

@@ -18,6 +18,11 @@ overrides, artifact paths and one JSON line per stage:
 
 ``--device`` (default ``cuda``) places the model; ``--device cuda`` on a
 machine without a CUDA device raises and never falls back to the CPU.
+``--set mesh.num_data=4`` / ``mesh.num_model=2`` shard train-item, vectorize,
+train-gnn (with ``gnn.propagation=segment_sum_sharded``) and gnn-eval over the
+visible cards; a mesh larger than the cards there are raises unless
+``--virtual-shards`` lays it over them (several shards a card, or all on the
+CPU with ``--device cpu``).
 
     python -m recsys_tpu_torch.pipeline.cli train-item --set data.root=/tmp/w
 """
@@ -66,6 +71,20 @@ def _load_world(cfg: Config):
     users = pd.read_parquet(p["users"])
     tx = pd.read_parquet(p["tx"])
     return items, users, tx
+
+
+def _mesh(cfg: Config, args):
+    """The (data, model) mesh of ``cfg.mesh`` over every visible card, or over
+    the CPU with ``--device cpu``. ``--virtual-shards`` repeats the devices
+    until the mesh is full; it changes where shards lie, not what is computed."""
+    from recsys_tpu_torch.parallel.mesh import build_mesh, mesh_devices
+
+    device = resolve_device(args.device)
+    devices = mesh_devices(device)
+    if getattr(args, "virtual_shards", False):
+        want = max(cfg.mesh.num_model, 1) * max(cfg.mesh.num_data, 1)
+        devices = mesh_devices(device, max(want, len(devices)))
+    return build_mesh(cfg.mesh, devices)
 
 
 def _item_tensors(cfg: Config) -> dict:
@@ -119,12 +138,13 @@ def cmd_train_item(cfg: Config, args) -> dict:
     p = _paths(cfg)
     tensors = _item_tensors(cfg)
     t0 = time.perf_counter()
+    mesh = _mesh(cfg, args)
     state = train_simcse(cfg, tensors, p["item_ckpts"], device,
-                         init_ckpt=getattr(args, "init_ckpt", None))
+                         init_ckpt=getattr(args, "init_ckpt", None), mesh=mesh)
     seconds = time.perf_counter() - t0
     steady = state.step_seconds[1:] or state.step_seconds
     return {"steps": state.step, "ckpt_dir": p["item_ckpts"], "device": str(device),
-            "seconds": seconds, "losses": state.losses,
+            "mesh": mesh.shape, "seconds": seconds, "losses": state.losses,
             "step_ms_median": 1e3 * statistics.median(steady) if steady else None,
             "first_step_ms": 1e3 * state.step_seconds[0] if state.step_seconds else None}
 
@@ -137,7 +157,8 @@ def cmd_vectorize(cfg: Config, args) -> dict:
     tensors = _item_tensors(cfg)
     model, entry = restore_model(cfg, p["item_ckpts"], tensors["std"].shape[1], device)
     t0 = time.perf_counter()
-    mat = materialize_item_vectors(cfg, model, tensors, p["item_matrix"], device=device)
+    mat = materialize_item_vectors(cfg, model, tensors, p["item_matrix"], device=device,
+                                   mesh=_mesh(cfg, args))
     seconds = time.perf_counter() - t0
     return {"matrix": p["item_matrix"], "shape": list(mat.shape),
             "checkpoint": entry["name"] if entry else None, "device": str(device),
@@ -164,7 +185,8 @@ def cmd_train_gnn(cfg: Config, args) -> dict:
     eu = np.array([user_map[u] for u in train_tx["user_id"]])
     ei = np.array([item_map[i] for i in train_tx["item_id"]])
     # one graph layout serves the trainer, the export and the check
-    propagation = select_propagation(cfg.gnn, graph, graph.num_nodes, device)
+    propagation = select_propagation(cfg.gnn, graph, graph.num_nodes, device,
+                                     _mesh(cfg, args))
     layout = propagation[1] if isinstance(propagation[1], CsrGraph) else None
     t0 = time.perf_counter()
     state, model = train_lightgcl(cfg, graph, eu, ei, p["gnn_ckpts"], device,
@@ -227,7 +249,8 @@ def cmd_gnn_eval(cfg: Config, args) -> dict:
         targets = json.load(f)
     out = standalone_rows(gu, list(gu_ids), gi, list(gi_ids), targets,
                           ks=cfg.user_train.eval_ks,
-                          distilled_items=di, distilled_users=du, device=device)
+                          distilled_items=di, distilled_users=du, device=device,
+                          mesh=_mesh(cfg, args))
     if di is not None:
         out["fidelity"] = distill_fidelity(gu, gi, di, du, device=device)
     with open(p["root"] + "/gnn_eval.json", "w") as f:
@@ -361,6 +384,8 @@ def parse_args(argv=None):
                         help="dotted overrides, e.g. --set data.num_items=500")
     parser.add_argument("--device", default="cuda",
                         help="torch device for the model stages (cuda | cpu)")
+    parser.add_argument("--virtual-shards", action="store_true", dest="virtual_shards",
+                        help="lay a mesh larger than the visible cards over them")
     parser.add_argument("--port", type=int, default=None)
     parser.add_argument("--model-backed", action="store_true", dest="model_backed")
     parser.add_argument("--init-ckpt", default=None, dest="init_ckpt")

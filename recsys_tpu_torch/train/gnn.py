@@ -38,6 +38,7 @@ from recsys_tpu_torch.models.lightgcl import (
 from recsys_tpu_torch.ops.graph import (
     BipartiteGraph,
     build_graph,
+    make_edge_sharded_propagate,
     propagate,
     propagate_chunked,
 )
@@ -102,22 +103,25 @@ def sample_bpr_batches(graph_u: np.ndarray, graph_i: np.ndarray, num_items: int,
 
 
 def select_propagation(cfg: GNNConfig, graph: BipartiteGraph, num_nodes: int,
-                       device: torch.device | str = "cuda"):
+                       device: torch.device | str = "cuda", mesh=None):
     """Pick the propagation backend + its device-resident args.
 
     ``auto`` -> the CSR sparse-product kernel when ``device`` is a CUDA
     device, the plain gather + ``index_add_`` on the CPU. ``spmm`` -> that
     kernel (its plain form on CPU tensors). ``segment_sum`` -> the plain
-    form on either device. ``segment_sum_sharded`` (the edge list sharded
-    over several devices) is not ported yet."""
+    form on either device. ``segment_sum_sharded`` (needs ``mesh``) shards the
+    edge list over the mesh's model axis: each shard sums its slice on its
+    device, one sum merges on the model's device."""
     device = resolve_device(device)
     mode = cfg.propagation
     if mode == "auto":
         mode = "spmm" if device.type == "cuda" else "segment_sum"
     if mode == "segment_sum_sharded":
-        raise NotImplementedError(
-            "gnn.propagation='segment_sum_sharded' needs the multi-GPU port "
-            "(edge-sharded propagation); use auto | spmm | segment_sum")
+        if mesh is None:
+            raise ValueError("segment_sum_sharded propagation needs a mesh")
+        prop_fn, place_edges = make_edge_sharded_propagate(mesh, num_nodes,
+                                                           mesh.axis_names[1])
+        return prop_fn, place_edges(graph.src, graph.dst, graph.weight)
     if mode == "spmm":
         layout = csr_graph(graph.src, graph.dst, graph.weight, num_nodes, device=device)
         return spmm, layout
@@ -176,18 +180,19 @@ def train_lightgcl(cfg: Config, graph: BipartiteGraph, edges_u: np.ndarray,
                    device: torch.device | str = "cuda", *,
                    resume: bool = False, fine_tune: bool = False,
                    writer: MetricWriter | None = None, propagation=None,
-                   step_hook: Callable[[int], None] | None = None):
+                   step_hook: Callable[[int], None] | None = None, mesh=None):
     """Train (or resume / cosine-fine-tune) LightGCL over the whole edge set.
 
     Returns ``(state, model)``; ``state.losses`` holds each epoch's mean loss
     and ``state.step_seconds`` each step's time (CUDA events on the card, so
     no step waits for the host). ``propagation`` is a ``select_propagation``
-    result to reuse; by default one is built here. ``step_hook(step)`` is
-    called after every step (a profiler's switch; it may wait for the card)."""
+    result to reuse; by default one is built here (``mesh`` goes to it, for
+    ``segment_sum_sharded``). ``step_hook(step)`` is called after every step
+    (a profiler's switch; it may wait for the card)."""
     g = cfg.gnn
     device = resolve_device(device)
     prop_fn, prop_args = propagation or select_propagation(g, graph, graph.num_nodes,
-                                                            device)
+                                                            device, mesh)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.data.seed)
         model = LightGCL(graph.num_users, graph.num_items, g, prop_fn=prop_fn)

@@ -7,6 +7,16 @@ hand-written kernel K1, forward and backward), AdamW with the text encoder
 at its own learning rate, linear warmup/decay. Alignment/uniformity every
 ``metrics_every`` steps; per-epoch checkpoints, best by loss.
 
+On a mesh whose data axis is > 1 the step is data-parallel under one
+controller: the two views are made on the whole batch, split over the data
+axis, each shard's views go through the tower on its device, the embeddings
+are gathered onto the master's device, which makes the in-batch negatives
+global (the JAX step is one global-batch program), the loss is the same
+``select_infonce`` on the (B_global, D) views (K1 on CUDA, as on one device),
+the gradients are summed onto one set of master weights and one optimizer
+step follows. Shards that share a device share the module; a shard on another
+device has a replica that is refreshed after every step.
+
 ``materialize_item_vectors`` writes the (N+1, D) matrix (row 0 = PAD) with
 its id sidecar, in the JAX package's format.
 """
@@ -14,6 +24,7 @@ its id sidecar, in the JAX package's format.
 from __future__ import annotations
 
 import contextlib
+import copy
 import time
 
 import numpy as np
@@ -26,6 +37,7 @@ from recsys_tpu_torch.data.vocab import StdVocab
 from recsys_tpu_torch.models.item_tower import SimCSEModel
 from recsys_tpu_torch.ops import select_infonce
 from recsys_tpu_torch.ops.augment import two_views
+from recsys_tpu_torch.parallel.mesh import Mesh, shard_batch
 from recsys_tpu_torch.train.checkpoint import CheckpointStore, save_array_with_ids
 from recsys_tpu_torch.train.metrics import MetricWriter, alignment, uniformity
 from recsys_tpu_torch.train.state import TrainState, grouped_adamw, warmup_linear_factor
@@ -86,13 +98,105 @@ def make_train_step(state: TrainState, cfg: Config):
     return step
 
 
+def data_parallel(mesh: Mesh | None) -> bool:
+    return mesh is not None and mesh.shape[mesh.axis_names[0]] > 1
+
+
+class Replicas:
+    """The model for every shard of the mesh's data axis: the master itself
+    for a shard on the master's device, one copy per other device (shared by
+    the shards that lie there). Devices are told apart as the mesh names
+    them."""
+
+    def __init__(self, model: SimCSEModel, mesh: Mesh):
+        self.master = model
+        self.devices = mesh.axis_devices(mesh.axis_names[0])
+        home = next(model.parameters()).device
+        self.copies = {dev: copy.deepcopy(model).to(dev)
+                       for dev in dict.fromkeys(self.devices) if dev != home}
+        self.models = [self.copies.get(dev, model) for dev in self.devices]
+
+    def collect_grads(self) -> None:
+        """Add every copy's gradients onto the master's and clear them."""
+        for replica in self.copies.values():
+            for p, q in zip(self.master.parameters(), replica.parameters()):
+                if q.grad is not None:
+                    g = q.grad.to(p.device)
+                    p.grad = g if p.grad is None else p.grad + g
+                    q.grad = None
+
+    @torch.no_grad()
+    def refresh(self) -> None:
+        """The master's weights and buffers into every copy."""
+        for replica in self.copies.values():
+            for q, p in zip(replica.parameters(), self.master.parameters()):
+                q.copy_(p)
+            for q, p in zip(replica.buffers(), self.master.buffers()):
+                q.copy_(p)
+
+
+def loss_on_sharded_views(replicas: Replicas, cfg: Config, v1: dict, v2: dict,
+                          mesh: Mesh, generators: dict | None = None):
+    """``loss_on_views`` over the data axis: the views of the whole batch are
+    split and each shard goes through the tower on its device. The shards'
+    embeddings are gathered onto the master's device (autograd sends every
+    shard its rows' gradient back) and the loss is the single-device one on
+    the (B_global, D) views, so on CUDA kernel K1 runs once a step, forward
+    and backward. Returns (loss, emb1, emb2)."""
+    home = next(replicas.master.parameters()).device
+    emb1, emb2 = [], []
+    for model, dev, s1, s2 in zip(replicas.models, replicas.devices,
+                                  shard_batch(mesh, {k: v1[k] for k in MODEL_INPUTS}),
+                                  shard_batch(mesh, {k: v2[k] for k in MODEL_INPUTS})):
+        gen = None if generators is None else generators[dev]
+        emb1.append(model(*(s1[k] for k in MODEL_INPUTS), generator=gen))
+        emb2.append(model(*(s2[k] for k in MODEL_INPUTS), generator=gen))
+    all1, all2 = (torch.cat([e.to(home) for e in embs]) for embs in (emb1, emb2))
+    loss = select_infonce(cfg.simcse.kernel)(all1, all2, cfg.simcse.temperature)
+    return loss, all1.detach(), all2.detach()
+
+
+def make_data_parallel_step(state: TrainState, cfg: Config, mesh: Mesh):
+    """``make_train_step`` on a mesh whose data axis is > 1 (see the module
+    docstring). The batch size must divide by the axis size."""
+    replicas = Replicas(state.model, mesh)
+    generators: dict = {}
+
+    def step(batch: dict, generator: torch.Generator):
+        for dev in replicas.devices:   # dropout needs a generator on the shard's device
+            if dev not in generators:
+                generators[dev] = (generator if dev.type == generator.device.type
+                                   and dev not in replicas.copies else
+                                   torch.Generator(dev).manual_seed(generator.initial_seed()))
+        state.model.train()
+        for replica in replicas.copies.values():
+            replica.train()
+        v1, v2 = two_views(batch, generator, cfg.simcse.feature_dropout)
+        loss, e1, e2 = loss_on_sharded_views(replicas, cfg, v1, v2, mesh, generators)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        replicas.collect_grads()
+        state.optimizer.step()
+        state.scheduler.step()
+        replicas.refresh()
+        state.step += 1
+        return loss.detach(), e1, e2
+
+    return step
+
+
 def train_simcse(cfg: Config, tensors: dict, workdir: str,
                  device: torch.device | str = "cuda",
                  writer: MetricWriter | None = None,
-                 init_ckpt: str | None = None) -> TrainState:
-    """Full stage-1 training over pre-tokenized item tensors."""
+                 init_ckpt: str | None = None, mesh: Mesh | None = None) -> TrainState:
+    """Full stage-1 training over pre-tokenized item tensors. The model, the
+    optimizer and the batches live on ``device``; on a ``mesh`` whose data
+    axis is > 1 every step is split over that axis's devices."""
     sc = cfg.simcse
     device = resolve_device(device)
+    if data_parallel(mesh) and sc.batch_size % mesh.shape[mesh.axis_names[0]]:
+        raise ValueError(f"simcse.batch_size={sc.batch_size} does not divide over "
+                         f"{mesh.shape}")
     n = tensors["std"].shape[0]
     steps_per_epoch = max(n // sc.batch_size, 1)
     # small catalogs re-pass (fresh shuffles + fresh views) until an epoch
@@ -107,7 +211,8 @@ def train_simcse(cfg: Config, tensors: dict, workdir: str,
         model.load_state_dict(store.restore(init_ckpt, device)["model"])
     opt, sched = make_optimizer(cfg, model, total_steps)
     state = TrainState(model, opt, sched)
-    step_fn = make_train_step(state, cfg)
+    step_fn = (make_data_parallel_step(state, cfg, mesh) if data_parallel(mesh)
+               else make_train_step(state, cfg))
     data = item_tensors_to(tensors, device)
     gen = torch.Generator(device).manual_seed(cfg.data.seed)
     rng = np.random.default_rng(cfg.data.seed)
@@ -167,14 +272,39 @@ def encode_items(model: SimCSEModel, data: dict, batch_size: int) -> torch.Tenso
     return torch.cat(outs)
 
 
+@torch.inference_mode()
+def encode_items_sharded(model: SimCSEModel, data: dict, batch_size: int,
+                         mesh: Mesh) -> torch.Tensor:
+    """``encode_items`` with every batch split over the mesh's data axis; the
+    tail is padded with the last row to keep the split even, as the JAX stage
+    pads it to keep one compiled shape."""
+    replicas = Replicas(model.eval(), mesh)
+    n, shards = data["std"].shape[0], len(replicas.devices)
+    home, outs = data["std"].device, []
+    for s in range(0, n, batch_size):
+        idx = torch.arange(s, min(s + batch_size, n), device=home)
+        pad = -len(idx) % shards
+        if pad:
+            idx = torch.cat([idx, idx.new_full((pad,), n - 1)])
+        parts = shard_batch(mesh, {k: data[k][idx] for k in MODEL_INPUTS})
+        rows = torch.cat([m.eval().encode(*(p[k] for k in MODEL_INPUTS)).to(home)
+                          for m, p in zip(replicas.models, parts)])
+        outs.append(rows[:len(idx) - pad])
+    return torch.cat(outs)
+
+
 def materialize_item_vectors(cfg: Config, model: SimCSEModel, tensors: dict,
                              out_path: str, batch_size: int | None = None,
-                             device: torch.device | str | None = None) -> np.ndarray:
+                             device: torch.device | str | None = None,
+                             mesh: Mesh | None = None) -> np.ndarray:
     """Encoder forward over the whole catalog -> (N+1, D) matrix (row 0 =
-    PAD) + id sidecar at ``out_path``."""
+    PAD) + id sidecar at ``out_path``. On a ``mesh`` whose data axis is > 1
+    every batch is split over that axis's devices."""
     device = device or next(model.parameters()).device
     bs = batch_size or cfg.serve.batch_size * cfg.serve.fast_mode_multiplier
-    mat = encode_items(model, item_tensors_to(tensors, device), bs).cpu().numpy()
+    data = item_tensors_to(tensors, device)
+    mat = (encode_items_sharded(model, data, bs, mesh) if data_parallel(mesh)
+           else encode_items(model, data, bs)).cpu().numpy()
     full = np.concatenate([np.zeros((1, mat.shape[1]), mat.dtype), mat])
     save_array_with_ids(out_path, full, tensors["item_ids"],
                         meta={"dim": int(mat.shape[1]), "pad_row": 0})

@@ -120,7 +120,8 @@ def test_select_propagation_refuses_what_is_not_ported():
     from recsys_tpu_torch.train import gnn as G
 
     graph = _tiny_graph()
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    # the edge-sharded form is ported: it wants a mesh, as the JAX function does
+    with pytest.raises(ValueError, match="needs a mesh"):
         G.select_propagation(GNNConfig(propagation="segment_sum_sharded"), graph,
                              graph.num_nodes, "cpu")
     with pytest.raises(ValueError, match="unknown"):
@@ -142,16 +143,18 @@ def test_gnn_stages_refuse_device_cuda_without_a_card(stage, tmp_path):
     "select_propagation", "final_embeddings", "export_gnn_artifacts",
     "gnn_propagation_check", "train_lightgcl", "train_distill",
     "topk_rows", "standalone_rows", "distill_fidelity", "topk_items",
-    "csr_graph", "build_model"])
+    "csr_graph", "build_model", "build_mesh", "dryrun_multichip"])
 def test_entry_points_take_the_card_by_default_and_raise_without_one(entry, tmp_path):
     """With no ``device`` given an entry point of the GNN slice runs on the
     card; without one it raises before any work and never runs on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
-    from recsys_tpu_torch.config import Config, GNNConfig
+    from recsys_tpu_torch.config import Config, GNNConfig, MeshConfig
+    from recsys_tpu_torch.dryrun import dryrun_multichip
     from recsys_tpu_torch.eval import gnn_eval as E
     from recsys_tpu_torch.models.lightgcl import LightGCL
     from recsys_tpu_torch.ops import spmm as S
+    from recsys_tpu_torch.parallel.mesh import build_mesh
     from recsys_tpu_torch.train import gnn as G
     from recsys_tpu_torch.train import simcse
 
@@ -175,6 +178,8 @@ def test_entry_points_take_the_card_by_default_and_raise_without_one(entry, tmp_
         "topk_items": lambda: simcse.topk_items(i, u, k=3),
         "csr_graph": lambda: S.csr_graph(graph.src, graph.dst, graph.weight, graph.num_nodes),
         "build_model": lambda: simcse.build_model(Config(), 50, 6),
+        "build_mesh": lambda: build_mesh(MeshConfig(num_model=1)),
+        "dryrun_multichip": lambda: dryrun_multichip(8),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
@@ -191,6 +196,78 @@ def test_spmm_wrapper_refuses_cpu_tensors_and_a_layout_elsewhere():
         S.spmm_cuda(layout, torch.zeros(graph.num_nodes, 64))
     with pytest.raises(ValueError, match="layout on"):
         S.spmm(layout, torch.zeros(graph.num_nodes, 64, device="meta"))
+
+
+# -- the sharded path ---------------------------------------------------------------
+
+def test_ring_wrapper_takes_the_plain_form_only_for_cpu_shards(monkeypatch):
+    """CPU shards run the plain hop loop and launch nothing; shards anywhere
+    else go to the kernel's wrapper, which launches or raises; it never takes
+    the plain form for them."""
+    from recsys_tpu_torch.parallel import ring as R
+
+    shards = [torch.full((2, 3), float(r)) for r in range(3)]
+    R.reset_launch_counts()
+    out = R.ring_all_gather(shards, bidirectional=True)
+    assert torch.equal(out[2], torch.cat(shards)) and R.LAUNCHES == {"ring_uni": 0,
+                                                                     "ring_bidi": 0}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        R.ring_all_gather_cuda(shards)
+
+    def boom(*a, **k):
+        raise AssertionError("plain form taken for shards that are not on the CPU")
+
+    monkeypatch.setattr(R, "ring_all_gather_plain", boom)
+    meta = [s.to("meta") for s in shards]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        R.ring_all_gather(meta)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        R.ring_sharded_topk(meta, 2)
+    assert R.LAUNCHES == {"ring_uni": 0, "ring_bidi": 0}
+
+
+def test_ring_blocks_per_rank_keeps_the_grid_resident():
+    """A block spins on its neighbour's block, so the whole grid has to fit on
+    the card at once: S ranks x directions x blocks never exceeds what the
+    card holds, and a ring that cannot get one block a rank raises."""
+    from recsys_tpu_torch.parallel.ring import MAX_BLOCKS, MIN_SLICE_BYTES, blocks_per_rank
+
+    chunk = 768 * 1000 * 4
+    for S in (2, 3, 4, 8, 32):
+        for directions in (1, 2):
+            blocks = blocks_per_rank(chunk, S, directions, resident_blocks=264)
+            assert 1 <= blocks <= MAX_BLOCKS and S * directions * blocks <= 264
+    assert blocks_per_rank(chunk, 8, 1, 264) == 33 and blocks_per_rank(chunk, 2, 1, 264) == 64
+    assert blocks_per_rank(7 * 33 * 4, 8, 2, 264) == 1          # a small chunk: one block
+    assert blocks_per_rank(3 * MIN_SLICE_BYTES, 2, 1, 264) == 3
+    with pytest.raises(RuntimeError, match="resident at once"):
+        blocks_per_rank(chunk, 32, 2, resident_blocks=48)
+
+
+def test_cli_mesh_needs_the_cards_or_virtual_shards(tmp_path):
+    """A mesh larger than the devices there are raises; ``--virtual-shards``
+    lays it over them and changes nothing else. The default device is the card."""
+    from recsys_tpu_torch.pipeline import cli
+
+    sets = ["--set", f"data.root={tmp_path}", "--set", "mesh.num_data=4",
+            "--set", "mesh.num_model=2"]
+    args = cli.parse_args(["train-item", *sets, "--device", "cpu"])
+    with pytest.raises(ValueError, match="1 devices not divisible by model=2"):
+        cli._mesh(cli.config_from_args(args), args)
+    data_only = cli.parse_args(["train-item", "--set", "mesh.num_data=4", "--device", "cpu"])
+    with pytest.raises(ValueError, match="needs 4 devices, 1 given"):
+        cli._mesh(cli.config_from_args(data_only), data_only)
+    args = cli.parse_args(["train-item", *sets, "--device", "cpu", "--virtual-shards"])
+    mesh = cli._mesh(cli.config_from_args(args), args)
+    assert mesh.shape == {"data": 4, "model": 2}
+    assert {str(d) for d in mesh.devices.flat} == {"cpu"}
+    args = cli.parse_args(["vectorize", "--device", "cpu"])         # the default: 1 x 1
+    assert cli._mesh(cli.config_from_args(args), args).shape == {"data": 1, "model": 1}
+    if not torch.cuda.is_available():
+        args = cli.parse_args(["train-item", *sets, "--virtual-shards"])
+        assert args.device == "cuda"
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli._mesh(cli.config_from_args(args), args)
 
 
 def test_port_imports_no_jax_in_a_fresh_interpreter():

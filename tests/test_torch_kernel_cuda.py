@@ -1,5 +1,5 @@
-"""Kernels K1 (csrc/diag_ce.cu), K2 (csrc/spmm.cu) and K3 (csrc/fm.cu)
-against their plain PyTorch forms, on the card.
+"""Kernels K1 (csrc/diag_ce.cu), K2 (csrc/spmm.cu), K3 (csrc/fm.cu) and K4
+(csrc/ring.cu) against their plain PyTorch forms, on the card.
 
 Needs an NVIDIA GPU and nvcc; skips elsewhere. This file imports no JAX, so
 on the GPU machine it runs without the JAX test harness:
@@ -13,6 +13,8 @@ with TF32 off; the kernel sums in another order than cuBLAS. K2 is held to
 terms of size ~1e-2; it sums a row in edge order, ``index_add_`` in the
 order its atomics land. K3 is held to rtol 1e-4 / atol 1e-3, the JAX suite's
 bound for the Pallas FM kernel (tests/test_pallas.py), forward and gradient.
+K4 moves bytes between virtual ranks laid over the one card: it is held bit
+for bit against its plain hop loop and against ``torch.cat``.
 """
 
 import numpy as np
@@ -25,6 +27,7 @@ from recsys_tpu_torch.ops import select_fm
 from recsys_tpu_torch.ops import spmm as S
 from recsys_tpu_torch.ops.contrastive import bidirectional_infonce, inbatch_logq_loss
 from recsys_tpu_torch.ops.fm import fm_interaction
+from recsys_tpu_torch.parallel import ring as R
 
 pytestmark = pytest.mark.cuda
 
@@ -239,3 +242,148 @@ def test_fm_kernel_dispatch_and_bad_inputs(device):
         FK.fm_bwd_cuda(v, torch.zeros(8, device=device, dtype=torch.float64))
     with pytest.raises(ValueError):
         FK.fm_bwd_cuda(v, torch.zeros(7, device=device))
+
+
+# -- K4: the ring all-gather over virtual ranks -----------------------------------
+
+def _ring_shards(S, shape, dtype, device, seed=0):
+    rng = np.random.default_rng(seed + S)
+    return [torch.as_tensor(rng.normal(size=shape).astype(np.float32), device=device).to(dtype)
+            for _ in range(S)]
+
+
+def _ring_name(S, bidirectional):
+    return "ring_bidi" if bidirectional and S > 2 else "ring_uni"
+
+
+@pytest.mark.parametrize("bidirectional", [False, True], ids=["one_way", "both_ways"])
+@pytest.mark.parametrize("S", [2, 3, 4, 8])
+@pytest.mark.parametrize("shape,dtype", [
+    ((768, 1000), torch.float32),     # the packed top-k candidates: 3.07 MB a rank
+    ((24, 128), torch.bfloat16),      # embeddings of a data shard
+    ((7, 33), torch.float32),         # ragged: 924 bytes, places not 16-byte aligned
+], ids=["f32_768x1000", "bf16_24x128", "f32_7x33"])
+def test_ring_kernel_matches_plain(device, shape, dtype, S, bidirectional):
+    shards = _ring_shards(S, shape, dtype, device)
+    R.reset_launch_counts()
+    out = R.ring_all_gather(shards, bidirectional)
+    torch.cuda.synchronize()
+    R.check_errors()
+    name = _ring_name(S, bidirectional)
+    assert R.LAUNCHES == {"ring_uni": 0, "ring_bidi": 0} | {name: 1}
+    whole = torch.cat(shards)
+    plain = R.ring_all_gather_plain(shards, bidirectional)
+    assert len(out) == S and len({o.data_ptr() for o in out}) == S    # each rank its own
+    for o, p in zip(out, plain):
+        assert o.shape == whole.shape and o.dtype == dtype
+        assert torch.equal(o, p) and torch.equal(o, whole)
+    for o, again in zip(out, R.ring_all_gather(shards, bidirectional)):   # a second call
+        assert torch.equal(o, again)
+    torch.cuda.synchronize()
+    R.check_errors()
+
+
+@pytest.mark.parametrize("offset", [1, 4, 16])
+def test_ring_kernel_moves_bytes_at_any_alignment(device, offset):
+    """Shards that start 1, 4 or 16 bytes into an allocation: the byte, the
+    4-byte and the 16-byte copy loops."""
+    S, rows, cols = 3, 5, 37
+    base = [torch.randint(0, 256, (offset + rows * cols,), dtype=torch.uint8, device=device)
+            for _ in range(S)]                       # every allocation starts aligned
+    shards = [b[offset:].view(rows, cols) for b in base]
+    assert all(s.data_ptr() % 16 == offset % 16 for s in shards)
+    for bidirectional in (False, True):
+        out = R.ring_all_gather(shards, bidirectional)
+        torch.cuda.synchronize()
+        R.check_errors()
+        assert all(torch.equal(o, torch.cat(shards)) for o in out)
+
+
+def test_ring_kernel_on_the_strided_axis_of_a_mesh(device):
+    """The data axis of a 4 x 2 mesh laid over the card: two rings of four,
+    each over every second device of the grid, one gather per ring."""
+    from recsys_tpu_torch.config import MeshConfig
+    from recsys_tpu_torch.parallel.mesh import build_mesh
+
+    mesh = build_mesh(MeshConfig(num_data=4, num_model=2), ["cuda:0"] * 8)
+    rings = mesh.groups("data")
+    assert len(rings) == 2 and all(len(ring) == 4 for ring in rings)
+    R.reset_launch_counts()
+    for g, ring in enumerate(rings):
+        shards = [s.to(dev) for s, dev in zip(_ring_shards(4, (8, 4), torch.float32, device, g),
+                                              ring)]
+        for o in R.ring_all_gather(shards, bidirectional=True):
+            assert torch.equal(o, torch.cat(shards))
+    torch.cuda.synchronize()
+    R.check_errors()
+    assert R.LAUNCHES == {"ring_uni": 0, "ring_bidi": 2}
+
+
+def test_ring_kernel_back_to_back(device):
+    """100 calls with no synchronise between them: the flags carry the call's
+    epoch, so no call waits on or is satisfied by another's."""
+    S = 8
+    sets = [_ring_shards(S, (64, 100), torch.float32, device, seed) for seed in range(4)]
+    outs = [R.ring_all_gather(sets[i % 4], bidirectional=bool(i % 2)) for i in range(100)]
+    torch.cuda.synchronize()
+    R.check_errors()
+    for i, out in enumerate(outs):
+        whole = torch.cat(sets[i % 4])
+        assert all(torch.equal(o, whole) for o in out), i
+
+
+def test_ring_kernel_wait_gives_up_and_reports(device):
+    """A launch that serves rank 0 only: rank 1 never sends, rank 0's wait
+    runs out of its (short) budget, the kernel ends and ``check_errors``
+    raises once. The next whole call is clean."""
+    shards = _ring_shards(2, (16, 16), torch.float32, device)
+    R._launch(shards, first=0, count=1, spin_seconds=0.01)
+    torch.cuda.synchronize()
+    with pytest.raises(RuntimeError, match="rank 0 waited in vain for hop 0"):
+        R.check_errors()
+    R.check_errors()                                  # reported once
+    out = R.ring_all_gather(shards)
+    torch.cuda.synchronize()
+    R.check_errors()
+    assert torch.equal(out[0], torch.cat(shards)) and torch.equal(out[1], out[0])
+
+
+@pytest.mark.parametrize("bidirectional", [False, True], ids=["one_way", "both_ways"])
+@pytest.mark.parametrize("S", [4, 8])
+def test_ring_sharded_topk_on_the_card(device, S, bidirectional):
+    from recsys_tpu_torch.parallel.collectives import sharded_topk, sharded_topk_ring_merge
+
+    B, N, k = 64, 4096, 100
+    scores = torch.as_tensor(np.random.default_rng(S).normal(size=(B, N)).astype(np.float32),
+                             device=device)
+    shards = list(scores.chunk(S, dim=1))
+    dense_vals, dense_idx = torch.topk(scores, k)
+    R.reset_launch_counts()
+    out = R.ring_sharded_topk(shards, k, bidirectional)
+    torch.cuda.synchronize()
+    R.check_errors()
+    assert R.LAUNCHES[_ring_name(S, bidirectional)] == 1 and sum(R.LAUNCHES.values()) == 1
+    for fn_out in (out, sharded_topk(shards, k), sharded_topk_ring_merge(shards, k)):
+        assert len(fn_out) == S
+        for vals, idx in fn_out:
+            assert torch.equal(vals, dense_vals) and torch.equal(idx, dense_idx)
+
+
+def test_ring_kernel_rejects_bad_inputs(device):
+    x = torch.randn(4, 8, device=device)
+    with pytest.raises(ValueError):
+        R.ring_all_gather([x, x[:2]])
+    with pytest.raises(ValueError):
+        R.ring_all_gather([x, x.double()])
+    with pytest.raises(ValueError):
+        R.ring_all_gather_cuda([x])                       # S = 1 is the wrapper's
+    with pytest.raises(ValueError):
+        R.ring_all_gather_cuda([x.t(), x.t()])            # not contiguous
+    with pytest.raises(RuntimeError, match="CUDA"):
+        R.ring_all_gather_cuda([x, x.cpu()])
+    assert R.ring_all_gather([x])[0] is x
+    empty = R.ring_all_gather([x[:0], x[:0]])
+    assert empty[0].shape == (0, 8)
+    # more ranks than the card holds blocks for, or than the parameter tables hold
+    with pytest.raises((RuntimeError, ValueError)):
+        R.ring_all_gather([x] * 300)
