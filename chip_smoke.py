@@ -9,10 +9,11 @@ then (phases 10 and 11 run after 6, while the graph of 4 is still there):
 
   1. kernel vs plain: K1's forward and both backward kernels against their
      plain PyTorch forms on the card, at the SimCSE shape (B=192, D=128),
-     the stage-2 LogQ form (B=200 ragged and B=768, with LogQ corrections,
-     same-item and same-user collisions and ~10% invalid columns) and
-     B=8192. Tolerances are the JAX suite's: loss 1e-4, grads 1e-5 (abs).
-     CUDA-event times of kernel and plain form.
+     the stage-2 LogQ form (B=200 ragged, at D = 128, 64 and 256, and B=768,
+     with LogQ corrections, same-item and same-user collisions and ~10%
+     invalid columns) and B=8192. Tolerances are the JAX suite's: loss 1e-4,
+     grads 1e-5 (abs); two dk calls must give the same bits. CUDA-event times
+     of kernel and plain form, per kernel at B=192 and B=8192.
   2. slice: the port's CLI stages gen-data -> train-item (full-width item
      tower, batch 192, ~10 steps) -> vectorize on the card. K1's launch
      counts are zeroed just before and read just after; every kernel must
@@ -21,23 +22,27 @@ then (phases 10 and 11 run after 6, while the graph of 4 is still there):
      ingest -> process-pending -> similarity; served vectors must match the
      vectorize matrix.
 
-  4. kernel vs plain: K2 against its plain form, forward and gradient, on
-     the small test graph (700 users, 500 items; D = 64 and 32; 1e-5 abs)
-     and on a reference-scale graph made here from a seed (200,000 users,
-     47,000 items, 11.3M interactions -> 22.6M directed edges; D = 64).
-     There a hub row sums ~1e5 terms, which the kernel adds in edge order
+  4. kernel vs plain: K2 in both of its modes ("f32", and "bf16": x rounded
+     to bf16, weights and sums in fp32) against the plain form of the same
+     mode, forward and gradient, on the small test graph (700 users, 500
+     items; D = 64, 32 and 128; 1e-5 abs: both sides sum the same values in
+     fp32) and on a reference-scale graph made here from a seed (200,000
+     users, 47,000 items, 11.3M interactions -> 22.6M directed edges; D = 64).
+     There a hub row sums ~1e5 terms, which the kernel adds in a fixed order
      and ``index_add_`` in the order its atomics land, so both are held
-     against the plain form in fp64: the kernel's error may be at most
-     REF_ERR_MULT times the plain fp32 form's (plus REF_ERR_FLOOR), and the
-     two fp32 forms may differ by at most REF_TOL. Two kernel calls must give
-     the same bits. CUDA-event times of kernel, plain form and
-     ``torch.sparse.mm`` on a CSR tensor, beside the byte bound.
+     against the plain form in fp64 (of the same rounded x): the kernel's
+     error may be at most REF_ERR_MULT times the plain fp32 form's (plus
+     REF_ERR_FLOOR), and the two fp32 forms may differ by at most REF_TOL. Two
+     kernel calls must give the same bits. CUDA-event times of kernel, plain
+     form and ``torch.sparse.mm`` on a CSR tensor, beside each mode's byte
+     bound (x counted in 2 bytes in "bf16").
   5. GNN slice: etl -> train-gnn -> distill -> gnn-eval through the CLI on
-     the world of phase 2, default widths, two epochs; K2's counts are
-     zeroed before and read after.
+     the world of phase 2, default widths, two epochs, the trainer in the
+     mode ``select_propagation`` picks on the card ("bf16"); K2's counts are
+     zeroed before and read after. Then K2's time at that graph.
   6. the trainer at a real size: ``train_lightgcl`` on the graph of 4, batch
-     8192, ten steps; K2 must launch four times a step; then
-     ``final_embeddings`` through K2.
+     8192, ten steps, in that mode; K2 must launch four times a step; then
+     ``final_embeddings`` through K2 ("f32").
 
   7. kernel vs plain: K3's forward and backward kernels against the plain FM
      form and its autograd gradient on the card, at (200, 12, 16), a ragged
@@ -187,12 +192,12 @@ def card_line() -> str:
 
 # -- phase 1: kernel vs plain -------------------------------------------------
 
-def make_problem(B: int, form: str, seed: int, device):
+def make_problem(B: int, form: str, seed: int, device, dim: int = D):
     """Inputs of one K1 call: (q, k, corr, pos, usr, valid, tau)."""
     rng = np.random.default_rng(seed)
 
     def unit():
-        x = rng.normal(size=(B, D)).astype(np.float32)
+        x = rng.normal(size=(B, dim)).astype(np.float32)
         return torch.as_tensor(x / np.linalg.norm(x, axis=1, keepdims=True), device=device)
 
     q, k = unit(), unit()
@@ -265,13 +270,13 @@ def diag_ce_bounds(B: int, dim: int) -> dict:
 
 
 def kernel_phase(device) -> tuple[list[dict], dict]:
-    shapes = [(MAIN_B, "simcse"), (200, "logq"), (768, "logq"), (8192, "logq"),
-              (8192, "simcse")]
+    shapes = [(MAIN_B, "simcse", D), (200, "logq", D), (200, "logq", 64), (200, "logq", 256),
+              (768, "logq", D), (8192, "logq", D), (8192, "simcse", D)]
     errs = {name: 0.0 for name in K.LAUNCHES}
     per_kernel_ms = {}
     rows = []
-    for B, form in shapes:
-        prob = make_problem(B, form, seed=B, device=device)
+    for B, form, dim in shapes:
+        prob = make_problem(B, form, seed=B + dim, device=device, dim=dim)
         q, k, corr, pos, usr, valid, tau = prob
         meta = (corr, pos, usr, valid)
         # each kernel against its plain form, g = the mean-loss gradient
@@ -280,11 +285,14 @@ def kernel_phase(device) -> tuple[list[dict], dict]:
         g = valid.float() / valid.float().sum()
         args = (q, k, *meta, lse_p, g, tau)
         dq_err = float((K.diag_ce_bwd_dq_cuda(*args) - K.diag_ce_bwd_dq_plain(*args)).abs().max())
-        dk_err = float((K.diag_ce_bwd_dk_cuda(*args) - K.diag_ce_bwd_dk_plain(*args)).abs().max())
+        dk = K.diag_ce_bwd_dk_cuda(*args)
+        dk_err = float((dk - K.diag_ce_bwd_dk_plain(*args)).abs().max())
+        check(torch.equal(K.diag_ce_bwd_dk_cuda(*args), dk),
+              f"B={B} D={dim} {form}: two dk calls differ in their bits")
         fwd_err = float(torch.maximum((loss_k - loss_p).abs(), (lse_k - lse_p).abs()).max())
-        check(fwd_err <= LOSS_TOL, f"B={B} {form}: fwd kernel err {fwd_err}")
+        check(fwd_err <= LOSS_TOL, f"B={B} D={dim} {form}: fwd kernel err {fwd_err}")
         check(dq_err <= GRAD_TOL and dk_err <= GRAD_TOL,
-              f"B={B} {form}: bwd kernel err dq {dq_err} dk {dk_err}")
+              f"B={B} D={dim} {form}: bwd kernel err dq {dq_err} dk {dk_err}")
         errs["diag_ce_fwd"] = max(errs["diag_ce_fwd"], fwd_err)
         errs["diag_ce_bwd_dq"] = max(errs["diag_ce_bwd_dq"], dq_err)
         errs["diag_ce_bwd_dk"] = max(errs["diag_ce_bwd_dk"], dk_err)
@@ -295,26 +303,29 @@ def kernel_phase(device) -> tuple[list[dict], dict]:
         loss_err = abs(float(got[0]) - float(ref[0]))
         grad_err = max(float((x - y).abs().max()) for x, y in zip(got[1:], ref[1:]))
         check(loss_err <= LOSS_TOL and grad_err <= GRAD_TOL,
-              f"B={B} {form}: loss err {loss_err}, grad err {grad_err}")
+              f"B={B} D={dim} {form}: loss err {loss_err}, grad err {grad_err}")
         iters = 20 if B >= 4096 else 100
         k_ms, p_ms = interleaved_ms(lambda: value_and_grads(kern_fn, q, k),
                                     lambda: value_and_grads(plain_fn, q, k), iters)
-        rows.append({"B": B, "D": D, "form": form, "loss_err": loss_err,
+        rows.append({"B": B, "D": dim, "form": form, "loss_err": loss_err,
                      "grad_err": grad_err, "fwd_bwd_ms": k_ms, "plain_fwd_bwd_ms": p_ms})
         print(json.dumps({"phase": "kernel", **rows[-1]}), flush=True)
-        if B == MAIN_B:
-            per_kernel_ms = {
+        if B in (MAIN_B, 8192) and form == "simcse":   # per kernel, beside its bound
+            per_kernel_ms[B] = {
                 "diag_ce_fwd": interleaved_ms(
                     lambda: K.diag_ce_fwd_cuda(q, k, *meta, tau),
-                    lambda: K.diag_ce_fwd_plain(q, k, *meta, tau), 200),
+                    lambda: K.diag_ce_fwd_plain(q, k, *meta, tau), 2 * iters),
                 "diag_ce_bwd_dq": interleaved_ms(
                     lambda: K.diag_ce_bwd_dq_cuda(*args),
-                    lambda: K.diag_ce_bwd_dq_plain(*args), 200),
+                    lambda: K.diag_ce_bwd_dq_plain(*args), 2 * iters),
                 "diag_ce_bwd_dk": interleaved_ms(
                     lambda: K.diag_ce_bwd_dk_cuda(*args),
-                    lambda: K.diag_ce_bwd_dk_plain(*args), 200),
+                    lambda: K.diag_ce_bwd_dk_plain(*args), 2 * iters),
             }
-    return rows, {"errs": errs, "ms": per_kernel_ms}
+    large = {name: {"ms": ms, "plain_ms": plain_ms, **diag_ce_bounds(8192, D)[name]}
+             for name, (ms, plain_ms) in per_kernel_ms[8192].items()}
+    print(json.dumps({"phase": "kernel_B8192", **large}), flush=True)
+    return rows, {"errs": errs, "ms": per_kernel_ms[MAIN_B], "B8192": large}
 
 
 # -- phases 2 and 3: the slice and the server ------------------------------
@@ -473,9 +484,9 @@ def reference_scale_graph(seed: int):
     return graph, u, i
 
 
-def spmm_value_and_grad(layout, x, g):
+def spmm_value_and_grad(layout, x, g, precision):
     xk = x.clone().requires_grad_(True)
-    out = S.spmm(layout, xk)
+    out = S.spmm(layout, xk, precision)
     (dx,) = torch.autograd.grad((out * g).sum(), xk)
     return out.detach(), dx
 
@@ -486,20 +497,26 @@ def max_err(a, b) -> float:
 
 def spmm_phase(device, graph) -> dict:
     rng = np.random.default_rng(0)
-    # (a) the small test graph
+    # (a) the small test graph: both modes, every width, forward and gradient
     nu, ni = 700, 500
     pairs = np.unique(np.stack([rng.integers(0, nu, 8000), rng.integers(0, ni, 8000)], 1),
                       axis=0)
     src, dst, w = normalized_edges(pairs[:, 0], pairs[:, 1], nu, ni)
-    small_err = 0.0
-    for dim, max_segment in ((64, S.MAX_SEGMENT), (32, S.MAX_SEGMENT), (64, 8)):
+    small_err = {mode: 0.0 for mode in S.PRECISIONS}
+    for dim, max_segment in ((64, S.MAX_SEGMENT), (32, S.MAX_SEGMENT), (128, S.MAX_SEGMENT),
+                             (64, 8)):
         layout = S.csr_graph(src, dst, w, nu + ni, max_segment=max_segment, device=device)
         x, g = (torch.as_tensor(rng.normal(size=(nu + ni, dim)).astype(np.float32),
                                 device=device) for _ in range(2))
-        out, dx = spmm_value_and_grad(layout, x, g)
-        err = max(max_err(out, S.spmm_plain(layout, x)), max_err(dx, S.spmm_plain(layout, g)))
-        check(err <= SPMM_TOL, f"K2 small graph D={dim} segment={max_segment}: err {err}")
-        small_err = max(small_err, err)
+        for mode in S.PRECISIONS:
+            out, dx = spmm_value_and_grad(layout, x, g, mode)
+            err = max(max_err(out, S.spmm_plain(layout, x, mode)),
+                      max_err(dx, S.spmm_plain(layout, g, mode)))
+            check(err <= SPMM_TOL,
+                  f"K2 small graph {mode} D={dim} segment={max_segment}: err {err}")
+            check(torch.equal(S.spmm_cuda(layout, x, mode), out),
+                  f"K2 small graph {mode} D={dim}: two calls differ in their bits")
+            small_err[mode] = max(small_err[mode], err)
 
     # (b) the reference-scale graph
     t0 = time.perf_counter()
@@ -508,34 +525,42 @@ def spmm_phase(device, graph) -> dict:
     n, dim = graph.num_nodes, 64
     x, g = (torch.as_tensor(rng.normal(size=(n, dim)).astype(np.float32), device=device)
             for _ in range(2))
-    S.reset_launch_counts()
-    out, dx = spmm_value_and_grad(layout, x, g)
-    torch.cuda.synchronize()
-    check(S.LAUNCHES == {"spmm_csr": 2, "spmm_hub_reduce": 2},
-          f"K2 forward + backward launches: {S.LAUNCHES}")
-    check(torch.equal(S.spmm_cuda(layout, x), out), "K2: two calls differ in their bits")
-    errs = {}
-    for name, got, inp in (("fwd", out, x), ("grad", dx, g)):
-        plain = S.spmm_plain(layout, inp)
-        exact = S.spmm_plain(layout, inp.double())
-        errs[name] = {"kernel_vs_plain": max_err(got, plain),
-                      "kernel_vs_fp64": max_err(got.double(), exact),
-                      "plain_vs_fp64": max_err(plain.double(), exact)}
-        del plain, exact
-        e = errs[name]
-        check(e["kernel_vs_plain"] <= REF_TOL, f"K2 reference scale {name}: {e}")
-        check(e["kernel_vs_fp64"] <= REF_ERR_MULT * e["plain_vs_fp64"] + REF_ERR_FLOOR,
-              f"K2 reference scale {name}: kernel further from fp64 than plain: {e}")
+    errs, outs = {}, {}
+    for mode in S.PRECISIONS:
+        S.reset_launch_counts()
+        out, dx = spmm_value_and_grad(layout, x, g, mode)
+        torch.cuda.synchronize()
+        check(S.LAUNCHES == {"spmm_csr": 2, "spmm_hub_reduce": 2},
+              f"K2 {mode} forward + backward launches: {S.LAUNCHES}")
+        check(torch.equal(S.spmm_cuda(layout, x, mode), out),
+              f"K2 {mode}: two calls differ in their bits")
+        outs[mode] = out
+        errs[mode] = {}
+        for name, got, inp in (("fwd", out, x), ("grad", dx, g)):
+            plain = S.spmm_plain(layout, inp, mode)
+            exact = S.spmm_plain(layout, inp.double(), mode)   # the same rounding of x
+            e = errs[mode][name] = {"kernel_vs_plain": max_err(got, plain),
+                                    "kernel_vs_fp64": max_err(got.double(), exact),
+                                    "plain_vs_fp64": max_err(plain.double(), exact)}
+            del plain, exact
+            check(e["kernel_vs_plain"] <= REF_TOL, f"K2 reference scale {mode} {name}: {e}")
+            check(e["kernel_vs_fp64"] <= REF_ERR_MULT * e["plain_vs_fp64"] + REF_ERR_FLOOR,
+                  f"K2 reference scale {mode} {name}: kernel further from fp64 than plain: {e}")
+        del dx
+    bf16_vs_f32 = max_err(outs["bf16"], outs["f32"])   # what the trainer's mode rounds away
+    out = outs["f32"]
 
     # each kernel alone against its plain form, with times
     partial = torch.empty((layout.num_partials, dim), device=device)
     scratch = torch.empty_like(x)
     stream = torch.cuda.current_stream().cuda_stream
     lib = S.load_library()
+    x_as = {"f32": x, "bf16": x.to(torch.bfloat16)}
 
-    def segments_only():  # spmm_csr without the hub pass; direct library call, not counted
-        code = lib.spmm_csr(layout.seg_ptr.data_ptr(), layout.seg_out.data_ptr(),
-                            layout.col.data_ptr(), layout.val.data_ptr(), x.data_ptr(),
+    def segments_only(mode):  # spmm_csr without the cast and the hub pass; not counted
+        code = lib.spmm_csr(layout.seg_order.data_ptr(), layout.seg_ptr.data_ptr(),
+                            layout.seg_out.data_ptr(), layout.col.data_ptr(),
+                            layout.val.data_ptr(), x_as[mode].data_ptr(), int(mode == "bf16"),
                             scratch.data_ptr(), partial.data_ptr(), layout.num_segments,
                             dim, stream)
         check(code == 0, f"spmm_csr: cudaError_t {code}")
@@ -555,35 +580,54 @@ def spmm_phase(device, graph) -> dict:
     def hub_library():  # one PyTorch call for the per-hub sums (rows not scattered)
         return torch.segment_reduce(partial, "sum", offsets=hub_offsets, axis=0)
 
-    segments_only()
-    hub_rows = S.spmm_cuda(layout, x)[layout.hub_row.long()]
+    segments_only("f32")
+    hub_rows = S.spmm_cuda(layout, x, "f32")[layout.hub_row.long()]
     hub_err = max_err(hub_plain()[layout.hub_row.long()], hub_rows)
     check(hub_err <= REF_TOL, f"spmm_hub_reduce vs plain: {hub_err}")
     hub_lib_err = max_err(hub_library(), hub_rows)
     check(hub_lib_err <= REF_TOL, f"spmm_hub_reduce vs segment_reduce: {hub_lib_err}")
     a_csr = torch.sparse_csr_tensor(layout.rowptr, layout.col, layout.val, size=(n, n))
     lib_err = max_err(torch.sparse.mm(a_csr, x), out)
-    csr_ms, plain_ms = interleaved_ms(segments_only, lambda: S.spmm_plain(layout, x), 20)
-    both_ms, library_ms = interleaved_ms(lambda: S.spmm_cuda(layout, x),
-                                         lambda: torch.sparse.mm(a_csr, x), 20)
+    E, P, H = layout.num_edges, layout.num_partials, layout.num_hubs
+    by_mode = {}
+    for mode in S.PRECISIONS:
+        csr_ms, plain_ms = interleaved_ms(lambda: segments_only(mode),
+                                          lambda: S.spmm_plain(layout, x, mode), 20)
+        both_ms, library_ms = interleaved_ms(lambda: S.spmm_cuda(layout, x, mode),
+                                             lambda: torch.sparse.mm(a_csr, x), 20)
+        x_bytes = x_as[mode].element_size()
+        by_mode[mode] = {
+            "max_abs_err": max(errs[mode]["fwd"]["kernel_vs_plain"],
+                               errs[mode]["grad"]["kernel_vs_plain"], small_err[mode]),
+            "ms": csr_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            # the wrapper's call: the cast of x (bf16), spmm_csr, spmm_hub_reduce
+            "wrapper_ms": both_ms,
+            # x (in the mode's type), col, val, rowptr read once; out written once in
+            # fp32; one multiply-add per edge and feature
+            **bound(n * dim * (x_bytes + 4) + 4 * (2 * E + n + 1), 2.0 * E * dim)}
+        # a floor under the cache share: device memory at its peak rate could have
+        # delivered at most ms * peak of the E * row bytes the kernel gathered
+        gathered = E * dim * x_bytes
+        by_mode[mode]["gathered_bytes"] = gathered
+        by_mode[mode]["cache_share_at_least"] = max(
+            0.0, 1.0 - 1e-3 * csr_ms * PEAK_BYTES_PER_S / gathered)
+    cast_ms = cuda_ms(lambda: x.to(torch.bfloat16), 50)
+    segments_only("f32")
     hub_ms, hub_plain_ms = interleaved_ms(hub_only, hub_plain, 50)
     _, hub_library_ms = interleaved_ms(hub_only, hub_library, 50)
-    E, P, H = layout.num_edges, layout.num_partials, layout.num_hubs
+    main = by_mode["bf16"]   # the trainer's mode
     stats = {
         "small_graph_err": small_err, "reference_scale": errs, "layout_seconds": layout_s,
+        "bf16_vs_f32_out": bf16_vs_f32, "bf16_cast_ms": cast_ms,
         "shape": {"nodes": n, "edges": E, "dim": dim, "segments": layout.num_segments,
                   "hub_rows": H, "partials": P,
                   "max_row": int(layout.rowptr.diff().max())},
-        "spmm_csr": {"max_abs_err": max(errs["fwd"]["kernel_vs_plain"],
-                                        errs["grad"]["kernel_vs_plain"], small_err),
-                     "ms": csr_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                     "with_hub_reduce_ms": both_ms, "library_vs_kernel_err": lib_err,
-                     # x, col, val, rowptr read once; out written once; one FMA per edge x feature
-                     **bound(4 * (2 * n * dim + 2 * E + n + 1), 2.0 * E * dim)},
+        "spmm_csr": {**main, "mode": "bf16", "f32": by_mode["f32"],
+                     "library_vs_kernel_err": lib_err},
         "spmm_hub_reduce": {"max_abs_err": hub_err, "ms": hub_ms, "plain_ms": hub_plain_ms,
                             # after spmm_csr, as the wrapper runs it: its partial rows
                             # are then no longer all in cache
-                            "ms_after_spmm_csr": both_ms - csr_ms,
+                            "ms_after_spmm_csr": main["wrapper_ms"] - main["ms"] - cast_ms,
                             "library_ms": hub_library_ms,
                             "library_vs_kernel_err": hub_lib_err,
                             **bound(4 * (P * dim + H * dim + 2 * H + 1), float(P * dim))},
@@ -593,6 +637,34 @@ def spmm_phase(device, graph) -> dict:
 
 # -- phase 5: the GNN slice through the CLI -------------------------------
 
+def cli_graph_spmm_times(cfg) -> dict:
+    """K2 at the graph ``train-gnn`` built (the shape of the CLI path's launches):
+    the wrapper's call in both modes beside the plain form and the byte bound."""
+    from recsys_tpu_torch.data.etl import time_split
+    from recsys_tpu_torch.pipeline import cli
+    from recsys_tpu_torch.train.gnn import graph_from_transactions
+
+    items, _, tx = cli._load_world(cfg)
+    train_tx, _, _ = time_split(tx, cfg.data.valid_days)
+    user_map = {u: r for r, u in enumerate(sorted(train_tx["user_id"].unique()))}
+    item_map = {i: r for r, i in enumerate(sorted(items["item_id"].astype(str)))}
+    graph = graph_from_transactions(train_tx, user_map, item_map, cfg.gnn, cfg.data.seed)
+    layout = S.csr_graph(graph.src, graph.dst, graph.weight, graph.num_nodes, device="cuda")
+    n, dim, E = graph.num_nodes, cfg.gnn.emb_dim, layout.num_edges
+    x = torch.as_tensor(np.random.default_rng(5).normal(size=(n, dim)).astype(np.float32),
+                        device="cuda")
+    out = {"nodes": n, "edges": E, "dim": dim, "hub_rows": layout.num_hubs}
+    for mode in S.PRECISIONS:
+        err = max_err(S.spmm_cuda(layout, x, mode), S.spmm_plain(layout, x, mode))
+        check(err <= SPMM_TOL, f"K2 {mode} at the CLI path's graph: err {err}")
+        ms, plain_ms = interleaved_ms(lambda: S.spmm_cuda(layout, x, mode),
+                                      lambda: S.spmm_plain(layout, x, mode), 200)
+        x_bytes = 2 if mode == "bf16" else 4
+        out[mode] = {"wrapper_ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+                     **bound(n * dim * (x_bytes + 4) + 4 * (2 * E + n + 1), 2.0 * E * dim)}
+    return out
+
+
 def gnn_slice_phase(root: str) -> dict:
     from recsys_tpu_torch.pipeline import cli
 
@@ -601,7 +673,7 @@ def gnn_slice_phase(root: str) -> dict:
     etl = cli.main(["etl", *sets])
     check(etl["sanity"]["target_users"] > 0, f"etl: {etl}")
     train = cli.main(["train-gnn", *sets])
-    launches = dict(S.LAUNCHES)
+    launches = dict(S.LAUNCHES)   # read here: the timing below is not the path
     # forward and backward of two layers a step; the export and the check propagate once each
     expected = 4 * train["steps"] + 2 * 2
     check(train["device"].startswith("cuda") and train["steps"] > 0
@@ -622,6 +694,8 @@ def gnn_slice_phase(root: str) -> dict:
     check(rows["gnn_dot"]["recall@100"] > 0, f"gnn_dot recall: {rows['gnn_dot']}")
     return {"train": {k: train[k] for k in ("steps", "seconds", "step_ms_median",
                                             "epoch_losses", "check")},
+            "spmm_at_this_graph": cli_graph_spmm_times(cli.config_from_args(
+                cli.parse_args(["train-gnn", *sets]))),
             "distill": {"epoch_losses": [distill["epoch_losses"][0],
                                          distill["epoch_losses"][-1]],
                         "fidelity": distill["fidelity"]},
@@ -636,7 +710,7 @@ def trainer_phase(root: str, graph, edges_u, edges_i) -> dict:
     import statistics
 
     from recsys_tpu_torch.config import load_config
-    from recsys_tpu_torch.train.gnn import (final_embeddings, select_propagation,
+    from recsys_tpu_torch.train.gnn import (final_embeddings, select_propagation, spmm_bf16,
                                             train_lightgcl)
 
     steps = 10
@@ -647,7 +721,8 @@ def trainer_phase(root: str, graph, edges_u, edges_i) -> dict:
     t0 = time.perf_counter()
     # as the train-gnn stage does: one layout for the trainer and the export
     propagation = select_propagation(cfg.gnn, graph, graph.num_nodes, "cuda")
-    check(isinstance(propagation[1], S.CsrGraph), "auto did not pick K2 on the card")
+    check(isinstance(propagation[1], S.CsrGraph) and propagation[0] is spmm_bf16,
+          "auto did not pick K2 in the trainer's bf16 mode on the card")
     layout_s = time.perf_counter() - t0
     state, model = train_lightgcl(cfg, graph, edges_u, edges_i, f"{root}/ckpt_gnn_ref",
                                   "cuda", propagation=propagation)
@@ -1283,15 +1358,20 @@ def main() -> None:
                 "replaces": REPLACES[name], "launches": result["launches"][name],
                 "max_abs_err": kstats["errs"][name],
                 "ms": kstats["ms"][name][0], "plain_ms": kstats["ms"][name][1],
-                **k1_bounds[name], "library_ms": None}
+                **k1_bounds[name], "library_ms": None,
+                "B8192": kstats["B8192"][name]}
                for name in K.LAUNCHES]
-    # K2's launches are the trainer's at the real size; the CLI path's go beside them
+    # K2's launches are the trainer's at the real size, its times those of the
+    # trainer's mode (bf16) there; the f32 mode and the CLI path's launches and graph
+    # go beside them
     kernels += [{"name": name, "route": "cuda", "source": SOURCES["spmm"],
                  "replaces": REPLACES[name], "launches": trainer["launches"][name],
                  "launches_cli_path": gnn["launches"][name],
                  **{k: sstats[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                  "bound_by", "library_ms")}}
                 for name in S.LAUNCHES]
+    kernels[len(K.LAUNCHES)].update({"mode": "bf16", "f32_mode": sstats["spmm_csr"]["f32"],
+                                     "cli_path_graph": gnn["spmm_at_this_graph"]})
     # K3's times are at the training shape, where most of its launches are; the
     # scoring shape (one launch a request) goes beside them
     kernels += [{"name": name, "route": "cuda", "source": SOURCES["fm"],

@@ -225,7 +225,9 @@ class GNNConfig:
     # propagation backend: auto -> the CSR sparse-product CUDA kernel
     # (ops/spmm.py) when the model is on a CUDA device, the plain
     # gather + index_add_ form on the CPU; spmm -> that kernel (its plain
-    # form on a CPU tensor); segment_sum -> the plain form on either device;
+    # form on a CPU tensor), in its "bf16" mode as in the JAX trainer (x
+    # gathered in bf16, weights and sums in fp32; the export stays "f32");
+    # segment_sum -> the plain form on either device;
     # segment_sum_sharded -> the edge list sharded over the mesh's model axis
     # (ops/graph.make_edge_sharded_propagate; needs a mesh)
     propagation: str = "auto"  # auto | spmm | segment_sum | segment_sum_sharded

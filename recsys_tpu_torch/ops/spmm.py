@@ -1,23 +1,31 @@
 """Sparse propagation ``A_norm @ x`` (kernel K2) and its wrappers.
 
-Counterpart of ``recsys_tpu/ops/pallas_spmm.py``. ``spmm(layout, x)``
+Counterpart of ``recsys_tpu/ops/pallas_spmm.py``. ``spmm(layout, x, precision)``
 returns ``out[d] = sum_{e: dst[e] = d} w[e] * x[src[e]]`` in fp32 for the
 symmetric normalized user-item adjacency, with zero rows for nodes without
 edges, and never builds the (E, D) message array.
+
+``precision`` names the JAX kernel's two modes. ``"f32"`` (the default here)
+reads ``x`` in fp32. ``"bf16"``, the mode the trainer asks for as the JAX
+trainer does, rounds ``x`` to bf16 first (one elementwise pass; the kernel
+then gathers rows of half the bytes) and multiplies by the fp32 weight and
+sums in fp32. The JAX kernel sums that mode in bf16, so the port is the more
+exact of the two. The backward runs in the forward's mode.
 
 ``csr_graph`` is the one-time host layout (the counterpart of
 ``block_graph``): weight-0 padding edges are dropped, the kept edges are
 sorted by destination into CSR, and rows longer than ``max_segment`` edges
 are cut into segments so that no warp walks a hub row alone (see the note
-in ``csrc/spmm.cu``). It refuses a matrix that is not symmetric, because the
-backward is the same product on the incoming gradient.
+in ``csrc/spmm.cu``); ``seg_order`` hands the kernel the segments longest
+first. It refuses a matrix that is not symmetric, because the backward is the
+same product on the incoming gradient.
 
 On CUDA tensors the forward and the backward are the hand-written kernels in
 ``csrc/spmm.cu`` (sm_90a), built with ``nvcc`` into ``csrc/build/`` at first
 use and called through ``ctypes``. On CPU tensors the same autograd function
-runs ``spmm_plain``, the same sum written with ``index_select`` and
-``index_add_``. A CUDA tensor never takes the plain path: the kernel
-launches or the call raises.
+runs ``spmm_plain``, the same sum (and, in ``"bf16"``, the same rounding of
+``x``) written with ``index_select`` and ``index_add_``. A CUDA tensor never
+takes the plain path: the kernel launches or the call raises.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ from recsys_tpu_torch.ops._build import KernelLibrary, raise_on_error
 # launches per kernel; each wrapper adds one where it launches, nowhere else
 LAUNCHES = {"spmm_csr": 0, "spmm_hub_reduce": 0}
 MAX_SEGMENT = 256  # edges one warp walks; longer rows are cut (csrc/spmm.cu)
+PRECISIONS = ("bf16", "f32")
 
 
 def reset_launch_counts() -> None:
@@ -46,7 +55,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.spmm_supports_dim.restype = i32
     lib.spmm_supports_dim.argtypes = [i32]
     lib.spmm_csr.restype = i32
-    lib.spmm_csr.argtypes = [ptr] * 7 + [i32, i32, ptr]
+    lib.spmm_csr.argtypes = [ptr] * 6 + [i32, ptr, ptr, i32, i32, ptr]
     lib.spmm_hub_reduce.restype = i32
     lib.spmm_hub_reduce.argtypes = [ptr] * 4 + [i32, i32, ptr]
 
@@ -67,6 +76,8 @@ class CsrGraph:
     ``seg_ptr[s]:seg_ptr[s + 1]``; ``seg_out[s] >= 0`` is the output row it
     owns alone, otherwise ``-(slot + 1)`` names its partial-sum slot. Hub
     row ``hub_row[h]`` is the sum of the slots ``hub_ptr[h]:hub_ptr[h + 1]``.
+    ``seg_order`` lists the segments longest first (ties in row order): the
+    order in which the kernel's warps take them.
     """
 
     num_nodes: int
@@ -76,6 +87,7 @@ class CsrGraph:
     val: torch.Tensor       # (E,) float32
     seg_ptr: torch.Tensor   # (S + 1,) int32
     seg_out: torch.Tensor   # (S,) int32
+    seg_order: torch.Tensor # (S,) int32
     hub_row: torch.Tensor   # (H,) int32
     hub_ptr: torch.Tensor   # (H + 1,) int32
 
@@ -165,15 +177,22 @@ def csr_graph(src, dst, weight, num_nodes: int, max_segment: int = MAX_SEGMENT,
     seg_out[is_hub_seg] = -(torch.arange(int(is_hub_seg.sum()), device=device) + 1)
     hub_row = torch.nonzero(segs_per_row > 1).flatten()
     hub_ptr = torch.cat([zero, segs_per_row[hub_row].cumsum(0)])
+    seg_order = torch.sort(seg_ptr.diff(), descending=True, stable=True).indices
 
     i32 = torch.int32
     return CsrGraph(num_nodes=int(num_nodes), rowptr=rowptr.to(i32), row=row.to(i32),
                     col=col.to(i32), val=val.contiguous(), seg_ptr=seg_ptr.to(i32),
-                    seg_out=seg_out.to(i32), hub_row=hub_row.to(i32),
+                    seg_out=seg_out.to(i32), seg_order=seg_order.to(i32),
+                    hub_row=hub_row.to(i32),
                     hub_ptr=hub_ptr.to(i32))
 
 
 # -- the product ----------------------------------------------------------------
+
+def _check_precision(precision: str) -> None:
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
+
 
 def _check_input(layout: CsrGraph, x: torch.Tensor) -> None:
     if x.device != layout.device:
@@ -185,8 +204,10 @@ def _check_input(layout: CsrGraph, x: torch.Tensor) -> None:
         raise ValueError(f"x has {x.shape[0]} rows, the graph {layout.num_nodes} nodes")
 
 
-def spmm_cuda(layout: CsrGraph, x: torch.Tensor) -> torch.Tensor:
-    """The kernels: (N, D) fp32 on the card, deterministic."""
+def spmm_cuda(layout: CsrGraph, x: torch.Tensor, precision: str = "f32") -> torch.Tensor:
+    """The kernels: (N, D) fp32 on the card -> (N, D) fp32, deterministic.
+    In ``"bf16"`` the kernel gathers from a bf16 copy of ``x`` made here."""
+    _check_precision(precision)
     if not x.is_cuda:
         raise RuntimeError("the spmm kernel takes CUDA tensors only")
     _check_input(layout, x)
@@ -199,8 +220,10 @@ def spmm_cuda(layout: CsrGraph, x: torch.Tensor) -> torch.Tensor:
     partial = torch.empty((layout.num_partials, D), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        code = lib.spmm_csr(layout.seg_ptr.data_ptr(), layout.seg_out.data_ptr(),
-                            layout.col.data_ptr(), layout.val.data_ptr(), x.data_ptr(),
+        src = x.to(torch.bfloat16) if precision == "bf16" else x
+        code = lib.spmm_csr(layout.seg_order.data_ptr(), layout.seg_ptr.data_ptr(),
+                            layout.seg_out.data_ptr(), layout.col.data_ptr(),
+                            layout.val.data_ptr(), src.data_ptr(), int(precision == "bf16"),
                             out.data_ptr(), partial.data_ptr(), layout.num_segments, D,
                             stream)
         raise_on_error(code, "spmm_csr")
@@ -214,8 +237,13 @@ def spmm_cuda(layout: CsrGraph, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def spmm_plain(layout: CsrGraph, x: torch.Tensor) -> torch.Tensor:
-    """The same sum in plain PyTorch (any float dtype, either device)."""
+def spmm_plain(layout: CsrGraph, x: torch.Tensor, precision: str = "f32") -> torch.Tensor:
+    """The same sum in plain PyTorch (any float dtype, either device). In
+    ``"bf16"`` the values of ``x`` are rounded to bf16 first; the weights and
+    the sum stay in ``x``'s type, as in the kernel."""
+    _check_precision(precision)
+    if precision == "bf16":
+        x = x.to(torch.bfloat16).to(x.dtype)
     msgs = x.index_select(0, layout.col) * layout.val.to(x.dtype)[:, None]
     out = torch.zeros((layout.num_nodes, x.shape[1]), dtype=x.dtype, device=x.device)
     return out.index_add_(0, layout.row, msgs)
@@ -223,22 +251,24 @@ def spmm_plain(layout: CsrGraph, x: torch.Tensor) -> torch.Tensor:
 
 class Spmm(torch.autograd.Function):
     """``A @ x``; kernels on CUDA, plain math on CPU. ``A`` is symmetric, so
-    the backward is the same product on the incoming gradient."""
+    the backward is the same product, in the same mode, on the incoming
+    gradient."""
 
     @staticmethod
-    def forward(ctx, x, layout):
-        ctx.layout = layout
-        return spmm_cuda(layout, x) if x.is_cuda else spmm_plain(layout, x)
+    def forward(ctx, x, layout, precision):
+        ctx.layout, ctx.precision = layout, precision
+        return (spmm_cuda if x.is_cuda else spmm_plain)(layout, x, precision)
 
     @staticmethod
     def backward(ctx, g):
         g = g.float().contiguous()
-        grad = spmm_cuda(ctx.layout, g) if g.is_cuda else spmm_plain(ctx.layout, g)
-        return grad, None
+        grad = (spmm_cuda if g.is_cuda else spmm_plain)(ctx.layout, g, ctx.precision)
+        return grad, None, None
 
 
-def spmm(layout: CsrGraph, x: torch.Tensor) -> torch.Tensor:
-    """(N, D) -> (N, D) fp32, differentiable in ``x``; see the module docstring."""
+def spmm(layout: CsrGraph, x: torch.Tensor, precision: str = "f32") -> torch.Tensor:
+    """(N, D) -> (N, D) fp32, differentiable in ``x``; ``precision`` is
+    ``"f32"`` or ``"bf16"``. See the module docstring."""
     x = x.float().contiguous()
     _check_input(layout, x)
-    return Spmm.apply(x, layout)
+    return Spmm.apply(x, layout, precision)

@@ -4,8 +4,9 @@ Counterpart of ``recsys_tpu/train/gnn.py``:
 
   * full-graph forward every step — fp32 graph math at dim 64, BPR +
     clamped SSL InfoNCE + L2 reg. On a CUDA device the propagation is the
-    hand-written CSR sparse product (``ops/spmm.py``), forward and backward:
-    four launches a step at two layers;
+    hand-written CSR sparse product (``ops/spmm.py``) in its "bf16" mode, as
+    the JAX trainer's, forward and backward: four launches a step at two
+    layers;
   * vectorized host-side rejection sampling for BPR negatives (the JAX
     package's numpy code unchanged, so both packages draw the same batches
     from the same seed);
@@ -102,16 +103,23 @@ def sample_bpr_batches(graph_u: np.ndarray, graph_i: np.ndarray, num_items: int,
         yield users.astype(np.int32), pos.astype(np.int32), neg.astype(np.int32)
 
 
+def spmm_bf16(layout: CsrGraph, x: torch.Tensor) -> torch.Tensor:
+    """The trainer's sparse product: ``spmm`` in the JAX trainer's "bf16" mode
+    (``x`` gathered in bf16, weights and sums in fp32, forward and backward)."""
+    return spmm(layout, x, "bf16")
+
+
 def select_propagation(cfg: GNNConfig, graph: BipartiteGraph, num_nodes: int,
                        device: torch.device | str = "cuda", mesh=None):
     """Pick the propagation backend + its device-resident args.
 
     ``auto`` -> the CSR sparse-product kernel when ``device`` is a CUDA
     device, the plain gather + ``index_add_`` on the CPU. ``spmm`` -> that
-    kernel (its plain form on CPU tensors). ``segment_sum`` -> the plain
-    form on either device. ``segment_sum_sharded`` (needs ``mesh``) shards the
-    edge list over the mesh's model axis: each shard sums its slice on its
-    device, one sum merges on the model's device."""
+    kernel (its plain form on CPU tensors), in its "bf16" mode as in the JAX
+    trainer; the export (``final_embeddings``) stays "f32". ``segment_sum`` ->
+    the plain form on either device. ``segment_sum_sharded`` (needs ``mesh``)
+    shards the edge list over the mesh's model axis: each shard sums its slice
+    on its device, one sum merges on the model's device."""
     device = resolve_device(device)
     mode = cfg.propagation
     if mode == "auto":
@@ -124,7 +132,7 @@ def select_propagation(cfg: GNNConfig, graph: BipartiteGraph, num_nodes: int,
         return prop_fn, place_edges(graph.src, graph.dst, graph.weight)
     if mode == "spmm":
         layout = csr_graph(graph.src, graph.dst, graph.weight, num_nodes, device=device)
-        return spmm, layout
+        return spmm_bf16, layout
     if mode != "segment_sum":
         raise ValueError(f"unknown gnn.propagation {cfg.propagation!r}")
     args = (torch.as_tensor(graph.src, device=device).long(),
@@ -286,10 +294,10 @@ def final_embeddings(params: torch.nn.Module | Mapping, graph: BipartiteGraph,
     """Post-hoc n-layer propagation of the trained layer-0 tables (the
     export/eval path) -> (users, items) numpy arrays.
 
-    On a CUDA device the propagation is the CSR sparse-product kernel, which
-    never builds the (E, D) message array (``layout`` reuses the trainer's;
-    otherwise one is built here). On the CPU it is the edge-chunked plain
-    form, which bounds that array."""
+    On a CUDA device the propagation is the CSR sparse-product kernel in its
+    "f32" mode, which never builds the (E, D) message array (``layout`` reuses
+    the trainer's; otherwise one is built here). On the CPU it is the
+    edge-chunked plain form, which bounds that array."""
     device = resolve_device(device)
     user_emb, item_emb = _layer0_tables(params)
     x0 = torch.cat([user_emb, item_emb]).to(device=device, dtype=torch.float32)
@@ -299,7 +307,7 @@ def final_embeddings(params: torch.nn.Module | Mapping, graph: BipartiteGraph,
                                device=device)
 
         def prop(x):
-            return spmm(layout, x)
+            return spmm(layout, x, "f32")
     else:
         def prop(x):
             return propagate_chunked(x, graph.src, graph.dst, graph.weight,

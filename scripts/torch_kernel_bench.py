@@ -1,0 +1,223 @@
+"""K1 (fused contrastive CE) and K2 (sparse propagation) on the card: build,
+check against the plain forms, time at the main path's shapes.
+
+    python3 scripts/torch_kernel_bench.py [--quick] [--baseline DIR]
+
+Needs one NVIDIA GPU and nvcc. ``--quick`` builds both kernels, prints what
+ptxas reports, checks each once at its real widths and stops. ``--baseline
+DIR`` names a second checkout of the repository (an older commit, unpacked with
+``git archive``): its kernels are timed in a process of their own before and
+after this checkout's (baseline, this, this, baseline), so that two versions
+are compared on one card within one run. Every line printed is one JSON
+object; the first names the card and its power limit.
+
+K2 is timed at the reference-scale graph of ``chip_smoke.py`` (200,000 users,
+47,000 items, 11.3M interactions -> 22.6M directed edges, D = 64): the kernel
+in each mode it has: the wrapper's call (CUDA events), the plain form, and the
+two kernels' time on the device (``torch.profiler``). K1 is timed through the
+loss wrappers the trainers call (forward and backward) at B = 192, 768 and
+8192, D = 128, and per kernel there, in a loop (CUDA events: at small B this
+is what the Python wrapper costs) and on the device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def emit(**row) -> None:
+    print(json.dumps(row), flush=True)
+
+
+def cuda_ms(fn, iters: int) -> float:
+    import torch
+
+    for _ in range(3):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int, name: str) -> float:
+    """Time on the device per call of the kernels whose name contains ``name``
+    (``torch.profiler``): what a launch costs the card, without the host."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
+                   for e in prof.key_averages() if name in e.key)
+    return total_us / 1e3 / iters
+
+
+def reference_graph(seed: int = 0):
+    import numpy as np
+
+    users, items, interactions = 200_000, 47_000, 11_300_000
+    rng = np.random.default_rng(seed)
+    u = rng.integers(0, users, interactions).astype(np.int64)
+    i = (items * rng.random(interactions) ** 2.5).astype(np.int64)
+    n = users + items
+    deg = np.bincount(u, minlength=n).astype(np.float64)
+    deg[users:] += np.bincount(i, minlength=items)
+    d_inv = 1.0 / np.sqrt(np.clip(deg, 1.0, None))
+    w = (d_inv[u] * d_inv[users + i]).astype(np.float32)
+    return (np.concatenate([u, users + i]).astype(np.int32),
+            np.concatenate([users + i, u]).astype(np.int32), np.concatenate([w, w]), n)
+
+
+def k2(tag: str, quick: bool) -> None:
+    import numpy as np
+    import torch
+
+    from recsys_tpu_torch.ops import spmm as S
+
+    S.load_library()
+    emit(tag=tag, kernel="K2", build_seconds=S.BUILD_INFO.get("seconds"),
+         ptxas=[ln.strip() for ln in S.BUILD_INFO.get("ptxas", "").splitlines()
+                if "registers" in ln or "spill" in ln])
+    modes = getattr(S, "PRECISIONS", None)   # an older checkout has the fp32 kernel only
+    call = (lambda lay, x, m: S.spmm_cuda(lay, x, m)) if modes else (lambda lay, x, m: S.spmm_cuda(lay, x))
+    plain = (lambda lay, x, m: S.spmm_plain(lay, x, m)) if modes else (lambda lay, x, m: S.spmm_plain(lay, x))
+    src, dst, w, n = reference_graph()
+    layout = S.csr_graph(src, dst, w, n, device="cuda")
+    rng = np.random.default_rng(1)
+    for dim in (64,) if quick else (64, 32, 128):
+        x = torch.as_tensor(rng.normal(size=(n, dim)).astype(np.float32), device="cuda")
+        for mode in modes or ("f32",):
+            out = call(layout, x, mode)
+            torch.cuda.synchronize()
+            ref = plain(layout, x, mode)
+            row = {"tag": tag, "kernel": "K2", "mode": mode, "dim": dim,
+                   "max_abs_err": float((out - ref).abs().max()),
+                   "bit_equal": bool(torch.equal(call(layout, x, mode), out))}
+            del ref
+            if not quick:
+                row["wrapper_ms"] = cuda_ms(lambda: call(layout, x, mode), 20)
+                if dim == 64:
+                    row["plain_ms"] = cuda_ms(lambda: plain(layout, x, mode), 5)
+                    row["segments_kernel_device_ms"] = device_ms(
+                        lambda: call(layout, x, mode), 20, "spmm_segments_kernel")
+                    row["hub_kernel_device_ms"] = device_ms(
+                        lambda: call(layout, x, mode), 20, "spmm_hub_reduce_kernel")
+            emit(**row)
+
+
+def k1(tag: str, quick: bool) -> None:
+    import numpy as np
+    import torch
+
+    from recsys_tpu_torch.ops import contrastive_kernel as K
+    from recsys_tpu_torch.ops.contrastive import bidirectional_infonce, inbatch_logq_loss
+
+    K.load_library()
+    emit(tag=tag, kernel="K1", build_seconds=K.BUILD_INFO.get("seconds"),
+         ptxas=[ln.strip() for ln in K.BUILD_INFO.get("ptxas", "").splitlines()
+                if "registers" in ln or "spill" in ln])
+
+    def grads(fn, a, b):
+        a, b = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
+        loss = fn(a, b)
+        return (loss.detach(), *torch.autograd.grad(loss, (a, b)))
+
+    for B, dim in ((192, 128), (200, 128), (200, 64), (200, 256), (768, 128), (8192, 128)):
+        rng = np.random.default_rng(B + dim)
+        unit = lambda: torch.as_tensor(
+            (lambda v: v / np.linalg.norm(v, axis=1, keepdims=True))(
+                rng.normal(size=(B, dim)).astype(np.float32)), device="cuda")
+        q, k = unit(), unit()
+        pos = torch.as_tensor(rng.integers(1, max(B // 4, 2), B), device="cuda")
+        usr = torch.as_tensor(rng.integers(0, max(B // 3, 2), B), device="cuda")
+        logq = torch.as_tensor(rng.uniform(-8, -1, B).astype(np.float32), device="cuda")
+        valid = torch.as_tensor((rng.random(B) > 0.1).astype(np.int32), device="cuda")
+        kw = dict(temperature=0.1, user_ids=usr, valid=valid)
+        forms = {
+            "logq": (lambda a, b: K.fused_inbatch_logq_loss(a, b, pos, logq, **kw),
+                     lambda a, b: inbatch_logq_loss(a, b, pos, logq, **kw)),
+            "simcse": (lambda a, b: K.fused_bidirectional_infonce(a, b, 0.08),
+                       lambda a, b: bidirectional_infonce(a, b, 0.08))}
+        for form, (kern, ref) in forms.items():
+            got, want = grads(kern, q, k), grads(ref, q, k)
+            torch.cuda.synchronize()
+            row = {"tag": tag, "kernel": "K1", "B": B, "D": dim, "form": form,
+                   "loss_err": abs(float(got[0]) - float(want[0])),
+                   "grad_err": max(float((x - y).abs().max())
+                                   for x, y in zip(got[1:], want[1:]))}
+            if not quick and dim == 128:
+                iters = 20 if B >= 4096 else 100
+                row["fwd_bwd_ms"] = cuda_ms(lambda: grads(kern, q, k), iters)
+                row["plain_fwd_bwd_ms"] = cuda_ms(lambda: grads(ref, q, k), iters)
+            emit(**row)
+        if not quick and dim == 128 and B in (192, 768, 8192):
+            corr = logq[pos]
+            meta = (corr, pos.int(), usr.int(), valid)
+            _, lse = K.diag_ce_fwd_cuda(q, k, *meta, 0.1)
+            g = valid.float() / valid.float().sum()
+            args = (q, k, *meta, lse, g, 0.1)
+            iters = 20 if B >= 4096 else 200
+            calls = {"diag_ce_fwd": lambda: K.diag_ce_fwd_cuda(q, k, *meta, 0.1),
+                     "diag_ce_bwd_dq": lambda: K.diag_ce_bwd_dq_cuda(*args),
+                     "diag_ce_bwd_dk": lambda: K.diag_ce_bwd_dk_cuda(*args)}
+            emit(tag=tag, kernel="K1", B=B, D=dim,
+                 per_kernel_ms={name: cuda_ms(fn, iters) for name, fn in calls.items()},
+                 per_kernel_device_ms={name: device_ms(fn, iters, "diag_ce_kernel")
+                                       for name, fn in calls.items()})
+
+
+def run_here(tag: str, quick: bool) -> None:
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("torch_kernel_bench: needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    k2(tag, quick)
+    k1(tag, quick)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--quick", action="store_true")
+    ap.add_argument("--baseline", help="a second checkout whose kernels are timed in turns")
+    ap.add_argument("--root", default=ROOT, help=argparse.SUPPRESS)
+    ap.add_argument("--tag", default="this", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True)
+    if not args.baseline:
+        sys.path.insert(0, args.root)
+        if args.tag == "this":
+            emit(card=smi.stdout.strip())
+        run_here(args.tag, args.quick)
+        return
+    emit(card=smi.stdout.strip())
+    for tag, root in (("baseline_1", args.baseline), ("this_1", ROOT), ("this_2", ROOT),
+                      ("baseline_2", args.baseline)):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--root",
+                               os.path.abspath(root), "--tag", tag]
+                              + (["--quick"] if args.quick else []), cwd=root)
+        emit(tag=tag, exit_code=proc.returncode, seconds=time.perf_counter() - t0)
+        if proc.returncode != 0:
+            sys.exit(proc.returncode)
+
+
+if __name__ == "__main__":
+    main()

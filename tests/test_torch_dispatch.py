@@ -108,10 +108,13 @@ def test_select_propagation_spmm_mode_uses_the_plain_version_on_cpu_tensors():
     graph = _tiny_graph()
     prop_fn, layout = G.select_propagation(GNNConfig(propagation="spmm"), graph,
                                            graph.num_nodes, "cpu")
-    assert isinstance(layout, S.CsrGraph) and prop_fn is S.spmm
+    # the trainer's mode is the JAX trainer's: spmm in "bf16"
+    assert isinstance(layout, S.CsrGraph) and prop_fn is G.spmm_bf16
     x = torch.randn(graph.num_nodes, 8)
     S.reset_launch_counts()
-    assert torch.equal(prop_fn(layout, x), S.spmm_plain(layout, x))
+    assert torch.equal(prop_fn(layout, x), S.spmm_plain(layout, x, "bf16"))
+    assert torch.equal(prop_fn(layout, x), S.spmm_plain(layout, x.bfloat16().float()))
+    assert not torch.equal(prop_fn(layout, x), S.spmm_plain(layout, x))
     assert S.LAUNCHES == {"spmm_csr": 0, "spmm_hub_reduce": 0}
 
 

@@ -108,6 +108,60 @@ def test_five_steps_match_the_jax_step(tiny_graph):
         assert moved > 1e-2                              # five Adam steps did move them
 
 
+def test_trainer_spmm_mode_is_the_jax_trainers_bf16_mode(tiny_graph):
+    """``gnn.propagation=spmm`` (what ``auto`` picks on the card): both
+    trainers propagate through their sparse-product kernel in its "bf16" mode,
+    the JAX one in interpret mode, the port through the kernel's plain form.
+    Both round the embeddings to bf16; the JAX kernel also keeps its sums in
+    bf16 where the port sums in fp32, a few relative 2^-8 of a row's sum of
+    |terms| (tests/test_torch_spmm.py derives the 2^-6 bound). Over three
+    steps at lr 5e-3 that leaves the losses ~2e-5 apart and the SSL term, a
+    log-sum-exp of embedding dots at temperature 0.2, ~3e-4 (measured); they
+    are held to ten times that. The export stays fp32."""
+    from recsys_tpu_torch.ops import spmm as S
+
+    graph, u, i = tiny_graph
+    g = dataclasses.replace(CFG.gnn, lr=5e-3, propagation="spmm", spmm_block_n=128)
+    jprop, jargs = JG.select_propagation(g, graph, graph.num_nodes)
+    tprop, layout = TG.select_propagation(g, graph, graph.num_nodes, "cpu")
+    assert tprop is TG.spmm_bf16 and isinstance(layout, S.CsrGraph)
+
+    x = np.random.default_rng(1).normal(size=(graph.num_nodes, 16)).astype(np.float32)
+    ref = np.asarray(jprop(jargs, jnp.asarray(x)))[: graph.num_nodes]
+    got = tprop(layout, torch.as_tensor(x)).numpy()
+    row_sums = S.spmm_plain(layout, torch.as_tensor(np.abs(x))).numpy()
+    assert (np.abs(got - ref) <= 2.0 ** -6 * row_sums + 1e-7).all()
+    np.testing.assert_array_equal(got, S.spmm_plain(layout, torch.as_tensor(x), "bf16").numpy())
+    assert np.abs(got - S.spmm_plain(layout, torch.as_tensor(x)).numpy()).max() > 1e-4
+
+    jmodel = JaxLightGCL(graph.num_users, graph.num_items, g, prop_fn=jprop)
+    params = jmodel.init(jax.random.PRNGKey(7), jargs, jnp.asarray(graph.svd_u),
+                         jnp.asarray(graph.svd_s), jnp.asarray(graph.svd_v))["params"]
+    jstate = JaxTrainState.create(params, optax.adam(g.lr))
+    jstep = JG.make_gnn_step(jmodel, graph, g, jargs)
+    tmodel = load_flax_params(LightGCL(graph.num_users, graph.num_items, g, prop_fn=tprop),
+                              jax.device_get(params))
+    tstate = TrainState(tmodel, TG._adam(tmodel, g.lr))
+    tstep = TG.make_gnn_step(tstate, graph, g, layout)
+    batches = list(TG.sample_bpr_batches(u, i, graph.num_items, 48,
+                                         np.random.default_rng(1)))[:3]
+    for users, pos, neg in batches:
+        jstate, jaux = jstep(jstate, jnp.asarray(users), jnp.asarray(pos), jnp.asarray(neg))
+        taux = tstep(torch.as_tensor(users), torch.as_tensor(pos), torch.as_tensor(neg))
+        for key, tol in (("loss", 2e-4), ("bpr", 2e-4), ("ssl", 3e-3), ("reg", 1e-5)):
+            assert float(taux[key]) == pytest.approx(float(jaux[key]), abs=tol), key
+    for name in ("user_emb", "item_emb"):
+        assert torch.isfinite(getattr(tmodel, name)).all()
+        assert getattr(tmodel, name).grad is not None    # the bf16 backward reached the tables
+
+    # the export and the check propagate in fp32, whatever the trainer's mode
+    fu, fi = TG.final_embeddings(tmodel, graph, device="cpu")
+    x0 = torch.cat([tmodel.user_emb, tmodel.item_emb]).detach()
+    h1 = S.spmm_plain(layout, x0)
+    want = ((x0 + h1 + S.spmm_plain(layout, h1)) / 3).numpy()
+    np.testing.assert_allclose(np.concatenate([fu, fi]), want, atol=1e-5, rtol=0)
+
+
 def test_cosine_factor_is_the_optax_schedule():
     sched = optax.cosine_decay_schedule(2e-3, 40, alpha=1e-5 / 2e-3)
     factor = TG._cosine_factor(40, 1e-5 / 2e-3)

@@ -8,10 +8,14 @@ on the GPU machine it runs without the JAX test harness:
 
 Tolerances are the JAX suite's for the Pallas kernel
 (tests/test_pallas.py): loss 1e-4 abs, grads 1e-5 abs. Both sides are fp32
-with TF32 off; the kernel sums in another order than cuBLAS. K2 is held to
-1e-5 abs (tests/test_spmm.py) on graphs whose rows sum up to a few thousand
-terms of size ~1e-2; it sums a row in edge order, ``index_add_`` in the
-order its atomics land. K3 is held to rtol 1e-4 / atol 1e-3, the JAX suite's
+with TF32 off in PyTorch; the kernel's products are three TF32 terms per
+product on the tensor cores (tests/test_torch_tf32_split.py holds that
+arithmetic to fp64 in numpy) and it sums in another order than cuBLAS. K2 is
+held to 1e-5 abs (tests/test_spmm.py) in both of its modes, each against the
+plain form of the same mode (in "bf16" both sides round x to bf16 and sum the
+same values in fp32), on graphs whose rows sum up to a few thousand terms of
+size ~1e-2; it sums a row in a fixed order, ``index_add_`` in the order its
+atomics land. K3 is held to rtol 1e-4 / atol 1e-3, the JAX suite's
 bound for the Pallas FM kernel (tests/test_pallas.py), forward and gradient.
 K4 moves bytes between virtual ranks laid over the one card: it is held bit
 for bit against its plain hop loop and against ``torch.cat``.
@@ -108,6 +112,30 @@ def test_kernel_per_row_outputs(device):
         assert float((x - r).abs().max()) <= 1e-4  # per-row g ~ N(0, 1), not 1/B
 
 
+@pytest.mark.parametrize("B,D", [(200, 64), (200, 256), (333, 100), (50, 6), (4100, 64),
+                                 (4100, 160), (1, 8), (17, 3), (65, 129)])
+def test_kernel_widths_and_ragged_batches(device, B, D):
+    """Widths below, at and between the kernel's two padded widths (128, 256),
+    a width that is no multiple of 4 (scalar loads), and ragged batches on both
+    sides of the small-tile / large-tile dispatch: each kernel against its
+    plain form, per-row outputs."""
+    p = _logq_problem(B, D, B + D, device)
+    meta = (p["logq"][p["pos"] % B], p["pos"].int(), p["uid"].int(), p["valid"])
+    loss, lse = K.diag_ce_fwd_cuda(p["u"], p["i"], *meta, 0.1)
+    loss_p, lse_p = K.diag_ce_fwd_plain(p["u"], p["i"], *meta, 0.1)
+    assert float((loss - loss_p).abs().max()) <= 1e-4
+    assert float((lse - lse_p).abs().max()) <= 1e-4
+    g = p["valid"].float() / p["valid"].float().sum().clamp(min=1.0)
+    args = (p["u"], p["i"], *meta, lse_p, g, 0.1)
+    dq, dk = K.diag_ce_bwd_dq_cuda(*args), K.diag_ce_bwd_dk_cuda(*args)
+    assert float((dq - K.diag_ce_bwd_dq_plain(*args)).abs().max()) <= 1e-5
+    assert float((dk - K.diag_ce_bwd_dk_plain(*args)).abs().max()) <= 1e-5
+    # deterministic: the column groups of a block are merged in warp order
+    assert torch.equal(K.diag_ce_bwd_dk_cuda(*args), dk)
+    assert torch.equal(K.diag_ce_bwd_dq_cuda(*args), dq)
+    assert torch.equal(K.diag_ce_fwd_cuda(p["u"], p["i"], *meta, 0.1)[0], loss)
+
+
 def test_kernel_rejects_bad_inputs(device):
     q = torch.randn(8, 4, device=device)
     ids = torch.arange(8, device=device, dtype=torch.int32)
@@ -147,10 +175,11 @@ def _skewed_graph():
                              (ni * rng.random(e) ** 2.5).astype(np.int64), nu, ni)
 
 
-@pytest.mark.parametrize("D", [64, 32])
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("D", [64, 32, 128])
 @pytest.mark.parametrize("graph,max_segment", [("small", 256), ("small", 8),
                                                ("skewed", 256)])
-def test_spmm_kernel_matches_plain(device, graph, max_segment, D):
+def test_spmm_kernel_matches_plain(device, graph, max_segment, D, precision):
     src, dst, w, n = _small_graph() if graph == "small" else _skewed_graph()
     layout = S.csr_graph(src, dst, w, n, max_segment=max_segment, device=device)
     assert layout.num_hubs > 0 or max_segment == 256 and graph == "small"
@@ -159,16 +188,40 @@ def test_spmm_kernel_matches_plain(device, graph, max_segment, D):
     g = torch.as_tensor(rng.normal(size=(n, D)).astype(np.float32), device=device)
     S.reset_launch_counts()
     xk = x.clone().requires_grad_(True)
-    out = S.spmm(layout, xk)
+    out = S.spmm(layout, xk, precision)
     (dx,) = torch.autograd.grad((out * g).sum(), xk)
     torch.cuda.synchronize()
     assert S.LAUNCHES["spmm_csr"] == 2  # forward and backward
     assert S.LAUNCHES["spmm_hub_reduce"] == (2 if layout.num_hubs else 0)
-    assert float((out.detach() - S.spmm_plain(layout, x)).abs().max()) <= 1e-5
-    assert float((dx - S.spmm_plain(layout, g)).abs().max()) <= 1e-5
-    assert torch.equal(S.spmm_cuda(layout, x), out.detach())  # deterministic
+    assert out.dtype == torch.float32 and dx.dtype == torch.float32
+    assert float((out.detach() - S.spmm_plain(layout, x, precision)).abs().max()) <= 1e-5
+    assert float((dx - S.spmm_plain(layout, g, precision)).abs().max()) <= 1e-5
+    assert torch.equal(S.spmm_cuda(layout, x, precision), out.detach())  # deterministic
     isolated = torch.as_tensor(np.setdiff1d(np.arange(n), dst[w != 0]), device=device)
     assert float(out.detach()[isolated].abs().sum()) == 0.0
+    if precision == "bf16":   # the mode does round: it is not the exact product
+        assert float((out.detach() - S.spmm_plain(layout, x)).abs().max()) > 1e-4
+        # the exact mode on the rounded input sums the same values, in another order
+        rounded = S.spmm_cuda(layout, x.bfloat16().float(), "f32")
+        assert float((out.detach() - rounded).abs().max()) <= 1e-5
+
+
+def test_trainer_mode_on_the_card(device):
+    """``auto`` on the card: K2 in its "bf16" mode through the trainer's prop_fn."""
+    from recsys_tpu_torch.config import GNNConfig
+    from recsys_tpu_torch.ops.graph import BipartiteGraph
+    from recsys_tpu_torch.train import gnn as G
+
+    src, dst, w, n = _small_graph()
+    graph = BipartiteGraph(700, 500, src, dst, w, np.zeros((n, 2), np.float32),
+                           np.ones(2, np.float32), np.zeros((n, 2), np.float32))
+    prop_fn, layout = G.select_propagation(GNNConfig(), graph, n, device)
+    assert prop_fn is G.spmm_bf16 and isinstance(layout, S.CsrGraph)
+    x = torch.randn(n, 64, device=device)
+    S.reset_launch_counts()
+    out = prop_fn(layout, x)
+    assert S.LAUNCHES["spmm_csr"] == 1
+    assert float((out - S.spmm_plain(layout, x, "bf16")).abs().max()) <= 1e-5
 
 
 def test_spmm_kernel_rejects_bad_inputs(device):
@@ -178,6 +231,8 @@ def test_spmm_kernel_rejects_bad_inputs(device):
     for bad in (x.double(), x[:-1], x.t().contiguous().t(), x.cpu()):
         with pytest.raises(ValueError):
             S.spmm_cuda(layout, bad) if bad.is_cuda else S.spmm(layout, bad)
+    with pytest.raises(ValueError, match="precision"):
+        S.spmm_cuda(layout, x, "fp16")
     with pytest.raises(ValueError, match="32, 64 or 128"):
         S.spmm_cuda(layout, torch.randn(n, 48, device=device))
 

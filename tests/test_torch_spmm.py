@@ -1,10 +1,20 @@
 """Kernel K2's plain form, layout and autograd function on the CPU, against
 the JAX package's ``propagate`` and its block-SpMM Pallas kernel.
 
-The JAX kernel runs as its own tests run it on the CPU: in interpret mode,
-"f32" precision. All three sum the same fp32 products in different orders;
+The JAX kernel runs as its own tests run it on the CPU: in interpret mode.
+In "f32" precision all three sum the same fp32 products in different orders;
 atol 1e-5 is the JAX suite's bound (tests/test_spmm.py:32). The graph is that
 suite's: 700 users, 500 items, ~8000 pairs.
+
+In "bf16" precision (the trainer's mode) both packages round ``x`` to bf16.
+The port then multiplies by the fp32 weight and sums in fp32; the JAX kernel
+also rounds the weights to bf16 and keeps its running sums in bf16. Each of
+those roundings is a relative 2^-8 (bf16 keeps 8 significant bits) of a
+partial sum that is at most ``sum_e |w_e| |x_e|`` for the row, and a row sees a
+few of them (one for the weight, one per add of a chunk's product), so the
+two are held to ``BF16_ROUNDINGS * 2^-8`` of that row sum, entry by entry.
+Measured on this graph: 5.0e-3 of the row sum at most (1.3 roundings), 3.7e-3
+abs where max |out| is 1.36.
 """
 
 import jax
@@ -20,6 +30,7 @@ from recsys_tpu.ops.pallas_spmm import spmm as jax_spmm
 from recsys_tpu_torch.ops import spmm as S
 
 ATOL = 1e-5
+BF16_ROUNDINGS = 4   # see the module docstring: 4 * 2^-8 = 2^-6 of a row's sum of |terms|
 
 
 @pytest.fixture(scope="module")
@@ -174,3 +185,92 @@ def test_wrapper_checks_its_input(graph):
         S.spmm_cuda(layout, x)
     assert S.spmm(layout, x.double()).dtype == torch.float32
     assert S.LAUNCHES == {"spmm_csr": 0, "spmm_hub_reduce": 0}  # no kernel on the CPU
+
+
+# -- the "bf16" mode -------------------------------------------------------------
+
+def _row_abs_sums(layout, x):
+    """sum_e |w_e| |x_e| per output entry: the scale of a row's rounding errors."""
+    return S.spmm_plain(layout, torch.as_tensor(np.abs(x)), "f32").numpy()
+
+
+@pytest.mark.parametrize("pack", [1, 2])
+@pytest.mark.parametrize("dim", [64, 32])
+def test_spmm_plain_bf16_matches_the_jax_kernel_in_its_bf16_mode(graph, dim, pack):
+    layout = S.csr_graph(graph.src, graph.dst, graph.weight, graph.num_nodes, device="cpu")
+    x = _x(graph, dim, 6)
+    meta, arrays = _jax_blocked(graph, pack)
+    ref = np.asarray(jax_spmm(meta, arrays, jnp.asarray(x), "bf16"))[: graph.num_nodes]
+    got = S.spmm_plain(layout, torch.as_tensor(x), "bf16").numpy()
+    bound = BF16_ROUNDINGS * 2.0 ** -8 * _row_abs_sums(layout, x)
+    assert (np.abs(got - ref) <= bound + 1e-7).all()
+    assert np.abs(got - ref).max() > 1e-4                # the two do round differently
+    # fp32 sums: the port's mode is the closer of the two to the exact product
+    exact = S.spmm_plain(layout, torch.as_tensor(x).double(), "f32").numpy()
+    assert np.abs(got - exact).max() < np.abs(ref - exact).max()
+    # and through the autograd function
+    np.testing.assert_array_equal(S.spmm(layout, torch.as_tensor(x), "bf16").numpy(), got)
+
+
+@pytest.mark.parametrize("pack", [1, 2])
+def test_spmm_bf16_gradient_matches_jax_grad_of_the_kernel(graph, pack):
+    """The backward is the same product in the same mode on the cotangent, as
+    the JAX kernel's custom VJP (``_spmm_bwd`` passes its precision on)."""
+    layout = S.csr_graph(graph.src, graph.dst, graph.weight, graph.num_nodes, device="cpu")
+    x, g = _x(graph, 64, 7), _x(graph, 64, 8)
+    meta, arrays = _jax_blocked(graph, pack)
+    ref = jax.grad(lambda xx: jnp.sum(jax_spmm(meta, arrays, xx, "bf16") * g))(jnp.asarray(x))
+    xt = torch.as_tensor(x).requires_grad_(True)
+    (got,) = torch.autograd.grad((S.spmm(layout, xt, "bf16") * torch.as_tensor(g)).sum(), xt)
+    bound = BF16_ROUNDINGS * 2.0 ** -8 * _row_abs_sums(layout, g)
+    assert (np.abs(got.numpy() - np.asarray(ref)) <= bound + 1e-7).all()
+    # exactly the plain bf16 product of g: the cotangent is rounded, x plays no part
+    np.testing.assert_array_equal(got.numpy(),
+                                  S.spmm_plain(layout, torch.as_tensor(g), "bf16").numpy())
+    assert not np.array_equal(got.numpy(), S.spmm_plain(layout, torch.as_tensor(g)).numpy())
+
+
+@pytest.mark.parametrize("dim", [64, 32, 128])
+def test_spmm_plain_bf16_is_the_f32_product_of_the_rounded_input(graph, dim):
+    layout = S.csr_graph(graph.src, graph.dst, graph.weight, graph.num_nodes, device="cpu")
+    x = torch.as_tensor(_x(graph, dim, 9))
+    rounded = x.bfloat16().float()
+    assert not torch.equal(rounded, x)
+    got = S.spmm_plain(layout, x, "bf16")
+    np.testing.assert_allclose(got.numpy(), S.spmm_plain(layout, rounded, "f32").numpy(),
+                               atol=ATOL, rtol=0)
+    assert got.dtype == torch.float32
+    # what the mode costs against the exact mode: 2^-8 of the row's sum of |terms|
+    diff = (got - S.spmm_plain(layout, x, "f32")).abs().numpy()
+    assert (diff <= 2.0 ** -8 * _row_abs_sums(layout, x.numpy()) + 1e-6).all()
+    assert diff.max() > 1e-4
+    # a double input is rounded the same way and summed in double
+    np.testing.assert_allclose(S.spmm_plain(layout, x.double(), "bf16").numpy(), got.numpy(),
+                               atol=ATOL, rtol=0)
+
+
+def test_spmm_precision_is_checked(graph):
+    layout = S.csr_graph(graph.src, graph.dst, graph.weight, graph.num_nodes, device="cpu")
+    x = torch.zeros(graph.num_nodes, 8)
+    for fn in (S.spmm, S.spmm_plain, S.spmm_cuda):
+        for bad in ("fp32", "f16", "", None):
+            with pytest.raises(ValueError, match="precision"):
+                fn(layout, x, bad)
+    assert S.PRECISIONS == ("bf16", "f32")
+    # the default is the exact mode
+    y = torch.as_tensor(_x(graph, 8, 10))
+    assert torch.equal(S.spmm(layout, y), S.spmm(layout, y, "f32"))
+    assert torch.equal(S.spmm_plain(layout, y), S.spmm_plain(layout, y, "f32"))
+
+
+@pytest.mark.parametrize("max_segment", [256, 16, 1])
+def test_layout_orders_segments_longest_first(graph, max_segment):
+    layout = S.csr_graph(graph.src, graph.dst, graph.weight, graph.num_nodes,
+                         max_segment=max_segment, device="cpu")
+    order = layout.seg_order.numpy()
+    assert order.dtype == np.int32
+    assert sorted(order.tolist()) == list(range(layout.num_segments))   # every segment once
+    lengths = np.diff(layout.seg_ptr.numpy())[order]
+    assert (np.diff(lengths) <= 0).all() and lengths[0] == lengths.max()
+    ties = np.diff(lengths) == 0
+    assert (np.diff(order)[ties] > 0).all()              # equal lengths stay in row order
