@@ -9,11 +9,15 @@ then (phases 10 and 11 run after 6, while the graph of 4 is still there):
 
   1. kernel vs plain: K1's forward and both backward kernels against their
      plain PyTorch forms on the card, at the SimCSE shape (B=192, D=128),
-     the stage-2 LogQ form (B=200 ragged, at D = 128, 64 and 256, and B=768,
-     with LogQ corrections, same-item and same-user collisions and ~10%
-     invalid columns) and B=8192. Tolerances are the JAX suite's: loss 1e-4,
-     grads 1e-5 (abs); two dk calls must give the same bits. CUDA-event times
-     of kernel and plain form, per kernel at B=192 and B=8192.
+     the LogQ form (B=200 ragged, at D = 128, 64 and 256, and B=768, with
+     LogQ corrections, same-item and same-user collisions and ~10% invalid
+     columns), B=8192, and the shape stage 2 really runs: B = 768 users x 4
+     positions = 3072 rows, user ids repeated four times, positive ids drawn
+     with popularity skew from a 47,000-item catalog (same-item collisions),
+     one user whose four rows are one position four times; and the CPU test
+     world's 16 x 2. Tolerances are the JAX suite's: loss 1e-4, grads 1e-5
+     (abs); two dk calls must give the same bits. CUDA-event times of kernel
+     and plain form, per kernel at B=192, 3072 and 8192.
   2. slice: the port's CLI stages gen-data -> train-item (full-width item
      tower, batch 192, ~10 steps) -> vectorize on the card. K1's launch
      counts are zeroed just before and read just after; every kernel must
@@ -97,7 +101,24 @@ then (phases 10 and 11 run after 6, while the graph of 4 is still there):
      kernel twice a step, exactly, as on one device; with corruption and
      dropout rates 0 the loss falls and the first step's loss is within
      DP_LOSS_TOL of the ``num_data=1`` run from the same seed), then
-     ``dryrun_multichip(8)``.
+     ``dryrun_multichip(8)``, whose stage-2 step reports finite losses with
+     the dense and the all-to-all item lookups.
+  13. the user-tower slice through the CLI on the world of phase 2:
+     ``train-user`` at the default (full) widths, cut to two epochs, then
+     ``eval``, then ``serve --model-backed`` with ``serve.user_backend=stage2``
+     (ingest, interactions for a few users, users' process-pending, then
+     ``GET /api/controller/recommendations/{uid}``). K1's counts are zeroed
+     before ``train-user`` and read after ``eval``: each K1 kernel once an
+     optimizer step, exactly, and none from ``eval``. Losses finite, the epoch
+     mean falling, Recall@{20,100,500} > 0, the served user vector within
+     SERVE_TOL of the tower's eval forward on the same left-padded history, no
+     PAD row in any list.
+  14. the stage-2 step at the reference shape (``bench.py``'s: B 768, L 50,
+     47,000 items, a log-normal ``logq``, a unit-row item matrix), built here:
+     20 steps of ``make_stage2_step`` after 2 warm-up steps, median step time
+     through ``StepTimer``, K1 exactly 20 launches a kernel; five more steps
+     under ``torch.profiler`` for K1's share of the device time; then
+     ``evaluate_stage2``'s full-catalog top-500 for the 768 users.
 
 One line holds every kernel with its launches, error, times and bound. The
 last line is {"ok": true, "device": {...}}; any failure exits non-zero
@@ -181,6 +202,8 @@ RETRIEVAL_USERS, RETRIEVAL_ROWS, RETRIEVAL_K = 768, 47_000, 500
 # first-step loss on 4 data shards (quarter batches through the bf16 tower)
 # against one device (the whole batch); both take K1 on the (192, 128) views
 DP_LOSS_TOL = 1e-3
+# stage 2 at the reference shape (bench.py:71-95) and the rows its loss sees
+STAGE2_B, STAGE2_L, STAGE2_P, STAGE2_ITEMS, STAGE2_STEPS = 768, 50, 4, 47_000, 20
 
 
 def card_line() -> str:
@@ -192,7 +215,7 @@ def card_line() -> str:
 
 # -- phase 1: kernel vs plain -------------------------------------------------
 
-def make_problem(B: int, form: str, seed: int, device, dim: int = D):
+def make_problem(B: int, form: str, seed: int, device, dim: int = D, positions: int = 1):
     """Inputs of one K1 call: (q, k, corr, pos, usr, valid, tau)."""
     rng = np.random.default_rng(seed)
 
@@ -202,6 +225,15 @@ def make_problem(B: int, form: str, seed: int, device, dim: int = D):
 
     q, k = unit(), unit()
     i32 = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=device)
+    if form == "stage2":
+        # B = users x positions rows in user order; popular items collide
+        pos = 1 + (STAGE2_ITEMS * rng.random(B) ** 3).astype(np.int64)
+        logq = rng.normal(-8.0, 1.0, STAGE2_ITEMS + 1).astype(np.float32)
+        # user 0 has one real position: its rows are that position's, repeated
+        q[1:positions], k[1:positions] = q[0], k[0]
+        pos[1:positions] = pos[0]
+        return (q, k, torch.as_tensor(logq[pos], device=device), i32(pos),
+                i32(np.repeat(np.arange(B // positions), positions)), i32(np.ones(B)), 0.1)
     if form == "simcse":
         uniq = -np.arange(B) - 500_000
         return (q, k, torch.zeros(B, device=device), i32(uniq), i32(uniq),
@@ -220,7 +252,8 @@ def loss_fns(prob, form: str):
                 lambda a, b: bidirectional_infonce(a, b, tau))
     logq = torch.zeros(int(pos.max()) + 1, device=q.device)
     logq[pos.long()] = corr
-    kw = dict(temperature=tau, user_ids=usr, valid=valid)
+    # stage 2 passes no valid mask (every sampled row is real)
+    kw = dict(temperature=tau, user_ids=usr, **({} if form == "stage2" else {"valid": valid}))
     return (lambda a, b: K.fused_inbatch_logq_loss(a, b, pos, logq, **kw),
             lambda a, b: inbatch_logq_loss(a, b, pos, logq, **kw))
 
@@ -270,13 +303,15 @@ def diag_ce_bounds(B: int, dim: int) -> dict:
 
 
 def kernel_phase(device) -> tuple[list[dict], dict]:
-    shapes = [(MAIN_B, "simcse", D), (200, "logq", D), (200, "logq", 64), (200, "logq", 256),
-              (768, "logq", D), (8192, "logq", D), (8192, "simcse", D)]
+    shapes = [(MAIN_B, "simcse", D, 1), (200, "logq", D, 1), (200, "logq", 64, 1),
+              (200, "logq", 256, 1), (768, "logq", D, 1), (16 * 2, "stage2", D, 2),
+              (STAGE2_B * STAGE2_P, "stage2", D, STAGE2_P), (8192, "logq", D, 1),
+              (8192, "simcse", D, 1)]
     errs = {name: 0.0 for name in K.LAUNCHES}
     per_kernel_ms = {}
     rows = []
-    for B, form, dim in shapes:
-        prob = make_problem(B, form, seed=B + dim, device=device, dim=dim)
+    for B, form, dim, positions in shapes:
+        prob = make_problem(B, form, seed=B + dim, device=device, dim=dim, positions=positions)
         q, k, corr, pos, usr, valid, tau = prob
         meta = (corr, pos, usr, valid)
         # each kernel against its plain form, g = the mean-loss gradient
@@ -310,8 +345,8 @@ def kernel_phase(device) -> tuple[list[dict], dict]:
         rows.append({"B": B, "D": dim, "form": form, "loss_err": loss_err,
                      "grad_err": grad_err, "fwd_bwd_ms": k_ms, "plain_fwd_bwd_ms": p_ms})
         print(json.dumps({"phase": "kernel", **rows[-1]}), flush=True)
-        if B in (MAIN_B, 8192) and form == "simcse":   # per kernel, beside its bound
-            per_kernel_ms[B] = {
+        if (B in (MAIN_B, 8192) and form == "simcse") or B == STAGE2_B * STAGE2_P:
+            per_kernel_ms[B] = {   # per kernel, beside its bound
                 "diag_ce_fwd": interleaved_ms(
                     lambda: K.diag_ce_fwd_cuda(q, k, *meta, tau),
                     lambda: K.diag_ce_fwd_plain(q, k, *meta, tau), 2 * iters),
@@ -322,10 +357,13 @@ def kernel_phase(device) -> tuple[list[dict], dict]:
                     lambda: K.diag_ce_bwd_dk_cuda(*args),
                     lambda: K.diag_ce_bwd_dk_plain(*args), 2 * iters),
             }
-    large = {name: {"ms": ms, "plain_ms": plain_ms, **diag_ce_bounds(8192, D)[name]}
-             for name, (ms, plain_ms) in per_kernel_ms[8192].items()}
-    print(json.dumps({"phase": "kernel_B8192", **large}), flush=True)
-    return rows, {"errs": errs, "ms": per_kernel_ms[MAIN_B], "B8192": large}
+    by_shape = {}
+    for B in (8192, STAGE2_B * STAGE2_P):
+        by_shape[B] = {name: {"ms": ms, "plain_ms": plain_ms, **diag_ce_bounds(B, D)[name]}
+                       for name, (ms, plain_ms) in per_kernel_ms[B].items()}
+        print(json.dumps({"phase": f"kernel_B{B}", **by_shape[B]}), flush=True)
+    return rows, {"errs": errs, "ms": per_kernel_ms[MAIN_B], "B8192": by_shape[8192],
+                  "B3072": by_shape[STAGE2_B * STAGE2_P]}
 
 
 # -- phases 2 and 3: the slice and the server ------------------------------
@@ -1287,7 +1325,8 @@ def sharded_slice_phase(root: str, n_items: int) -> dict:
           f"the sharded loss did not fall: {sharded['losses']}")
     dry = dryrun_multichip(8)
     check(dry["mesh"] == {"data": 4, "model": 2}
-          and all(np.isfinite(dry[key]) for key in ("stage1", "gnn", "ckpt_resume")),
+          and all(np.isfinite(dry[key]) for key in ("stage1", "gnn", "ckpt_resume",
+                                                     "stage2", "a2a")),
           f"dryrun_multichip: {dry}")
     return {"vectorize": {"err_vs_one_device": vec_err, "seconds": vec["seconds"],
                           "items_per_s": vec["items_per_s"]},
@@ -1301,6 +1340,206 @@ def sharded_slice_phase(root: str, n_items: int) -> dict:
                       "step_ms_median_sharded": sharded["step_ms_median"],
                       "step_ms_median_one_device": single["step_ms_median"]},
             "dryrun": {key: (list(v) if isinstance(v, tuple) else v) for key, v in dry.items()}}
+
+
+# -- phase 13: the user-tower slice through the CLI ---------------------------------
+
+def left_padded_batch(cfg, item_map, events: list[tuple[str, float]]) -> dict:
+    """One user's stage-2 batch from (item id, ts) events, newest last, built
+    here apart from the server's code: ids by the stage-2 map, time buckets by
+    days before the newest event, static features zero (unknown when
+    serving)."""
+    from recsys_tpu_torch.data.dataset import TIME_BUCKET_EDGES
+
+    L, utc = cfg.user_tower.max_len, cfg.user_tower
+    events = events[-L:]
+    k = len(events)
+    b = {key: np.zeros((1, L), np.int64)
+         for key in ("input_ids", "target_ids", "time_buckets", "seq_mask")}
+    b["user_buckets"] = np.zeros((1, utc.static_bucket_fields), np.int64)
+    b["user_cats"] = np.zeros((1, utc.static_cat_fields), np.int64)
+    b["user_cont"] = np.zeros((1, utc.static_cont_fields), np.float32)
+    b["input_ids"][0, L - k:] = [item_map.idx(pid) for pid, _ in events]
+    days = np.array([(events[-1][1] - ts) / 86400.0 for _, ts in events])
+    b["time_buckets"][0, L - k:] = np.digitize(days, TIME_BUCKET_EDGES[1:])
+    b["seq_mask"][0, L - k:] = 1
+    return b
+
+
+def user_slice_phase(root: str) -> dict:
+    import pandas as pd
+
+    from recsys_tpu_torch.eval.recall import topk_scores
+    from recsys_tpu_torch.pipeline import cli
+    from recsys_tpu_torch.serve.server import make_server, serve_forever_in_thread
+    from recsys_tpu_torch.train.checkpoint import load_array_with_ids
+    from recsys_tpu_torch.train.sasrec import prepare_stage2, restore_stage2, tensors_to
+
+    sets = ["--set", f"data.root={root}", "--set", "user_train.epochs=2",
+            "--set", "serve.db_path=:memory:", "--set", "serve.user_backend=stage2"]
+    K.reset_launch_counts()  # this path's run starts here
+    train = cli.main(["train-user", *sets])
+    after_train = dict(K.LAUNCHES)
+    ev = cli.main(["eval", *sets])
+    launches = dict(K.LAUNCHES)
+    check(launches == after_train, f"eval launched K1: {after_train} -> {launches}")
+    check(all(n == train["steps"] for n in launches.values()),
+          f"K1 on train-user: {launches} in {train['steps']} steps")
+    losses = train["epoch_losses"]
+    check(train["device"].startswith("cuda") and len(losses) == 2
+          and all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"train-user epoch losses {losses}")
+    check(ev["n_eval"] > 0 and all(ev[f"recall@{k}"] > 0 for k in (20, 100, 500)),
+          f"eval recall: {ev}")
+    uvecs, _, _ = load_array_with_ids(f"{root}/eval_uvecs")
+    mat, _, _ = load_array_with_ids(f"{root}/eval_item_matrix")
+    _, top = topk_scores(torch.as_tensor(uvecs, device="cuda"),
+                         torch.as_tensor(mat, device="cuda"), 500)
+    check(int(top.min()) > 0, "a PAD row in an eval list")
+
+    args = cli.parse_args(["serve", *sets, "--model-backed"])
+    cfg = cli.config_from_args(args)
+    ctx = cli.build_app(cfg, args)
+    check(ctx.user_backend == "stage-2 tower (best checkpoint)", f"backend {ctx.user_backend}")
+    items, users, tx = cli._load_world(cfg)
+    data = prepare_stage2(cfg, items, users, tx)
+    _, user_vectors, _ = restore_stage2(cfg, data, f"{root}/ckpt_user", "cuda")
+    shoppers = list(tx["user_id"].drop_duplicates()[:RERANK_USERS])
+    server = make_server(ctx, host="127.0.0.1", port=0)
+    thread = serve_forever_in_thread(server)
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    served_err, n_results, rec_ms = 0.0, 0, []
+    try:
+        catalog = items.sort_values("item_id").to_dict("records")
+        http(base, "POST", "/api/controller/products/ingest",
+             {"products": [product_json(r) for r in catalog]})
+        while http(base, "POST", "/ai-api/serving/vectors/process-pending",
+                   {})["processed_count"]:
+            pass
+        histories = {}
+        for uid in shoppers:
+            rows = tx[tx["user_id"] == uid].sort_values("day", kind="stable").tail(12)
+            # a second apart within a day, so the store's time order is this order
+            histories[uid] = [(str(i), 86400.0 * float(d) + j)
+                              for j, (i, d) in enumerate(zip(rows["item_id"], rows["day"]))]
+            ins = http(base, "POST", "/api/v1/debug/insert-manual-data", {
+                "users": [{"user_id": str(uid)}],
+                "sessions": [{"user_id": str(uid), "events": [
+                    {"product_id": pid, "action_type": 3, "ts": ts}
+                    for pid, ts in histories[uid]]}]})
+            check(ins.get("ok", True) is not False, f"insert-manual-data: {ins}")
+        done = http(base, "POST", "/ai-api/serving/users/process-pending", {})
+        check(done["processed_count"] == len(shoppers), f"users process-pending: {done}")
+        for uid in shoppers:
+            t0 = time.perf_counter()
+            rec = http(base, "GET", f"/api/controller/recommendations/{uid}?top_k=20")
+            rec_ms.append(1e3 * (time.perf_counter() - t0))
+            res = rec["results"]
+            check(0 < len(res) <= 20 and all(r["product_id"] != "<pad>" for r in res),
+                  f"recommendations for {uid}: {rec}")
+            n_results += len(res)
+            want = user_vectors(tensors_to(left_padded_batch(cfg, data["item_map"],
+                                                             histories[uid]), "cuda"))
+            served = ctx.store.get_user_vector(str(uid))
+            served_err = max(served_err, float(np.abs(served - want.cpu().numpy()[0]).max()))
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+    check(served_err <= SERVE_TOL, f"served user vectors vs the tower: {served_err}")
+    return {"train": {k: train[k] for k in ("steps", "seconds", "step_ms_median",
+                                            "epoch_losses")},
+            "eval": {k: ev[k] for k in ("recall@20", "recall@100", "recall@500", "n_eval",
+                                        "step_ms_median")},
+            "blend_best": ev["blend"]["best_metrics"], "baselines": ev["baselines"],
+            "serve": {"users": len(shoppers), "results": n_results,
+                      "served_vs_tower_err": served_err,
+                      "recommendation_ms_median": float(np.median(rec_ms))},
+            "launches": launches}
+
+
+# -- phase 14: the stage-2 step at the reference shape ---------------------------------
+
+def reference_stage2(device, seed: int = 0) -> dict:
+    """The stage-2 step at ``bench.py``'s shape, built from a seed: the default
+    (full) widths, one batch of 768 users x 50 real positions with random ids
+    over a 47,000-item catalog, a log-normal ``logq``, a unit-row item matrix.
+    Returns the config, the step, the eval forward, the batch (numpy and on
+    the device), the model and a generator."""
+    from recsys_tpu_torch.config import Config
+    from recsys_tpu_torch.train import sasrec
+    from recsys_tpu_torch.train.state import TrainState
+
+    cfg = Config()
+    utc = cfg.user_tower
+    rng = np.random.default_rng(seed)
+    B, L, N = STAGE2_B, STAGE2_L, STAGE2_ITEMS
+    batch_np = {
+        "input_ids": rng.integers(1, N + 1, (B, L)), "target_ids": rng.integers(1, N + 1, (B, L)),
+        "time_buckets": rng.integers(0, utc.num_time_buckets, (B, L)),
+        "seq_mask": np.ones((B, L), np.int64),
+        "user_buckets": rng.integers(0, 10, (B, utc.static_bucket_fields)),
+        "user_cats": rng.integers(0, 2, (B, utc.static_cat_fields)),
+        "user_cont": rng.normal(0, 1, (B, utc.static_cont_fields)).astype(np.float32)}
+    logq = rng.normal(-8.0, 1.0, N + 1).astype(np.float32)
+    items = rng.normal(size=(N + 1, utc.d_model)).astype(np.float32)
+    items /= np.linalg.norm(items, axis=1, keepdims=True)
+    items[0] = 0.0
+    model = sasrec.init_stage2_params(cfg, N + 1, items, device, seed=0)
+    state = TrainState(model, sasrec.make_stage2_optimizer(cfg, model, steps_per_epoch=1787))
+    step, user_vectors = sasrec.make_stage2_step(cfg, state, logq)
+    return {"cfg": cfg, "step": step, "user_vectors": user_vectors, "batch_np": batch_np,
+            "batch": sasrec.tensors_to(batch_np, device), "model": model, "rng": rng,
+            "generator": torch.Generator(device).manual_seed(seed)}
+
+
+def stage2_step_phase(device) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    from recsys_tpu_torch.train import sasrec
+    from recsys_tpu_torch.train.state import StepTimer
+
+    ref = reference_stage2(device)
+    cfg, step, batch, gen = ref["cfg"], ref["step"], ref["batch"], ref["generator"]
+    B, N, rng = STAGE2_B, STAGE2_ITEMS, ref["rng"]
+    for _ in range(2):                     # warm-up: allocator, cuBLAS handles
+        step(batch, gen)
+    K.reset_launch_counts()  # this path's run starts here
+    timer, losses = StepTimer(device), []
+    for _ in range(STAGE2_STEPS):
+        losses.append(step(batch, gen)["loss"])
+        timer.mark()
+    seconds = timer.seconds()
+    launches = dict(K.LAUNCHES)
+    check(all(n == STAGE2_STEPS for n in launches.values()),
+          f"K1 on the stage-2 step: {launches} in {STAGE2_STEPS} steps")
+    losses = [float(x) for x in losses]
+    check(all(np.isfinite(losses)), f"stage-2 losses {losses}")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(5):
+            step(batch, gen)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / 5
+    # self time: a kernel's own row holds its device time, the op that launched it none
+    dev = {e.key: (getattr(e, "self_device_time_total", None)
+                   or getattr(e, "self_cuda_time_total", 0.0)) for e in prof.key_averages()}
+    busy_ms = sum(dev.values()) / 1e3 / 5
+    k1_ms = sum(v for k, v in dev.items() if "diag_ce" in k) / 1e3 / 5
+    # the full-catalog top-500 of evaluate_stage2 for the 768 users
+    data = {"tensors": {**ref["batch_np"], "user_ids": [f"u{r}" for r in range(B)]},
+            "targets_idx": {f"u{r}": set(rng.integers(1, N + 1, 3).tolist()) for r in range(B)}}
+    eval_timer = StepTimer(device)
+    metrics = sasrec.evaluate_stage2(cfg, ref["model"], ref["user_vectors"], data, device,
+                                     timer=eval_timer)
+    check(metrics["n_eval"] == B and all(np.isfinite(v) for v in metrics.values()),
+          f"evaluate_stage2 at the reference shape: {metrics}")
+    return {"step_ms_median": 1e3 * float(np.median(seconds)),
+            "step_ms": [1e3 * x for x in seconds], "losses": [losses[0], losses[-1]],
+            "launches": launches, "profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "k1_device_ms": k1_ms, "k1_share_of_device": k1_ms / busy_ms if busy_ms else None,
+            "eval_ms": 1e3 * sum(eval_timer.seconds()), "eval": metrics}
 
 
 def main() -> None:
@@ -1350,16 +1589,25 @@ def main() -> None:
         print(json.dumps({"phase": "deepfm", **deepfm}), flush=True)
         sharded = sharded_slice_phase(root, result["vectorize"]["shape"][0] - 1)
         print(json.dumps({"phase": "sharded_slice", **sharded}), flush=True)
+        user = user_slice_phase(root)
+        print(json.dumps({"phase": "user_slice", **user}), flush=True)
+        stage2 = stage2_step_phase(device)
+        print(json.dumps({"phase": "stage2_step", **stage2}), flush=True)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
+    # K1's launches are the main path's: train-item (phase 2) and train-user (phase
+    # 13); its times are at the SimCSE shape, stage 2's B = 3072 and 8192 beside them
     k1_bounds = diag_ce_bounds(MAIN_B, D)
     kernels = [{"name": name, "route": "cuda", "source": SOURCES["diag_ce"],
-                "replaces": REPLACES[name], "launches": result["launches"][name],
+                "replaces": REPLACES[name],
+                "launches": result["launches"][name] + user["launches"][name],
+                "launches_train_item": result["launches"][name],
+                "launches_train_user": user["launches"][name],
                 "max_abs_err": kstats["errs"][name],
                 "ms": kstats["ms"][name][0], "plain_ms": kstats["ms"][name][1],
                 **k1_bounds[name], "library_ms": None,
-                "B8192": kstats["B8192"][name]}
+                "B3072": kstats["B3072"][name], "B8192": kstats["B8192"][name]}
                for name in K.LAUNCHES]
     # K2's launches are the trainer's at the real size, its times those of the
     # trainer's mode (bf16) there; the f32 mode and the CLI path's launches and graph

@@ -15,7 +15,11 @@ path, with these leaf conversions:
 The reranker models map the same way: ``DCNRanker``'s ``nn.compact``
 auto-names (``CrossNet_0/cross_{i}``, ``MLP_0/Dense_{i}``, ``score``) and
 ``DeepFM``'s ``fm_embed_{f}`` / ``fm_first_{f}`` (an Embed of width 1) /
-``dense_embed`` are the port's submodule names. The sharded path
+``dense_embed`` are the port's submodule names. The stage-2 towers map the
+same way in both directions: ``models/user_tower.Stage2Model`` is the JAX
+package's ``{"user": SASRecUserTower params, "item": {"item_matrix"}}`` tree,
+with ``seq_gate``, ``static_gate``, ``pos_embedding`` and ``item_matrix`` as
+raw parameters and no ``side_embedding_*`` (Flax never creates them). The sharded path
 (``parallel/``, the data-parallel stage-1 step) adds no parameters and needs
 no converter: every shard runs the same ``SimCSEModel`` / ``LightGCL`` trees.
 

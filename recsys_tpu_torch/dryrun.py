@@ -13,11 +13,16 @@ visible cards, several shards a card where there are fewer cards than shards
   * checkpoint save -> restore -> re-place on the mesh -> step, for the
     stage-1 state.
 
+  * stage 2: one SASRec step with the dense item lookup (``stage2``), the
+    eval forward and a sharded top-k over the matrix, then the same step from
+    the same state and draws with the all-to-all lookup over ``model``
+    (``a2a``, when the model axis is > 1), whose loss must agree within 1e-3
+    relative.
+
 It asserts finite losses and the top-k shapes and prints one line in the JAX
-function's format. The parts of the JAX dry run whose trainers the port does
-not have yet are printed as ``not_ported``, never passed in silence: the
-stage-2 SASRec step with its dense and all-to-all lookups (``stage2``,
-``a2a``) and the hybrid tower (``hybrid``).
+function's format. The part of the JAX dry run whose trainer the port does
+not have yet is printed as ``not_ported``, never passed in silence: the
+hybrid tower (``hybrid``).
 
     python -m recsys_tpu_torch.dryrun 8 [--device cpu]
 """
@@ -33,7 +38,8 @@ import numpy as np
 import torch
 
 from recsys_tpu_torch.config import (Config, DataConfig, GNNConfig, ItemTowerConfig,
-                                     MeshConfig, SimCSEConfig, VocabConfig)
+                                     MeshConfig, SimCSEConfig, UserTowerConfig,
+                                     UserTrainConfig, VocabConfig)
 from recsys_tpu_torch.device import resolve_device
 
 _CFG = Config(
@@ -141,15 +147,60 @@ def dryrun_multichip(n_devices: int, device: torch.device | str = "cuda") -> dic
         ckpt_loss = float(rstep(batch, gen)[0])
         assert math.isfinite(ckpt_loss) and restored.step == state.step + 1
 
-    out = {"mesh": mesh.shape, "stage2": "not_ported", "a2a": "not_ported",
+    s2_loss, a2a_loss, s2_topk = _stage2_dryrun(mesh, n_data, num_model, home)
+    assert s2_topk[1] == 10
+    out = {"mesh": mesh.shape, "stage2": s2_loss, "a2a": a2a_loss,
            "stage1": s1_loss, "gnn": gnn_loss, "hybrid": "not_ported",
            "topk": tuple(idx.shape), "ckpt_resume": ckpt_loss,
            "blend_topk": tuple(bidx.shape)}
-    print(f"dryrun_multichip ok: mesh={out['mesh']} stage2=not_ported a2a=not_ported "
+    print(f"dryrun_multichip ok: mesh={out['mesh']} stage2={s2_loss:.4f} a2a={a2a_loss:.4f} "
           f"stage1={s1_loss:.4f} gnn={gnn_loss:.4f} hybrid=not_ported "
           f"topk={out['topk']} ckpt_resume={ckpt_loss:.4f} "
           f"blend_topk={out['blend_topk']}", flush=True)
     return out
+
+
+def _stage2_dryrun(mesh, n_data: int, num_model: int, home) -> tuple[float, float, tuple]:
+    """One stage-2 step with the dense lookup and, from the same state and
+    the same draws, with the all-to-all lookup; (loss, a2a loss, top-k shape)."""
+    import copy
+
+    from recsys_tpu_torch.data.synthetic import generate_dataset
+    from recsys_tpu_torch.eval.recall import topk_scores
+    from recsys_tpu_torch.train import sasrec
+    from recsys_tpu_torch.train.state import TrainState
+
+    cfg = Config(data=DataConfig(num_items=64 * num_model - 1, num_users=64, days=40, seed=0),
+                 vocab=VocabConfig(num_hash_buckets=50),
+                 user_tower=UserTowerConfig(max_len=8, num_layers=1),
+                 user_train=UserTrainConfig(batch_size=max(16, n_data * 4),
+                                            positions_per_user=2, kernel="xla"))
+    items, users, tx = generate_dataset(cfg.data)
+    data = sasrec.prepare_stage2(cfg, items, users, tx)
+    n = data["tensors"]["input_ids"].shape[0]
+    bs = min(cfg.user_train.batch_size, n - n % n_data)
+    batch = sasrec._slice(sasrec.tensors_to(data["tensors"], home), np.arange(bs))
+    n_pad = len(data["item_map"]) + 1      # divisible by num_model by construction
+    model = sasrec.init_stage2_params(cfg, n_pad, None, home, seed=0)
+
+    def one_step(lookup: str):
+        m = copy.deepcopy(model)
+        state = TrainState(m, sasrec.make_stage2_optimizer(cfg, m, steps_per_epoch=4))
+        c = dataclasses.replace(cfg, user_train=dataclasses.replace(cfg.user_train,
+                                                                    lookup=lookup))
+        step, uv = sasrec.make_stage2_step(c, state, data["logq"], mesh)
+        loss = float(step(batch, torch.Generator(home).manual_seed(1))["loss"])
+        assert math.isfinite(loss)
+        return loss, m, uv
+
+    loss, m, uv = one_step("dense")
+    _, idx = topk_scores(uv(batch), m.item.item_matrix.detach(), 10, mesh=mesh)
+    assert tuple(idx.shape) == (bs, 10) and int(idx.min()) > 0
+    a2a_loss = float("nan")
+    if num_model > 1:
+        a2a_loss = one_step("a2a")[0]
+        assert abs(a2a_loss - loss) < 1e-3 * max(1.0, abs(loss)), (a2a_loss, loss)
+    return loss, a2a_loss, tuple(idx.shape)
 
 
 if __name__ == "__main__":

@@ -10,8 +10,12 @@ the reference's dict corruption is pure masking:
     emptying a name of one token
 
 Only the masks change. The random bits differ from ``jax.random``'s; the
-contract and the rates are the same. ``random_cut`` (stage 2) is not ported
-yet.
+contract and the rates are the same.
+
+``random_cut`` is the stage-2 sequence augmentation. Its random draws (the
+gate and the cut position, ``random_cut_draws``) are kept apart from its
+arithmetic (``apply_random_cut``), so that a test can feed it the JAX
+package's draws and hold the arithmetic exactly.
 """
 
 from __future__ import annotations
@@ -61,3 +65,47 @@ def two_views(batch: dict, generator: torch.Generator | None,
               dropout_prob: float) -> tuple[dict, dict]:
     return (corrupt_view(batch, generator, dropout_prob),
             corrupt_view(batch, generator, dropout_prob))
+
+
+SASREC_SEQ_KEYS = ("input_ids", "target_ids", "time_buckets", "seq_mask")
+
+
+def random_cut_draws(seq_mask: torch.Tensor, prob: float,
+                     generator: torch.Generator | None = None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(gate (B,) bool, cut (B,) int64): which rows are cut, with probability
+    ``prob``, and at which position, uniform over the row's real positions."""
+    B, L = seq_mask.shape
+    dev = seq_mask.device
+    gate = _bernoulli(prob, (B,), generator, dev)
+    scores = torch.rand((B, L), generator=generator, device=dev)
+    cut = torch.where(seq_mask > 0, scores, torch.full_like(scores, -1.0)).argmax(-1)
+    return gate, cut
+
+
+def apply_random_cut(batch: dict, gate: torch.Tensor, cut: torch.Tensor) -> dict:
+    """Truncate the gated rows after ``cut`` and shift them right so that the
+    cut point sits at the last slot (the left-padding invariant); other rows
+    are left as they are. Positions shifted in from the left are zeros."""
+    mask = batch["seq_mask"]
+    B, L = mask.shape
+    cut = torch.where(gate.to(mask.device), cut.to(mask.device), torch.full_like(cut, L - 1))
+    shift = (L - 1) - cut                                     # right-shift amount
+    src = torch.arange(L, device=mask.device)[None, :] - shift[:, None]
+    inside = src >= 0
+    src = src.clamp(0, L - 1)
+    out = dict(batch)
+    for key in SASREC_SEQ_KEYS:
+        rolled = torch.gather(batch[key], 1, src)
+        out[key] = torch.where(inside, rolled, torch.zeros_like(rolled))
+    return out
+
+
+def random_cut(batch: dict, prob: float = 0.2,
+               generator: torch.Generator | None = None) -> dict:
+    """Random-cut augmentation of a SASRec batch (input_ids, target_ids,
+    time_buckets, seq_mask, all (B, L), left-padded): with probability
+    ``prob`` per user, keep the history up to a uniformly chosen real position
+    and re-align it to the right. A cut row keeps at least one real position."""
+    gate, cut = random_cut_draws(batch["seq_mask"], prob, generator)
+    return apply_random_cut(batch, gate, cut)

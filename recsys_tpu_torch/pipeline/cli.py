@@ -11,16 +11,22 @@ overrides, artifact paths and one JSON line per stage:
   train-gnn    LightGCL (``--resume``, ``--fine-tune``) -> graph embeddings
   distill      magnitude->cosine projector           -> distilled vectors
   gnn-eval     GNN recall rows + distillation fidelity -> gnn_eval.json
+  train-user   stage-2 SASRec user tower (``--resume``)  -> checkpoints
+  eval         full-catalog Recall@{20,100,500} + baselines + blend sweep +
+               paired-bootstrap significance -> eval.json
   train-reranker  GBDT (``--iterations``) + DCN rerankers on tower candidates
                -> reranker_gbdt.pkl
-  serve        HTTP server; ``--model-backed`` vectorizes with the trained
-               encoder
+  serve        HTTP server; ``--model-backed`` vectorizes items with the
+               trained encoder and users per ``serve.user_backend``
+               (``stage2``: the best stage-2 checkpoint; ``auto``: that
+               checkpoint when it exists, else the history mean)
 
 ``--device`` (default ``cuda``) places the model; ``--device cuda`` on a
 machine without a CUDA device raises and never falls back to the CPU.
 ``--set mesh.num_data=4`` / ``mesh.num_model=2`` shard train-item, vectorize,
 train-gnn (with ``gnn.propagation=segment_sum_sharded``) and gnn-eval over the
-visible cards; a mesh larger than the cards there are raises unless
+visible cards (train-user and eval: the item lookup with
+``user_train.lookup=a2a`` and the eval top-k over the model axis); a mesh larger than the cards there are raises unless
 ``--virtual-shards`` lays it over them (several shards a card, or all on the
 CPU with ``--device cpu``).
 
@@ -163,6 +169,138 @@ def cmd_vectorize(cfg: Config, args) -> dict:
     return {"matrix": p["item_matrix"], "shape": list(mat.shape),
             "checkpoint": entry["name"] if entry else None, "device": str(device),
             "seconds": seconds, "items_per_s": (mat.shape[0] - 1) / seconds}
+
+
+def _best_epoch(history: list[dict]) -> dict:
+    """Best epoch by Recall@100, else the final epoch."""
+    if not history:
+        return {}
+    if any("recall@100" in h for h in history):
+        return max(history, key=lambda h: h.get("recall@100", 0.0))
+    return history[-1]
+
+
+def _pretrained_matrix(cfg: Config, item_map, required: bool) -> np.ndarray | None:
+    """The stage-1 item matrix re-ordered to the stage-2 id map (PAD row 0;
+    ids it lacks get seeded random rows), or None when there is none and it
+    is not ``required``."""
+    from recsys_tpu_torch.train.checkpoint import align_rows, load_array_with_ids
+
+    try:
+        mat, ids, _ = load_array_with_ids(_paths(cfg)["item_matrix"])
+    except FileNotFoundError:
+        if required:
+            raise
+        return None
+    aligned, _ = align_rows(mat[1:], ids[1:], item_map.ids, fill="random")
+    return np.concatenate([np.zeros((1, mat.shape[1]), np.float32), aligned])
+
+
+def _median_ms(seconds: list[float]):
+    steady = seconds[1:] or seconds
+    return 1e3 * statistics.median(steady) if steady else None
+
+
+def cmd_train_user(cfg: Config, args) -> dict:
+    from recsys_tpu_torch.train.sasrec import prepare_stage2, train_user_tower
+
+    device = resolve_device(args.device)
+    p = _paths(cfg)
+    items, users, tx = _load_world(cfg)
+    data = prepare_stage2(cfg, items, users, tx)
+    pretrained = _pretrained_matrix(cfg, data["item_map"], required=False)
+    t0 = time.perf_counter()
+    state, history, _ = train_user_tower(cfg, data, pretrained, p["user_ckpts"], device,
+                                         mesh=_mesh(cfg, args),
+                                         resume=getattr(args, "resume", False))
+    return {"epochs": len(history), "best": _best_epoch(history),
+            "final": history[-1] if history else {}, "device": str(device),
+            "steps": state.step, "seconds": time.perf_counter() - t0,
+            "epoch_losses": state.losses, "step_ms_median": _median_ms(state.step_seconds)}
+
+
+def cmd_eval(cfg: Config, args) -> dict:
+    """The best stage-2 checkpoint's Recall@ks, the training-free baselines,
+    the prior-blend sweep (global and eval-season prior) and paired-bootstrap
+    significance at the primary k -> eval.json, plus the eval users' vectors
+    and the trained item matrix as sidecars."""
+    from recsys_tpu_torch.data.etl import seasonal_logq, time_split
+    from recsys_tpu_torch.data.synthetic import SEASONS, season_of_day
+    from recsys_tpu_torch.eval.baselines import baseline_report, blend_sweep
+    from recsys_tpu_torch.eval.recall import bootstrap_mean_ci, paired_delta_ci, target_rows
+    from recsys_tpu_torch.train.checkpoint import save_array_with_ids
+    from recsys_tpu_torch.train.sasrec import (
+        batch_plan, collect_user_vectors, evaluate_stage2, prepare_stage2, restore_stage2,
+        tensors_to)
+    from recsys_tpu_torch.train.state import StepTimer
+
+    device = resolve_device(args.device)
+    p = _paths(cfg)
+    items, users, tx = _load_world(cfg)
+    data = prepare_stage2(cfg, items, users, tx)
+    pretrained = _pretrained_matrix(cfg, data["item_map"], required=True)
+    tens = data["tensors"]
+    bs = batch_plan(cfg, tens["input_ids"].shape[0])[0]
+    model, uv_fn, _ = restore_stage2(cfg, data, p["user_ckpts"], device, pretrained)
+    mesh = _mesh(cfg, args)
+    dev_tensors = tensors_to(tens, device)
+    timer = StepTimer(device)
+    metrics = evaluate_stage2(cfg, model, uv_fn, data, device, mesh, bs, dev_tensors, timer)
+    eval_seconds = timer.seconds()
+    # the baselines' and the blend's device paths run on the card, the host
+    # paths (the JAX package's numpy code) elsewhere
+    on_card = device if device.type == "cuda" else None
+    ks = sorted(cfg.user_train.eval_ks)
+    k_primary = ks[min(1, len(ks) - 1)]
+    rows = target_rows(tens["user_ids"], data["targets_idx"])
+    sub = {"user_ids": [tens["user_ids"][r] for r in rows],
+           "input_ids": tens["input_ids"][rows], "target_ids": tens["target_ids"][rows]}
+    metrics["baselines"] = baseline_report(sub, data["logq"], data["targets_idx"],
+                                           ks=cfg.user_train.eval_ks, item_matrix=pretrained,
+                                           per_user_k=k_primary, device=on_card)
+    base_pu = metrics["baselines"].pop("_per_user")
+    uvecs, uids = collect_user_vectors(cfg, uv_fn, data, device, bs, rows=rows,
+                                       dev_tensors=dev_tensors)
+    item_matrix = model.item.item_matrix.detach().float().cpu().numpy()
+    save_array_with_ids(p["root"] + "/eval_uvecs", uvecs, list(uids))
+    save_array_with_ids(p["root"] + "/eval_item_matrix", item_matrix,
+                        list(data["item_map"].ids))
+    hist = np.concatenate([tens["input_ids"][rows], tens["target_ids"][rows][:, -1:]], 1)
+    blend = blend_sweep(uvecs, item_matrix, data["logq"], hist, uids, data["targets_idx"],
+                        ks=cfg.user_train.eval_ks, per_user_k=k_primary, device=on_card)
+    blend_pu = blend.pop("_per_user")
+    metrics["blend"] = {"best": blend["best"], "best_metrics": blend["best_metrics"],
+                        "model_only": blend["table"].get("a0.0_b0.0")}
+    # paired bootstrap at the primary k: does the learned stack beat the
+    # training-free floors user by user, not just on the mean?
+    model_pu = blend_pu.get("model_only")
+    if base_pu["uids"] == blend_pu["uids"]:
+        rep, pop = base_pu["repurchase"], base_pu["popularity"]
+        sig = {"k": k_primary,
+               "blend_best": bootstrap_mean_ci(blend_pu["best"]),
+               "repurchase": bootstrap_mean_ci(rep),
+               "blend_vs_repurchase": paired_delta_ci(blend_pu["best"], rep)}
+        if model_pu is not None:
+            sig["model_only"] = bootstrap_mean_ci(model_pu)
+            sig["model_vs_repurchase"] = paired_delta_ci(model_pu, rep)
+            sig["model_vs_popularity"] = paired_delta_ci(model_pu, pop)
+            if "content_profile" in base_pu:
+                sig["model_vs_content_profile"] = paired_delta_ci(
+                    model_pu, base_pu["content_profile"])
+        metrics["significance"] = sig
+    # the blend again with the eval window's season prior in place of the global one
+    train_tx, _, split_day = time_split(tx, cfg.data.valid_days)
+    eval_season = str(np.asarray(SEASONS)[season_of_day(split_day,
+                                                        cfg.data.season_cycle_days)])
+    slq = seasonal_logq(train_tx, data["item_map"].ids, eval_season)
+    if slq is not None:
+        sblend = blend_sweep(uvecs, item_matrix, slq, hist, uids, data["targets_idx"],
+                             ks=cfg.user_train.eval_ks, device=on_card)
+        metrics["blend_seasonal"] = {"season": eval_season, "best": sblend["best"],
+                                     "best_metrics": sblend["best_metrics"]}
+    with open(p["eval"], "w") as f:
+        json.dump(metrics, f, indent=1)
+    return {**metrics, "device": str(device), "step_ms_median": _median_ms(eval_seconds)}
 
 
 def cmd_train_gnn(cfg: Config, args) -> dict:
@@ -338,12 +476,43 @@ def cmd_train_reranker(cfg: Config, args) -> dict:
             "dcn_step_ms_median": 1e3 * statistics.median(steady) if steady else None}
 
 
+def attach_user_backend(cfg: Config, ctx, device) -> str:
+    """Attach the user vectorizer that ``serve.user_backend`` names:
+    ``stage2`` the best stage-2 checkpoint (raises without one), ``auto`` that
+    checkpoint when it exists, ``history`` the history mean. Returns what was
+    attached."""
+    from recsys_tpu_torch.serve.app import tower_user_vectorizer
+    from recsys_tpu_torch.train.sasrec import prepare_stage2, restore_stage2
+
+    backend = cfg.serve.user_backend
+    if backend == "hybrid":
+        raise NotImplementedError(
+            "serve.user_backend='hybrid': the hybrid tower is not in the port yet "
+            "(the hybrid slice, ROADMAP Queue 1, item 3)")
+    if backend not in ("auto", "stage2", "history"):
+        raise ValueError(f"unknown serve.user_backend {backend!r}")
+    p = _paths(cfg)
+    manifest = os.path.join(p["user_ckpts"], "manifest.json")
+    if backend == "history" or (backend == "auto" and not os.path.exists(manifest)):
+        return ctx.user_backend
+    items, users, tx = _load_world(cfg)
+    data = prepare_stage2(cfg, items, users, tx)
+    _, user_vectors, entry = restore_stage2(cfg, data, p["user_ckpts"], device)
+    if entry is None:
+        raise FileNotFoundError(f"no best stage-2 checkpoint in {p['user_ckpts']}")
+    ctx.user_vectorize_fn = tower_user_vectorizer(
+        ctx, cfg, user_vectors, ["<pad>"] + list(data["item_map"].ids), device)
+    ctx.user_backend = "stage-2 tower (best checkpoint)"
+    return ctx.user_backend
+
+
 def build_app(cfg: Config, args):
-    """The serving context of ``serve``: store, index and vectorizer."""
+    """The serving context of ``serve``: store, index and vectorizers."""
     from recsys_tpu_torch.serve.app import build_app_context, model_vectorizer
 
     vec = None
-    if getattr(args, "model_backed", False):
+    model_backed = getattr(args, "model_backed", False)
+    if model_backed:
         from recsys_tpu_torch.data.vocab import StdVocab
         from recsys_tpu_torch.train.simcse import restore_model
 
@@ -351,7 +520,10 @@ def build_app(cfg: Config, args):
         p = _paths(cfg)
         model, _ = restore_model(cfg, p["item_ckpts"], StdVocab().num_fields, device)
         vec = model_vectorizer(cfg, model, device)
-    return build_app_context(cfg, vec)
+    ctx = build_app_context(cfg, vec)
+    if model_backed:
+        print(f"user vectorizer: {attach_user_backend(cfg, ctx, device)}", flush=True)
+    return ctx
 
 
 def cmd_serve(cfg: Config, args) -> dict:
@@ -371,6 +543,8 @@ COMMANDS = {
     "train-gnn": cmd_train_gnn,
     "distill": cmd_distill,
     "gnn-eval": cmd_gnn_eval,
+    "train-user": cmd_train_user,
+    "eval": cmd_eval,
     "train-reranker": cmd_train_reranker,
     "serve": cmd_serve,
 }
@@ -390,7 +564,7 @@ def parse_args(argv=None):
     parser.add_argument("--model-backed", action="store_true", dest="model_backed")
     parser.add_argument("--init-ckpt", default=None, dest="init_ckpt")
     parser.add_argument("--resume", action="store_true",
-                        help="train-gnn: continue from the latest checkpoint")
+                        help="train-gnn, train-user: continue from the latest checkpoint")
     parser.add_argument("--fine-tune", action="store_true", dest="fine_tune",
                         help="train-gnn: previous weights, fresh optimizer, cosine decay")
     parser.add_argument("--iterations", type=int, default=None,

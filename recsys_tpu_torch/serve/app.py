@@ -7,9 +7,13 @@ batcher (``serve/batcher.py``) are the port's copies of the JAX package's
 framework-free modules. ``model_vectorizer`` runs the torch item encoder
 under ``torch.inference_mode`` on the configured device.
 
-Not ported yet: the ``ivf`` and ``int8`` device indexes, the trained
-user-tower vectorizers and the blend/rerank recipes (``rec_assets`` stays
-None, so those modes take the flagged fall-back to cosine).
+``tower_user_vectorizer`` is the model-backed user vectorizer: store
+histories -> left-padded id sequences -> the trained stage-2 tower's eval
+forward on the device.
+
+Not ported yet: the ``ivf`` and ``int8`` device indexes, the hybrid-tower
+user vectorizer and the blend/rerank recipes (``rec_assets`` stays None, so
+those modes take the flagged fall-back to cosine).
 """
 
 from __future__ import annotations
@@ -131,6 +135,44 @@ def history_user_vectorizer(ctx: "AppContext", half_life_s: float = 7 * 86400.0)
     return fn
 
 
+def tower_user_vectorizer(ctx: "AppContext", cfg: Config, user_vectors,
+                          item_ids: list[str], device: torch.device | str):
+    """Model-backed user vectorizer: store histories -> left-padded id
+    sequences (newest event last, time buckets by days before it) -> the
+    stage-2 tower's eval forward, ``user_vectors`` of
+    ``train/sasrec.restore_stage2``. ``item_ids`` is the stage-2 id map's row
+    order (index 0 = PAD). Static user features are not known at serve time
+    and enter as zeros (the static gates make that a graceful degradation)."""
+    from recsys_tpu_torch.data.dataset import TIME_BUCKET_EDGES
+    from recsys_tpu_torch.train.sasrec import tensors_to
+
+    utc = cfg.user_tower
+    L = utc.max_len
+    id_of = {str(p): i for i, p in enumerate(item_ids)}
+
+    def fn(profiles: list[dict]) -> np.ndarray:
+        ids = [p["user_id"] for p in profiles]
+        hists = ctx.store.user_histories(ids)
+        B = len(profiles)
+        batch = {key: np.zeros((B, L), np.int64)
+                 for key in ("input_ids", "target_ids", "time_buckets", "seq_mask")}
+        batch["user_buckets"] = np.zeros((B, utc.static_bucket_fields), np.int64)
+        batch["user_cats"] = np.zeros((B, utc.static_cat_fields), np.int64)
+        batch["user_cont"] = np.zeros((B, utc.static_cont_fields), np.float32)
+        for r, uid in enumerate(ids):
+            events = [e for e in hists.get(uid, []) if str(e["product_id"]) in id_of][-L:]
+            if not events:
+                continue
+            k = len(events)
+            batch["input_ids"][r, L - k:] = [id_of[str(e["product_id"])] for e in events]
+            days = np.array([(events[-1]["ts"] - e["ts"]) / 86400.0 for e in events])
+            batch["time_buckets"][r, L - k:] = np.digitize(days, TIME_BUCKET_EDGES[1:])
+            batch["seq_mask"][r, L - k:] = 1
+        return user_vectors(tensors_to(batch, device)).float().cpu().numpy()
+
+    return fn
+
+
 @dataclass
 class AppContext:
     cfg: Config
@@ -141,6 +183,7 @@ class AppContext:
     train_item_fn: Callable[..., dict] | None = None
     train_user_fn: Callable[..., dict] | None = None
     rec_assets: object | None = None
+    user_backend: str = "history mean"   # what ``_user_vectorize`` runs
     int_to_pid: dict[int, str] = field(default_factory=dict)
     _bg_threads: list = field(default_factory=list)
 

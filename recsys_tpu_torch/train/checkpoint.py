@@ -69,9 +69,18 @@ class CheckpointStore:
             raise FileNotFoundError(f"no best checkpoint in {self.dir}")
         return self.restore("best", map_location), best
 
+    def restore_best_params(self, map_location: str | torch.device = "cpu"
+                            ) -> tuple[dict, dict]:
+        """Only the model's state dict of the best checkpoint, and its entry:
+        post-hoc consumers (eval, serving) need no optimizer state, so a
+        checkpoint of any optimizer recipe loads."""
+        payload, best = self.restore_best(map_location)
+        return payload["model"], best
+
     def restore_latest(self, map_location: str | torch.device = "cpu"
                        ) -> tuple[dict, dict] | None:
-        """Resume support: the highest-step checkpoint and its entry, or None."""
+        """Resume support: the highest-step checkpoint (the full state: model,
+        optimizer with its lr factor) and its entry, or None."""
         cks = self.manifest["checkpoints"]
         if not cks:
             return None
@@ -146,3 +155,9 @@ def align_rows(array: np.ndarray, ids: Sequence[str], target_ids: Sequence[str],
             out[r] = array[src]
             found[r] = True
     return out, found
+
+
+def snapshot_due(epoch: int, total_epochs: int, every: int, improved: bool) -> bool:
+    """Shared snapshot cadence: save on metric improvement, on the ``every``
+    cadence, and always at the final epoch."""
+    return improved or epoch % every == 0 or epoch == total_epochs

@@ -11,7 +11,14 @@ Counterpart of ``recsys_tpu/train/gnn.py``:
     package's numpy code unchanged, so both packages draw the same batches
     from the same seed);
   * model + optimizer + epoch checkpoints, resume, fine-tune with a fresh
-    optimizer and cosine decay;
+    optimizer and cosine decay. Step counting is the JAX trainer's: the
+    manifest ``step`` of a checkpoint and the every-100-steps ``train``
+    records count the steps of the run that wrote them, from 0 again after
+    a ``--resume`` (``recsys_tpu/train/gnn.py`` restarts ``gstep``), while
+    ``state.step`` is the optimizer's update count, carried over by a resume
+    as the JAX ``TrainState.step`` is. With three checkpoints kept and
+    rotated by manifest step, a resumed run's first checkpoints rank below
+    the first run's, as in the JAX store;
   * post-hoc n-layer propagation of the trained layer-0 tables for export
     and eval (dot-product recall, not cosine);
   * magnitude->cosine distillation of the teacher's dot scores.
@@ -230,12 +237,13 @@ def train_lightgcl(cfg: Config, graph: BipartiteGraph, edges_u: np.ndarray,
         state.optimizer.load_state_dict(payload["optimizer"])
         if state.scheduler is not None and "scheduler" in payload:
             state.scheduler.load_state_dict(payload["scheduler"])
-        state.step = entry["step"]
+        state.step = _updates_done(state.optimizer)
         start_epoch = entry["extra"].get("epoch", 0) + 1
     step_fn = make_gnn_step(state, graph, g, prop_args)
     rng = np.random.default_rng(cfg.data.seed)
     sorted_keys = edge_key_index(edges_u, edges_i, graph.num_items)
 
+    gstep = 0   # this run's steps: the manifest's and the records' count
     with contextlib.ExitStack() as stack:
         if writer is None:
             writer = stack.enter_context(contextlib.closing(
@@ -256,10 +264,11 @@ def train_lightgcl(cfg: Config, graph: BipartiteGraph, edges_u: np.ndarray,
                     losses.append(aux["loss"])
                     timer.mark()
                     ep_steps += 1
+                    gstep += 1
                     if step_hook is not None:
                         step_hook(state.step)
-                    if state.step % 100 == 0:
-                        writer.write("train", state.step, loss=aux["loss"],
+                    if gstep % 100 == 0:
+                        writer.write("train", gstep, loss=aux["loss"],
                                      bpr=aux["bpr"], ssl=aux["ssl"])
                     if g.steps_per_epoch_max and ep_steps >= steps_per_epoch:
                         break
@@ -273,9 +282,16 @@ def train_lightgcl(cfg: Config, graph: BipartiteGraph, edges_u: np.ndarray,
                        "optimizer": state.optimizer.state_dict()}
             if state.scheduler is not None:
                 payload["scheduler"] = state.scheduler.state_dict()
-            store.save(f"ep{epoch:03d}", payload, step=state.step, metric=mean,
+            store.save(f"ep{epoch:03d}", payload, step=gstep, metric=mean,
                        extra={"epoch": epoch})
     return state, model
+
+
+def _updates_done(optimizer: torch.optim.Optimizer) -> int:
+    """Adam's update count in a restored optimizer state (0 when empty)."""
+    for st in optimizer.state.values():
+        return int(st["step"])
+    return 0
 
 
 def _layer0_tables(params) -> tuple[torch.Tensor, torch.Tensor]:

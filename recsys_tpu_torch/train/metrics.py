@@ -1,8 +1,10 @@
 """Metric logging + contrastive-health metrics.
 
 Counterpart of ``recsys_tpu/train/metrics.py``: the same JSONL records
-(``run``, ``kind``, ``step``, ``t`` and the metrics), and the SimCSE
-alignment / uniformity metrics.
+(``run``, ``kind``, ``step``, ``t`` and the metrics), the SimCSE
+alignment / uniformity metrics, and the user tower's interpretability
+metrics (feature-gate values, static-branch attribution) under the JAX
+package's keys.
 """
 
 from __future__ import annotations
@@ -11,7 +13,11 @@ import json
 import os
 import time
 
+from typing import Mapping
+
+import numpy as np
 import torch
+from torch import nn
 
 
 class MetricWriter:
@@ -50,3 +56,43 @@ def uniformity(emb: torch.Tensor) -> torch.Tensor:
     mask = 1.0 - torch.eye(n, dtype=emb.dtype, device=emb.device)
     mean = (torch.exp(-2.0 * d2) * mask).sum() / (n * (n - 1))
     return torch.log(mean + 1e-12)
+
+
+def gate_weights(model: nn.Module, path_filter: str = "gate") -> dict[str, float]:
+    """Sigmoid feature-gate values: every 1-d parameter of at most 16 entries
+    whose '/'-joined path holds ``path_filter``, as ``{"seq_gate[0]": ...}``."""
+    out: dict[str, float] = {}
+    for name, p in model.named_parameters():
+        path = name.replace(".", "/")
+        if path_filter in path and p.ndim == 1 and p.numel() <= 16:
+            for i, v in enumerate(torch.sigmoid(p.detach().float()).tolist()):
+                out[f"{path}[{i}]"] = float(v)
+    return out
+
+
+def meta_feature_importance(kernel, slices: Mapping[str, slice]) -> dict[str, float]:
+    """First-layer |weight|-norm attribution over named input-row groups.
+    ``kernel`` is laid out (in_dim, out_dim), as a Flax Dense kernel; pass a
+    torch ``Linear.weight`` transposed. Returns shares summing to ~1."""
+    w = np.abs(np.asarray(kernel, dtype=np.float32))
+    means = {name: float(w[sl].mean()) for name, sl in slices.items()}
+    total = sum(means.values()) + 1e-9
+    return {k: v / total for k, v in means.items()}
+
+
+def static_branch_importance(user_tower: nn.Module, tower_cfg) -> dict[str, float]:
+    """Feature-group attribution for the SASRec static branch: the static
+    MLP's first layer sliced by (bucket embs | categorical embs | continuous
+    projection), in the tower's concat order."""
+    kernel = user_tower.static_mlp.Dense_0.weight.detach().float().cpu().numpy().T
+    c = tower_cfg
+    slices: dict[str, slice] = {}
+    off = 0
+    for i in range(c.static_bucket_fields):
+        slices[f"bucket{i}"] = slice(off, off + c.bucket_emb_dim)
+        off += c.bucket_emb_dim
+    for i in range(c.static_cat_fields):
+        slices[f"cat{i}"] = slice(off, off + c.cat_emb_dim)
+        off += c.cat_emb_dim
+    slices["cont"] = slice(off, off + c.cont_proj_dim)
+    return meta_feature_importance(kernel, slices)

@@ -1,18 +1,39 @@
-"""Train-state plumbing: AdamW parameter groups and the warmup schedule.
+"""Train-state plumbing: AdamW parameter groups, gradient clipping, the
+freeze gate, the lr factor, the plateau scheduler and the warmup schedule.
 
 Counterpart of ``recsys_tpu/train/state.py``. optax ``adamw`` and
 ``torch.optim.AdamW`` apply the same update (betas 0.9/0.999, eps 1e-8,
 decoupled decay on every parameter of a group), and the ``LambdaLR`` factor
 below equals ``warmup_linear_schedule``: the learning rate is 0 at the first
-update, as in optax. The freeze gate, plateau scheduler and lr factor are
-not ported yet.
+update, as in optax. ``GroupedAdamW`` is the optax chain the JAX trainers
+build around those groups:
+
+    clip_by_global_norm(grad_clip)            over every gradient, all groups
+    -> multi_transform({group: [freeze gate] -> adamw(lr_group)})
+    -> scale(lr factor)                        (``with_lr_factor``)
+
+  * the clip is optax's arithmetic: when the global norm is at least
+    ``grad_clip`` every gradient is scaled by ``grad_clip / norm``, with no
+    epsilon (``torch.nn.utils.clip_grad_norm_`` divides by ``norm + 1e-6``);
+  * the freeze gate of a group multiplies its gradients by 0 during its first
+    ``freeze_steps`` updates. The gradients are zeroed, not dropped: Adam's
+    count still ticks (bias correction after the unfreeze is the JAX
+    package's) and the decoupled decay still shrinks the weights;
+  * the lr factor multiplies every group's whole update, decay included,
+    which is the same as multiplying the group's learning rate. It sits in
+    every param group, so it is saved with ``state_dict()`` and restored by
+    ``load_state_dict()``, as the JAX factor is saved with the optimizer state.
+
+A parameter that took no part in the loss has no gradient in PyTorch; optax
+sees a zero gradient there and still decays the weight, so the optimizer
+gives such a parameter a zero gradient before it steps.
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Callable
+from typing import Callable, Iterable
 
 import torch
 from torch import nn
@@ -66,14 +87,110 @@ def warmup_linear_factor(total_steps: int, warmup_frac: float = 0.1
     return factor
 
 
+def freeze_gate_schedule(freeze_steps: int) -> Callable[[int], float]:
+    """1.0 from update ``freeze_steps`` on (0-based), else 0.0: the gate a
+    group's gradients are multiplied by before its AdamW."""
+    def sched(step: int) -> float:
+        return 1.0 if step >= freeze_steps else 0.0
+
+    return sched
+
+
+@torch.no_grad()
+def clip_by_global_norm_(grads: Iterable[torch.Tensor], max_norm: float) -> torch.Tensor:
+    """optax ``clip_by_global_norm`` in place: the global L2 norm over all
+    ``grads``; when it is not below ``max_norm`` every gradient is scaled by
+    ``max_norm / norm`` (no epsilon). The choice is made on the device, so
+    the host does not wait for the step. Returns the norm before clipping."""
+    grads = list(grads)
+    norm = torch.nn.utils.get_total_norm(grads, 2.0)
+    scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
+    torch._foreach_mul_(grads, scale)
+    return norm
+
+
+class GroupedAdamW(torch.optim.AdamW):
+    """AdamW over named parameter groups behind a global-norm clip, per-group
+    freeze gates and an lr factor (see the module docstring)."""
+
+    def __init__(self, groups: list[dict], weight_decay: float,
+                 grad_clip: float | None = None):
+        for g in groups:
+            g.setdefault("freeze_steps", 0)
+            g.setdefault("updates", 0)
+            g.setdefault("lr_factor", 1.0)
+        super().__init__(groups, betas=(0.9, 0.999), eps=1e-8,
+                         weight_decay=weight_decay)
+        self.grad_clip = grad_clip
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        params = [p for g in self.param_groups for p in g["params"]]
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        if self.grad_clip:
+            clip_by_global_norm_([p.grad for p in params], self.grad_clip)
+        lrs = []
+        for g in self.param_groups:
+            if freeze_gate_schedule(g["freeze_steps"])(g["updates"]) == 0.0:
+                for p in g["params"]:
+                    p.grad.zero_()
+            g["updates"] += 1
+            lrs.append(g["lr"])
+            g["lr"] = g["lr"] * g["lr_factor"]
+        try:
+            return super().step(closure)
+        finally:
+            for g, lr in zip(self.param_groups, lrs):
+                g["lr"] = lr
+
+
 def grouped_adamw(model: nn.Module, label_fn: Callable[[str], str],
-                  lrs: dict[str, float], weight_decay: float
-                  ) -> torch.optim.AdamW:
-    """One AdamW parameter group per label, in the order of ``lrs``."""
+                  lrs: dict[str, float], weight_decay: float,
+                  grad_clip: float | None = None,
+                  freeze_steps: dict[str, int] | None = None) -> GroupedAdamW:
+    """One AdamW parameter group per label, in the order of ``lrs``; an
+    optional global-norm clip over all of them and a freeze gate per label."""
     groups: dict[str, list] = {name: [] for name in lrs}
     for name, p in model.named_parameters():
         groups[label_fn(name)].append(p)
-    return torch.optim.AdamW(
-        [{"params": ps, "lr": lrs[name], "name": name}
+    freeze_steps = freeze_steps or {}
+    return GroupedAdamW(
+        [{"params": ps, "lr": lrs[name], "name": name,
+          "freeze_steps": freeze_steps.get(name, 0)}
          for name, ps in groups.items() if ps],
-        betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay)
+        weight_decay=weight_decay, grad_clip=grad_clip)
+
+
+def set_lr_factor(optimizer: torch.optim.Optimizer, factor: float) -> None:
+    """Set the update scale of a ``GroupedAdamW`` (``with_lr_factor``'s
+    injected scale): it multiplies every group's whole update from the next
+    step on."""
+    for g in optimizer.param_groups:
+        g["lr_factor"] = float(factor)
+
+
+class PlateauScheduler:
+    """Host-side metric watcher: multiplies the lr factor by ``factor`` after
+    ``patience`` epochs without improvement."""
+
+    def __init__(self, factor: float = 0.5, patience: int = 2, maximize: bool = True,
+                 min_scale: float = 1e-3):
+        self.factor, self.patience, self.maximize = factor, patience, maximize
+        self.min_scale = min_scale
+        self.best: float | None = None
+        self.bad = 0
+        self.scale = 1.0
+
+    def update(self, metric: float) -> float:
+        improved = self.best is None or (
+            (metric > self.best) if self.maximize else (metric < self.best))
+        if improved:
+            self.best, self.bad = metric, 0
+        else:
+            self.bad += 1
+            if self.bad >= self.patience:
+                self.scale = max(self.scale * self.factor, self.min_scale)
+                self.bad = 0
+        return self.scale

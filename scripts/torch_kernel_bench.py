@@ -17,7 +17,10 @@ in each mode it has: the wrapper's call (CUDA events), the plain form, and the
 two kernels' time on the device (``torch.profiler``). K1 is timed through the
 loss wrappers the trainers call (forward and backward) at B = 192, 768 and
 8192, D = 128, and per kernel there, in a loop (CUDA events: at small B this
-is what the Python wrapper costs) and on the device.
+is what the Python wrapper costs) and on the device; and at the shape stage 2
+runs, B = 768 users x 4 positions = 3072 rows with user ids repeated and
+positive ids drawn with popularity skew from a 47,000-item catalog (form
+``stage2``, no valid mask), kernel against plain, fwd+bwd and per kernel.
 """
 
 from __future__ import annotations
@@ -166,19 +169,69 @@ def k1(tag: str, quick: bool) -> None:
                 row["plain_fwd_bwd_ms"] = cuda_ms(lambda: grads(ref, q, k), iters)
             emit(**row)
         if not quick and dim == 128 and B in (192, 768, 8192):
-            corr = logq[pos]
-            meta = (corr, pos.int(), usr.int(), valid)
-            _, lse = K.diag_ce_fwd_cuda(q, k, *meta, 0.1)
-            g = valid.float() / valid.float().sum()
-            args = (q, k, *meta, lse, g, 0.1)
-            iters = 20 if B >= 4096 else 200
-            calls = {"diag_ce_fwd": lambda: K.diag_ce_fwd_cuda(q, k, *meta, 0.1),
-                     "diag_ce_bwd_dq": lambda: K.diag_ce_bwd_dq_cuda(*args),
-                     "diag_ce_bwd_dk": lambda: K.diag_ce_bwd_dk_cuda(*args)}
-            emit(tag=tag, kernel="K1", B=B, D=dim,
-                 per_kernel_ms={name: cuda_ms(fn, iters) for name, fn in calls.items()},
-                 per_kernel_device_ms={name: device_ms(fn, iters, "diag_ce_kernel")
-                                       for name, fn in calls.items()})
+            per_kernel(tag, B, dim, q, k, logq[pos], pos, usr, valid)
+    stage2(tag, quick, grads)
+
+
+def per_kernel(tag, B, dim, q, k, corr, pos, usr, valid) -> None:
+    """Each K1 kernel in a loop (CUDA events) and on the device, and each
+    plain form in the same loop."""
+    import torch
+
+    from recsys_tpu_torch.ops import contrastive_kernel as K
+
+    meta = (corr, pos.int(), usr.int(), valid)
+    _, lse = K.diag_ce_fwd_cuda(q, k, *meta, 0.1)
+    g = valid.float() / valid.float().sum()
+    args = (q, k, *meta, lse, g, 0.1)
+    iters = 20 if B >= 4096 else 200
+    calls = {"diag_ce_fwd": lambda: K.diag_ce_fwd_cuda(q, k, *meta, 0.1),
+             "diag_ce_bwd_dq": lambda: K.diag_ce_bwd_dq_cuda(*args),
+             "diag_ce_bwd_dk": lambda: K.diag_ce_bwd_dk_cuda(*args)}
+    plain = {"diag_ce_fwd": lambda: K.diag_ce_fwd_plain(q, k, *meta, 0.1),
+             "diag_ce_bwd_dq": lambda: K.diag_ce_bwd_dq_plain(*args),
+             "diag_ce_bwd_dk": lambda: K.diag_ce_bwd_dk_plain(*args)}
+    torch.cuda.synchronize()
+    emit(tag=tag, kernel="K1", B=B, D=dim,
+         per_kernel_ms={name: cuda_ms(fn, iters) for name, fn in calls.items()},
+         per_kernel_plain_ms={name: cuda_ms(fn, iters) for name, fn in plain.items()},
+         per_kernel_device_ms={name: device_ms(fn, iters, "diag_ce_kernel")
+                               for name, fn in calls.items()})
+
+
+def stage2(tag: str, quick: bool, grads) -> None:
+    """K1 at stage 2's B = 768 x 4 = 3072 (the loss the stage-2 step calls)."""
+    import numpy as np
+    import torch
+
+    from recsys_tpu_torch.ops import contrastive_kernel as K
+    from recsys_tpu_torch.ops.contrastive import inbatch_logq_loss
+
+    users, positions, catalog, dim = 768, 4, 47_000, 128
+    B = users * positions
+    rng = np.random.default_rng(B)
+    unit = lambda: (lambda v: v / np.linalg.norm(v, axis=1, keepdims=True))(
+        rng.normal(size=(B, dim)).astype(np.float32))
+    q, k = torch.as_tensor(unit(), device="cuda"), torch.as_tensor(unit(), device="cuda")
+    pos = torch.as_tensor(1 + (catalog * rng.random(B) ** 3).astype(np.int64), device="cuda")
+    usr = torch.as_tensor(np.repeat(np.arange(users), positions), device="cuda")
+    logq = torch.as_tensor(rng.normal(-8.0, 1.0, catalog + 1).astype(np.float32),
+                           device="cuda")
+    kw = dict(temperature=0.1, user_ids=usr)
+    kern = lambda a, b: K.fused_inbatch_logq_loss(a, b, pos, logq, **kw)
+    ref = lambda a, b: inbatch_logq_loss(a, b, pos, logq, **kw)
+    got, want = grads(kern, q, k), grads(ref, q, k)
+    torch.cuda.synchronize()
+    row = {"tag": tag, "kernel": "K1", "B": B, "D": dim, "form": "stage2",
+           "loss_err": abs(float(got[0]) - float(want[0])),
+           "grad_err": max(float((x - y).abs().max()) for x, y in zip(got[1:], want[1:]))}
+    if not quick:
+        row["fwd_bwd_ms"] = cuda_ms(lambda: grads(kern, q, k), 50)
+        row["plain_fwd_bwd_ms"] = cuda_ms(lambda: grads(ref, q, k), 50)
+    emit(**row)
+    if not quick:
+        per_kernel(tag, B, dim, q, k, logq[pos], pos, usr,
+                   torch.ones(B, dtype=torch.int32, device="cuda"))
 
 
 def run_here(tag: str, quick: bool) -> None:

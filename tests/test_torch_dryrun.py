@@ -1,9 +1,10 @@
 """The port's multi-shard dry run on virtual shards laid over the CPU.
 
 Counterpart of the JAX package's ``dryrun_multichip`` (``__graft_entry__.py``):
-the same sharded steps on tiny shapes, the same printed line. The parts whose
-trainers the port does not have yet must be named ``not_ported`` in the line,
-not passed over.
+the same sharded steps on tiny shapes, the same printed line. The part whose
+trainer the port does not have yet (the hybrid tower) must be named
+``not_ported`` in the line, not passed over; the stage-2 step reports its loss
+with the dense lookup and, on a model axis > 1, with the all-to-all lookup.
 """
 
 import math
@@ -14,7 +15,7 @@ import torch
 
 from recsys_tpu_torch.dryrun import dryrun_multichip
 
-NOT_PORTED = ("stage2", "a2a", "hybrid")
+NOT_PORTED = ("hybrid",)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -34,8 +35,11 @@ def _few_torch_threads():
 def test_dryrun_multichip_on_cpu_shards(n_devices, mesh, capsys):
     out = dryrun_multichip(n_devices, device="cpu")
     assert out["mesh"] == mesh
-    for key in ("stage1", "gnn", "ckpt_resume"):
+    for key in ("stage1", "gnn", "ckpt_resume", "stage2"):
         assert math.isfinite(out[key]) and out[key] > 0, (key, out[key])
+    # the a2a step from the same state and draws: the dense step's loss
+    assert (math.isnan(out["a2a"]) if mesh["model"] == 1
+            else abs(out["a2a"] - out["stage2"]) < 1e-3 * max(1.0, out["stage2"]))
     batch = max(16, mesh["data"] * 4)
     assert out["topk"] == (batch, 10) and out["blend_topk"] == (batch, 10)
     assert all(out[key] == "not_ported" for key in NOT_PORTED)
@@ -46,6 +50,7 @@ def test_dryrun_multichip_on_cpu_shards(n_devices, mesh, capsys):
         "stage2", "a2a", "stage1", "gnn", "hybrid", "topk", "ckpt_resume", "blend_topk"]
     assert all(f"{key}=not_ported" in line for key in NOT_PORTED)
     assert f"stage1={out['stage1']:.4f}" in line and f"gnn={out['gnn']:.4f}" in line
+    assert f"stage2={out['stage2']:.4f}" in line and f"a2a={out['a2a']:.4f}" in line
 
 
 def test_dryrun_module_runs_as_a_program():

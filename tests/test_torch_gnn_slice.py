@@ -209,10 +209,14 @@ def test_train_lightgcl_learns_checkpoints_resumes_and_fine_tunes(tiny_graph, tm
     state2, model2 = TG.train_lightgcl(cfg5, graph, u, i, str(tmp_path), "cpu", resume=True)
     assert len(state2.losses) == 1 and state2.step == 500
     assert state2.optimizer.state_dict()["state"][0]["step"] == 500   # Adam's count carried on
-    assert CheckpointStore(str(tmp_path)).restore_latest()[1]["extra"] == {"epoch": 5}
-    # resumed at the epoch's end: nothing left to do
+    # the JAX trainer's count: the resumed run's checkpoint carries its own 100
+    # steps, ranks below the first run's three and is rotated out at once
+    manifest = CheckpointStore(str(tmp_path)).manifest
+    assert [(c["name"], c["step"]) for c in manifest["checkpoints"]] == [
+        ("ep002", 200), ("ep003", 300), ("ep004", 400)]
+    # so a second resume starts after epoch 4 again
     state3, _ = TG.train_lightgcl(cfg5, graph, u, i, str(tmp_path), "cpu", resume=True)
-    assert state3.losses == [] and state3.step == 500
+    assert len(state3.losses) == 1 and state3.step == 500
 
     # fine-tune: previous weights, fresh optimizer, cosine decay from 0.4 * lr
     before = model2.user_emb.detach().clone()
@@ -227,6 +231,33 @@ def test_train_lightgcl_learns_checkpoints_resumes_and_fine_tunes(tiny_graph, tm
     assert state5.scheduler.get_last_lr()[0] == pytest.approx(1e-5, rel=1e-3)
     assert float((model5.user_emb.detach() - before).abs().max()) < 1.0  # started from them
     assert state5.losses[0] < losses[0]
+
+
+def test_resume_counts_steps_as_the_jax_trainer(tiny_graph, tmp_path):
+    """Two epochs, then a resume to four, in both packages: the manifest's
+    checkpoint steps and the ``train`` records' steps are the same (each run
+    counts its own steps from 0), and the port's ``state.step`` is the JAX
+    state's update count."""
+    graph, u, i = tiny_graph
+    g = dataclasses.replace(CFG.gnn, steps_per_epoch_min=50)
+    two = dataclasses.replace(CFG, gnn=dataclasses.replace(g, epochs=2))
+    four = dataclasses.replace(CFG, gnn=dataclasses.replace(g, epochs=4))
+    runs = {}
+    for name, train in (("jax", lambda c, d, **kw: JG.train_lightgcl(c, graph, u, i, d, **kw)),
+                        ("port", lambda c, d, **kw: TG.train_lightgcl(c, graph, u, i, d, "cpu",
+                                                                      **kw))):
+        d = str(tmp_path / name)
+        train(two, d)
+        state, _ = train(four, d, resume=True)
+        manifest = json.load(open(tmp_path / name / "manifest.json"))
+        recs = [json.loads(line) for line in open(tmp_path / name / "metrics.jsonl")]
+        runs[name] = {"state_step": int(state.step),
+                      "checkpoints": [(c["name"], c["step"]) for c in manifest["checkpoints"]],
+                      "train_steps": [r["step"] for r in recs if r["kind"] == "train"],
+                      "epochs": [r["step"] for r in recs if r["kind"] == "epoch"]}
+    assert runs["port"] == runs["jax"]
+    assert runs["port"]["train_steps"] == [100, 100] and runs["port"]["state_step"] == 200
+    assert runs["port"]["checkpoints"] == [("ep003", 50), ("ep002", 100), ("ep004", 100)]
 
 
 @pytest.mark.parametrize("hard_frac", [0.0, 0.5])

@@ -84,6 +84,53 @@ def test_kernel_logq_matches_plain(device, B):
         assert float((g - r).abs().max()) <= 1e-5
 
 
+def _stage2_problem(users, positions, seed, device, catalog=47_000):
+    """Rows as stage 2 makes them: ``positions`` per user in user order, user
+    ids repeated, positive ids drawn with popularity skew from ``catalog``
+    items (same-item collisions), and user 0 with one real position (its rows
+    are that position's, repeated)."""
+    rng = np.random.default_rng(seed)
+    B = users * positions
+    u, i = _unit(rng, B, 128), _unit(rng, B, 128)
+    pos = 1 + (catalog * rng.random(B) ** 3).astype(np.int64)
+    u[1:positions], i[1:positions], pos[1:positions] = u[0], i[0], pos[0]
+    t = lambda a: torch.as_tensor(a, device=device)
+    return {"u": t(u), "i": t(i), "pos": t(pos),
+            "uid": t(np.repeat(np.arange(users), positions)),
+            "logq": t(rng.normal(-8.0, 1.0, catalog + 1).astype(np.float32))}
+
+
+@pytest.mark.parametrize("users,positions", [(768, 4), (16, 2)], ids=["B3072", "B32"])
+def test_kernel_at_the_stage2_shape(device, users, positions):
+    """The default stage-2 step's loss (768 users x 4 positions = 3072 rows)
+    and the CPU test world's (16 x 2): the wrapper the step calls, no valid
+    mask, against the plain loss; each kernel against its plain form; two
+    dk calls give the same bits."""
+    p = _stage2_problem(users, positions, users, device)
+    kw = dict(temperature=0.1, user_ids=p["uid"])
+    ref = _grads(lambda a, b: inbatch_logq_loss(a, b, p["pos"], p["logq"], **kw),
+                 p["u"], p["i"])
+    K.reset_launch_counts()
+    got = _grads(lambda a, b: K.fused_inbatch_logq_loss(a, b, p["pos"], p["logq"], **kw),
+                 p["u"], p["i"])
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == {"diag_ce_fwd": 1, "diag_ce_bwd_dq": 1, "diag_ce_bwd_dk": 1}
+    assert abs(float(got[0]) - float(ref[0])) <= 1e-4
+    for g, r in zip(got[1:], ref[1:]):
+        assert float((g - r).abs().max()) <= 1e-5
+    B = users * positions
+    valid = torch.ones(B, dtype=torch.int32, device=device)
+    meta = (p["logq"][p["pos"]], p["pos"].int(), p["uid"].int(), valid)
+    loss, lse = K.diag_ce_fwd_cuda(p["u"], p["i"], *meta, 0.1)
+    loss_p, lse_p = K.diag_ce_fwd_plain(p["u"], p["i"], *meta, 0.1)
+    assert float(torch.maximum((loss - loss_p).abs(), (lse - lse_p).abs()).max()) <= 1e-4
+    args = (p["u"], p["i"], *meta, lse_p, torch.full((B,), 1.0 / B, device=device), 0.1)
+    dk = K.diag_ce_bwd_dk_cuda(*args)
+    assert float((K.diag_ce_bwd_dq_cuda(*args) - K.diag_ce_bwd_dq_plain(*args)).abs().max()) <= 1e-5
+    assert float((dk - K.diag_ce_bwd_dk_plain(*args)).abs().max()) <= 1e-5
+    assert torch.equal(K.diag_ce_bwd_dk_cuda(*args), dk)
+
+
 @pytest.mark.parametrize("B", [192, 8192])
 def test_kernel_infonce_matches_plain(device, B):
     rng = np.random.default_rng(B)

@@ -31,6 +31,8 @@ def test_port_file_list_is_complete():
     for expected in ("recsys_tpu_torch/config.py", "recsys_tpu_torch/data/etl.py",
                      "recsys_tpu_torch/serve/ann.py", "recsys_tpu_torch/ops/spmm.py",
                      "recsys_tpu_torch/train/gnn.py", "recsys_tpu_torch/pipeline/cli.py",
+                     "recsys_tpu_torch/models/user_tower.py",
+                     "recsys_tpu_torch/train/sasrec.py", "recsys_tpu_torch/eval/baselines.py",
                      "chip_smoke.py"):
         assert expected in names
 
