@@ -119,6 +119,25 @@ then (phases 10 and 11 run after 6, while the graph of 4 is still there):
      through ``StepTimer``, K1 exactly 20 launches a kernel; five more steps
      under ``torch.profiler`` for K1's share of the device time; then
      ``evaluate_stage2``'s full-catalog top-500 for the 768 users.
+  15. the hybrid slice through the CLI on the world of phase 2, reusing its
+     stage-1 matrix, phase 5's GNN artifacts and phase 13's eval sidecars:
+     ``train-hybrid`` at full width (the tower's 4 layers, batch 768; 4 epochs
+     x 13 passes = 52 steps; the ensemble report on), ``ensemble-eval``,
+     ``rerank-eval --vectors hybrid`` (HYBRID_RERANK_ITERS boosting
+     iterations, the DCN arm), then ``serve --vectors hybrid --model-backed``
+     with ``serve.user_backend=hybrid`` and requests in rerank, blend and
+     cosine mode for a few users. Gates: the epoch loss finite and falling,
+     ``hybrid_best`` Recall@100 > 0, the served user vector within SERVE_TOL of
+     the tower's forward on the same history and GNN vector, the HTTP rerank
+     list equal to ``rerank_serve_topk``'s offline list, the HTTP blend (the
+     device form on the card) equal to the host blend, and no launch of K1-K4
+     across the phase (the path has no hand kernel).
+  16. the hybrid step at phase 14's shape (768 users x 50 positions, 47,000
+     items, content 128 + GNN 64, 4 layers), built here from a seed: 20 steps
+     after 2 warm-up steps (median through ``StepTimer``), five under
+     ``torch.profiler`` (device busy and idle share, launches a step, the
+     top device items), the adapted catalog's top-500 for the 768 users, and
+     the device time and host cost of a one-element add (the smallest launch).
 
 One line holds every kernel with its launches, error, times and bound. The
 last line is {"ok": true, "device": {...}}; any failure exits non-zero
@@ -204,6 +223,9 @@ RETRIEVAL_USERS, RETRIEVAL_ROWS, RETRIEVAL_K = 768, 47_000, 500
 DP_LOSS_TOL = 1e-3
 # stage 2 at the reference shape (bench.py:71-95) and the rows its loss sees
 STAGE2_B, STAGE2_L, STAGE2_P, STAGE2_ITEMS, STAGE2_STEPS = 768, 50, 4, 47_000, 20
+# the hybrid slice (phase 15): 4 epochs x 13 passes of the 1,000-user world (one
+# 768-user batch a pass) = 52 steps; the rerank GBDT's boosting iterations
+HYBRID_EPOCHS, HYBRID_STEPS_MIN, HYBRID_RERANK_ITERS, HYBRID_GNN_DIM = 4, 13, 100, 64
 
 
 def card_line() -> str:
@@ -1542,12 +1564,231 @@ def stage2_step_phase(device) -> dict:
             "eval_ms": 1e3 * sum(eval_timer.seconds()), "eval": metrics}
 
 
+# -- phase 15: the hybrid slice through the CLI ---------------------------------------
+
+def all_launches() -> dict:
+    return {**K.LAUNCHES, **S.LAUNCHES, **FM.LAUNCHES, **R.LAUNCHES}
+
+
+def hybrid_slice_phase(root: str) -> dict:
+    from recsys_tpu_torch.pipeline import cli
+    from recsys_tpu_torch.serve import recommend as RC
+    from recsys_tpu_torch.serve.server import make_server, serve_forever_in_thread
+    from recsys_tpu_torch.train import hybrid as H
+    from recsys_tpu_torch.train.sasrec import prepare_stage2, tensors_to
+
+    sets = ["--set", f"data.root={root}", "--set", f"user_train.epochs={HYBRID_EPOCHS}",
+            "--set", f"user_train.hybrid_steps_per_epoch_min={HYBRID_STEPS_MIN}",
+            "--set", "serve.db_path=:memory:", "--set", "serve.user_backend=hybrid"]
+    before = all_launches()
+    t0 = time.perf_counter()
+    train = cli.main(["train-hybrid", *sets])
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ens = cli.main(["ensemble-eval", *sets])
+    ens_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rr = cli.main(["rerank-eval", *sets, "--vectors", "hybrid",
+                   "--iterations", str(HYBRID_RERANK_ITERS)])
+    rr_s = time.perf_counter() - t0
+    losses = train["epoch_losses"]
+    check(train["device"].startswith("cuda") and train["steps"] >= 50
+          and all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"train-hybrid: {train['steps']} steps, epoch losses {losses}")
+    check(train["hybrid_best"].get("recall@100", 0) > 0, f"hybrid_best {train['hybrid_best']}")
+    check({"ensemble", "ensemble_alive", "blend", "significance"} <= set(train),
+          f"train-hybrid report: {sorted(train)}")
+    check(ens["stage2_x_gnn"]["standalone_a"]["recall@100"] > 0, f"ensemble-eval: {ens}")
+    check(rr["reranked"]["recall@100"] > 0 and rr["gbdt_auc"] is not None,
+          f"rerank-eval --vectors hybrid: {rr}")
+
+    args = cli.parse_args(["serve", *sets, "--vectors", "hybrid", "--model-backed"])
+    cfg = cli.config_from_args(args)
+    ctx = cli.build_app(cfg, args)
+    check(ctx.user_backend == "hybrid tower (best checkpoint)", f"backend {ctx.user_backend}")
+    assets = ctx.rec_assets
+    check(assets is not None and assets.ranker is not None and assets.vectors == "hybrid",
+          "serve --vectors hybrid loaded no rerank assets")
+    items, users, tx = cli._load_world(cfg)
+    data = prepare_stage2(cfg, items, users, tx)
+    content, gnn_items, gu, gu_ids = cli._hybrid_inputs(cfg, data)
+    _, uv, _ = H.restore_hybrid(cfg, data, content, gnn_items, f"{root}/ckpt_hybrid", "cuda")
+    gnn_of = {str(u): gu[r] for r, u in enumerate(gu_ids)}
+    shoppers = [u for u in tx["user_id"].drop_duplicates() if str(u) in gnn_of][:RERANK_USERS]
+    server = make_server(ctx, host="127.0.0.1", port=0)
+    thread = serve_forever_in_thread(server)
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    served_err, rec_ms = 0.0, {m: [] for m in ("rerank", "blend", "cosine")}
+    try:
+        catalog = items.sort_values("item_id").to_dict("records")
+        http(base, "POST", "/api/controller/products/ingest",
+             {"products": [product_json(r) for r in catalog]})
+        while http(base, "POST", "/ai-api/serving/vectors/process-pending",
+                   {})["processed_count"]:
+            pass
+        histories = {}
+        for uid in shoppers:
+            rows = tx[tx["user_id"] == uid].sort_values("day", kind="stable").tail(12)
+            histories[uid] = [(str(i), 86400.0 * float(d) + j)
+                              for j, (i, d) in enumerate(zip(rows["item_id"], rows["day"]))]
+            ins = http(base, "POST", "/api/v1/debug/insert-manual-data", {
+                "users": [{"user_id": str(uid)}],
+                "sessions": [{"user_id": str(uid), "events": [
+                    {"product_id": pid, "action_type": 3, "ts": ts}
+                    for pid, ts in histories[uid]]}]})
+            check(ins.get("ok", True) is not False, f"insert-manual-data: {ins}")
+        done = http(base, "POST", "/ai-api/serving/users/process-pending", {})
+        check(done["processed_count"] == len(shoppers), f"users process-pending: {done}")
+        for uid in shoppers:
+            got = {}
+            for mode in rec_ms:
+                t0 = time.perf_counter()
+                got[mode] = http(base, "GET", f"/api/controller/recommendations/{uid}"
+                                              f"?top_k=20&mode={mode}")
+                rec_ms[mode].append(1e3 * (time.perf_counter() - t0))
+                res = got[mode]["results"]
+                check(0 < len(res) <= 20 and all(r["product_id"] != "<pad>" for r in res)
+                      and got[mode].get("mode", "cosine") == mode,
+                      f"{mode} recommendations for {uid}: {got[mode]}")
+            served = ctx.store.get_user_vector(str(uid))
+            b = left_padded_batch(cfg, data["item_map"], histories[uid])
+            want = uv(tensors_to(b, "cuda"),
+                      torch.as_tensor(gnn_of[str(uid)][None], device="cuda"))
+            served_err = max(served_err, float(np.abs(served - want.cpu().numpy()[0]).max()))
+            events = ctx.store.user_histories([str(uid)])[str(uid)]
+            iidx, days = RC.store_events_arrays(assets, events)
+            offline = RC.rerank_serve_topk(assets, served[None], [(iidx, days)],
+                                           int(days.max()) + 1, 20,
+                                           pool_size=cfg.serve.rerank_pool,
+                                           m_cos=cfg.serve.rerank_m_cos,
+                                           m_pop=cfg.serve.rerank_m_pop)
+            check([r["product_id"] for r in got["rerank"]["results"]]
+                  == [assets.pid_of(int(r)) for r in offline[0] if int(r) != 0],
+                  f"HTTP rerank list for {uid} differs from rerank_serve_topk's")
+            host = RC.blend_topk(assets, served[None], [iidx], cfg.serve.blend_alpha,
+                                 cfg.serve.blend_beta, 20, backend="host")
+            check([r["product_id"] for r in got["blend"]["results"]]
+                  == [assets.pid_of(int(r)) for r in host[0]],
+                  f"HTTP blend (device) list for {uid} differs from the host blend")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+    check(served_err <= SERVE_TOL, f"served user vectors vs the hybrid tower: {served_err}")
+    after = all_launches()
+    check(after == before, f"the hybrid slice launched a hand kernel: {before} -> {after}")
+    return {"train": {k: train[k] for k in ("steps", "seconds", "step_ms_median", "epoch_losses",
+                                            "logit_scale", "report_seconds")},
+            "stage_seconds": {"train-hybrid": train_s, "ensemble-eval": ens_s,
+                              "rerank-eval": rr_s},
+            "hybrid_best": train["hybrid_best"], "hybrid_history": train["hybrid_history"],
+            "blend_best": train["blend"]["best_metrics"], "gnn_arm": train["gnn_arm"],
+            "ensemble_eval_weighted": ens["stage2_x_gnn"]["weighted"]["best"],
+            "rerank": {k: rr[k] for k in ("reranked", "gbdt_auc", "dcn_auc", "gbdt_seconds",
+                                          "gbdt_iterations")},
+            "serve": {"users": len(shoppers), "served_vs_tower_err": served_err,
+                      "recommendation_ms_median": {m: float(np.median(v))
+                                                   for m, v in rec_ms.items()}},
+            "hand_kernel_launches": {k: after[k] - before[k] for k in after}}
+
+
+# -- phase 16: the hybrid step at the stage-2 reference shape ----------------------------
+
+def profile_steps(fn, n: int) -> dict:
+    """``n`` calls of ``fn`` under ``torch.profiler``: wall and device time a
+    call, device launches a call and the top device items by self time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / n
+    dev, count = {}, 0
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+        if t > 0:
+            dev[e.key] = t / 1e3 / n
+            count += e.count
+    busy = sum(dev.values())
+    top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "device_idle_share": max(0.0, 1.0 - busy / wall_ms) if wall_ms else None,
+            "launches_per_call": count / n,
+            "top_device_items_ms": {k[:160]: v for k, v in top}}
+
+
+def hybrid_step_phase(device) -> dict:
+    from recsys_tpu_torch.config import Config
+    from recsys_tpu_torch.train import hybrid as H
+    from recsys_tpu_torch.train.sasrec import tensors_to
+    from recsys_tpu_torch.train.state import StepTimer, TrainState
+
+    cfg = Config()
+    utc = cfg.user_tower
+    rng = np.random.default_rng(0)
+    B, L, N = STAGE2_B, STAGE2_L, STAGE2_ITEMS
+    batch_np = {
+        "input_ids": rng.integers(1, N + 1, (B, L)), "target_ids": rng.integers(1, N + 1, (B, L)),
+        "time_buckets": rng.integers(0, utc.num_time_buckets, (B, L)),
+        "seq_mask": np.ones((B, L), np.int64),
+        "user_buckets": rng.integers(0, 10, (B, utc.static_bucket_fields)),
+        "user_cats": rng.integers(0, 2, (B, utc.static_cat_fields)),
+        "user_cont": rng.normal(0, 1, (B, utc.static_cont_fields)).astype(np.float32)}
+    logq = rng.normal(-8.0, 1.0, N + 1).astype(np.float32)
+    content = rng.normal(size=(N + 1, D)).astype(np.float32)
+    content /= np.linalg.norm(content, axis=1, keepdims=True)
+    content[0] = 0.0
+    gnn_items = rng.normal(0, 0.1, (N + 1, HYBRID_GNN_DIM)).astype(np.float32)
+    gnn_items[0] = 0.0
+    model = H.build_hybrid_model(cfg, N + 1, D, HYBRID_GNN_DIM, device, seed=0)
+    check(model.encoder.num_layers == 4, "the hybrid tower must have its 4 layers")
+    opt, sched = H.make_hybrid_optimizer(cfg.user_train, model, 1000)
+    state = TrainState(model, opt, sched)
+    step, uv, im = H.make_hybrid_step(cfg, state, content, gnn_items, logq)
+    batch = tensors_to(batch_np, device)
+    gnn_users = torch.as_tensor(rng.normal(0, 0.1, (B, HYBRID_GNN_DIM)).astype(np.float32),
+                                device=device)
+    gen = torch.Generator(device).manual_seed(0)
+    for _ in range(2):                     # warm-up: allocator, cuBLAS handles
+        step(batch, gnn_users, gen)
+    before = all_launches()
+    timer, losses = StepTimer(device), []
+    for _ in range(STAGE2_STEPS):
+        losses.append(step(batch, gnn_users, gen)["loss"])
+        timer.mark()
+    seconds = timer.seconds()
+    losses = [float(x) for x in losses]
+    check(all(np.isfinite(losses)), f"hybrid losses {losses}")
+    check(all_launches() == before, "the hybrid step launched a hand kernel")
+    prof = profile_steps(lambda: step(batch, gnn_users, gen), 5)
+    # the adapted catalog and the top-500 of hybrid_eval for the 768 users
+    t0 = time.perf_counter()
+    items = im()
+    _, top = torch.topk(uv(batch, gnn_users) @ items.T, 500, dim=1)
+    torch.cuda.synchronize()
+    eval_ms = 1e3 * (time.perf_counter() - t0)
+    # the smallest launch torch makes: a one-element add, its device time and host cost
+    one = torch.zeros(1, device=device)
+    launch = profile_steps(lambda: one.add_(1.0), 200)
+    return {"shape": {"users": B, "positions": L, "catalog": N, "content_dim": D,
+                      "gnn_dim": HYBRID_GNN_DIM, "layers": 4},
+            "step_ms_median": 1e3 * float(np.median(seconds)),
+            "step_ms": [1e3 * x for x in seconds], "losses": [losses[0], losses[-1]],
+            "profiled": prof, "eval_top500_ms": eval_ms,
+            "one_element_kernel": {"device_ms": launch["device_busy_ms"],
+                                   "host_ms_per_call": launch["wall_ms"]}}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
+    start = time.perf_counter()
     print(json.dumps({"torch": torch.__version__, "cuda": torch.version.cuda,
                       "python": sys.version.split()[0], "allow_tf32": False}), flush=True)
     print(card_line(), flush=True)
@@ -1593,8 +1834,16 @@ def main() -> None:
         print(json.dumps({"phase": "user_slice", **user}), flush=True)
         stage2 = stage2_step_phase(device)
         print(json.dumps({"phase": "stage2_step", **stage2}), flush=True)
+        seconds = {"phases_1_to_14": time.perf_counter() - start}
+        hybrid = hybrid_slice_phase(root)
+        print(json.dumps({"phase": "hybrid_slice", **hybrid}), flush=True)
+        seconds["phase_15"] = time.perf_counter() - start - sum(seconds.values())
+        hstep = hybrid_step_phase(device)
+        print(json.dumps({"phase": "hybrid_step", **hstep}), flush=True)
+        seconds["phase_16"] = time.perf_counter() - start - sum(seconds.values())
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    print(json.dumps({"seconds": {**seconds, "total": time.perf_counter() - start}}), flush=True)
 
     # K1's launches are the main path's: train-item (phase 2) and train-user (phase
     # 13); its times are at the SimCSE shape, stage 2's B = 3072 and 8192 beside them

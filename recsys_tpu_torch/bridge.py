@@ -19,7 +19,12 @@ auto-names (``CrossNet_0/cross_{i}``, ``MLP_0/Dense_{i}``, ``score``) and
 same way in both directions: ``models/user_tower.Stage2Model`` is the JAX
 package's ``{"user": SASRecUserTower params, "item": {"item_matrix"}}`` tree,
 with ``seq_gate``, ``static_gate``, ``pos_embedding`` and ``item_matrix`` as
-raw parameters and no ``side_embedding_*`` (Flax never creates them). The sharded path
+raw parameters and no ``side_embedding_*`` (Flax never creates them). The
+hybrid tower (``models/hybrid_tower.HybridUserTower``) maps the same way too:
+its shape-() scalars (``logit_scale``, ``fusion/gate_gnn``, ``fusion/gate_meta``,
+``ResidualAdapter``'s ``gate``) and ``pos_embedding`` as raw parameters,
+``item_adapter/LayerNorm_0`` and the named sub-Denses (``content_proj``,
+``gnn_proj``, ``gnn_user_proj``, ``meta_proj``, ``out_proj``) by path. The sharded path
 (``parallel/``, the data-parallel stage-1 step) adds no parameters and needs
 no converter: every shard runs the same ``SimCSEModel`` / ``LightGCL`` trees.
 

@@ -17,12 +17,14 @@ visible cards, several shards a card where there are fewer cards than shards
     eval forward and a sharded top-k over the matrix, then the same step from
     the same state and draws with the all-to-all lookup over ``model``
     (``a2a``, when the model axis is > 1), whose loss must agree within 1e-3
-    relative.
+    relative;
+  * the hybrid tower: one step of ``train/hybrid.make_hybrid_step`` on the
+    stage-2 batch (its size a multiple of the data axis) with per-user GNN
+    vectors, content and GNN item vectors made from a seed (``hybrid``). As
+    the stage-2 step, it runs on the mesh's first device.
 
 It asserts finite losses and the top-k shapes and prints one line in the JAX
-function's format. The part of the JAX dry run whose trainer the port does
-not have yet is printed as ``not_ported``, never passed in silence: the
-hybrid tower (``hybrid``).
+function's format.
 
     python -m recsys_tpu_torch.dryrun 8 [--device cpu]
 """
@@ -147,28 +149,26 @@ def dryrun_multichip(n_devices: int, device: torch.device | str = "cuda") -> dic
         ckpt_loss = float(rstep(batch, gen)[0])
         assert math.isfinite(ckpt_loss) and restored.step == state.step + 1
 
-    s2_loss, a2a_loss, s2_topk = _stage2_dryrun(mesh, n_data, num_model, home)
+    world = _stage2_world(n_data, num_model, home)
+    s2_loss, a2a_loss, s2_topk = _stage2_dryrun(mesh, world, num_model, home)
     assert s2_topk[1] == 10
+    hybrid_loss = _hybrid_dryrun(world, home)
     out = {"mesh": mesh.shape, "stage2": s2_loss, "a2a": a2a_loss,
-           "stage1": s1_loss, "gnn": gnn_loss, "hybrid": "not_ported",
+           "stage1": s1_loss, "gnn": gnn_loss, "hybrid": hybrid_loss,
            "topk": tuple(idx.shape), "ckpt_resume": ckpt_loss,
            "blend_topk": tuple(bidx.shape)}
     print(f"dryrun_multichip ok: mesh={out['mesh']} stage2={s2_loss:.4f} a2a={a2a_loss:.4f} "
-          f"stage1={s1_loss:.4f} gnn={gnn_loss:.4f} hybrid=not_ported "
+          f"stage1={s1_loss:.4f} gnn={gnn_loss:.4f} hybrid={hybrid_loss:.4f} "
           f"topk={out['topk']} ckpt_resume={ckpt_loss:.4f} "
           f"blend_topk={out['blend_topk']}", flush=True)
     return out
 
 
-def _stage2_dryrun(mesh, n_data: int, num_model: int, home) -> tuple[float, float, tuple]:
-    """One stage-2 step with the dense lookup and, from the same state and
-    the same draws, with the all-to-all lookup; (loss, a2a loss, top-k shape)."""
-    import copy
-
+def _stage2_world(n_data: int, num_model: int, home) -> dict:
+    """The stage-2 dry-run world: config, data, one batch of ``bs`` users (a
+    multiple of the data axis) on ``home``."""
     from recsys_tpu_torch.data.synthetic import generate_dataset
-    from recsys_tpu_torch.eval.recall import topk_scores
     from recsys_tpu_torch.train import sasrec
-    from recsys_tpu_torch.train.state import TrainState
 
     cfg = Config(data=DataConfig(num_items=64 * num_model - 1, num_users=64, days=40, seed=0),
                  vocab=VocabConfig(num_hash_buckets=50),
@@ -180,6 +180,19 @@ def _stage2_dryrun(mesh, n_data: int, num_model: int, home) -> tuple[float, floa
     n = data["tensors"]["input_ids"].shape[0]
     bs = min(cfg.user_train.batch_size, n - n % n_data)
     batch = sasrec._slice(sasrec.tensors_to(data["tensors"], home), np.arange(bs))
+    return {"cfg": cfg, "data": data, "batch": batch, "bs": bs}
+
+
+def _stage2_dryrun(mesh, world: dict, num_model: int, home) -> tuple[float, float, tuple]:
+    """One stage-2 step with the dense lookup and, from the same state and
+    the same draws, with the all-to-all lookup; (loss, a2a loss, top-k shape)."""
+    import copy
+
+    from recsys_tpu_torch.eval.recall import topk_scores
+    from recsys_tpu_torch.train import sasrec
+    from recsys_tpu_torch.train.state import TrainState
+
+    cfg, data, batch, bs = world["cfg"], world["data"], world["batch"], world["bs"]
     n_pad = len(data["item_map"]) + 1      # divisible by num_model by construction
     model = sasrec.init_stage2_params(cfg, n_pad, None, home, seed=0)
 
@@ -201,6 +214,27 @@ def _stage2_dryrun(mesh, n_data: int, num_model: int, home) -> tuple[float, floa
         a2a_loss = one_step("a2a")[0]
         assert abs(a2a_loss - loss) < 1e-3 * max(1.0, abs(loss)), (a2a_loss, loss)
     return loss, a2a_loss, tuple(idx.shape)
+
+
+def _hybrid_dryrun(world: dict, home) -> float:
+    """One hybrid step (Adam 1e-3, as the JAX dry run) on the stage-2 batch
+    with per-user GNN vectors; the loss."""
+    from recsys_tpu_torch.train import hybrid
+    from recsys_tpu_torch.train.state import TrainState
+
+    cfg, data, batch, bs = world["cfg"], world["data"], world["batch"], world["bs"]
+    rng = np.random.default_rng(0)
+    n_pad = len(data["item_map"]) + 1
+    Dg, Dc = 16, 32
+    content = rng.normal(0, 0.1, (n_pad, Dc)).astype(np.float32)
+    gnn_items = rng.normal(0, 0.1, (n_pad, Dg)).astype(np.float32)
+    model = hybrid.build_hybrid_model(cfg, n_pad, Dc, Dg, home, seed=0)
+    state = TrainState(model, torch.optim.Adam(model.parameters(), lr=1e-3))
+    step, _, _ = hybrid.make_hybrid_step(cfg, state, content, gnn_items, data["logq"])
+    gnn_users = torch.as_tensor(rng.normal(0, 0.1, (bs, Dg)).astype(np.float32), device=home)
+    loss = float(step(batch, gnn_users, torch.Generator(home).manual_seed(3))["loss"])
+    assert math.isfinite(loss)
+    return loss
 
 
 if __name__ == "__main__":

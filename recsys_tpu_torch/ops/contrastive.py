@@ -6,8 +6,8 @@ the CPU path and the oracle for the hand-written kernel in
 ``ops/contrastive_kernel.py``. The stage-2 family that the JAX package
 computes outside any Pallas kernel is plain PyTorch here too: ``duorec_loss``
 (every stage-2 step) and the hard-negative variants ``hnm_corrected_loss``,
-``mixed_hnm_loss`` and ``full_batch_hard_emphasis_loss``. Not ported yet:
-``corrected_logq_with_recovery`` (the hybrid trainer's).
+``mixed_hnm_loss`` and ``full_batch_hard_emphasis_loss``, and the hybrid
+trainer's ``corrected_logq_with_recovery``.
 """
 
 from __future__ import annotations
@@ -178,3 +178,22 @@ def full_batch_hard_emphasis_loss(user_emb: torch.Tensor, item_emb: torch.Tensor
     eye = torch.eye(B, dtype=torch.bool, device=logits.device)
     same_item = (pos_item_ids[None, :] == pos_item_ids[:, None]) & ~eye
     return _ce_with_diag_labels(torch.where(same_item, torch.full_like(logits, NEG), logits))
+
+
+def corrected_logq_with_recovery(user_emb: torch.Tensor, item_emb: torch.Tensor,
+                                 pos_item_ids: torch.Tensor, log_q: torch.Tensor,
+                                 logit_scale: torch.Tensor, *,
+                                 lambda_logq: float = 1.0) -> torch.Tensor:
+    """CLIP-style loss: cosine * exp(learnable scale), LogQ-corrected off the
+    diagonal, the diagonal kept at its uncorrected score ("positive
+    recovery"), same-item columns masked to ``NEG``. The gradient reaches
+    ``logit_scale``."""
+    scale = torch.exp(logit_scale.float())
+    raw = user_emb.float() @ item_emb.float().T * scale
+    corrected = raw - lambda_logq * log_q.float()[pos_item_ids][None, :]
+    B = raw.shape[0]
+    eye = torch.eye(B, dtype=torch.bool, device=raw.device)
+    logits = torch.where(eye, raw, corrected)
+    same_item = (pos_item_ids[None, :] == pos_item_ids[:, None]) & ~eye
+    logits = torch.where(same_item, torch.full_like(logits, NEG), logits)
+    return _ce_with_diag_labels(logits)

@@ -7,13 +7,17 @@ batcher (``serve/batcher.py``) are the port's copies of the JAX package's
 framework-free modules. ``model_vectorizer`` runs the torch item encoder
 under ``torch.inference_mode`` on the configured device.
 
-``tower_user_vectorizer`` is the model-backed user vectorizer: store
-histories -> left-padded id sequences -> the trained stage-2 tower's eval
-forward on the device.
+``tower_user_vectorizer`` and ``hybrid_user_vectorizer`` are the
+model-backed user vectorizers: store histories -> left-padded id sequences ->
+the trained stage-2 or hybrid tower's eval forward on the device (the hybrid
+one with the user's GNN embedding, zeros for a user the GNN never saw).
 
-Not ported yet: the ``ivf`` and ``int8`` device indexes, the hybrid-tower
-user vectorizer and the blend/rerank recipes (``rec_assets`` stays None, so
-those modes take the flagged fall-back to cosine).
+``recommend_for_user`` answers in ``cosine``, ``blend`` or ``rerank`` mode;
+the last two run the recipes of ``serve/recommend.py`` over ``rec_assets``
+and, when those (or the rerank ranker) are not loaded, answer in cosine mode,
+flagged in the response, as the JAX server does.
+
+Not ported yet: the ``ivf`` and ``int8`` device indexes.
 """
 
 from __future__ import annotations
@@ -143,32 +147,69 @@ def tower_user_vectorizer(ctx: "AppContext", cfg: Config, user_vectors,
     ``train/sasrec.restore_stage2``. ``item_ids`` is the stage-2 id map's row
     order (index 0 = PAD). Static user features are not known at serve time
     and enter as zeros (the static gates make that a graceful degradation)."""
-    from recsys_tpu_torch.data.dataset import TIME_BUCKET_EDGES
+
     from recsys_tpu_torch.train.sasrec import tensors_to
 
-    utc = cfg.user_tower
-    L = utc.max_len
     id_of = {str(p): i for i, p in enumerate(item_ids)}
 
     def fn(profiles: list[dict]) -> np.ndarray:
-        ids = [p["user_id"] for p in profiles]
-        hists = ctx.store.user_histories(ids)
-        B = len(profiles)
-        batch = {key: np.zeros((B, L), np.int64)
-                 for key in ("input_ids", "target_ids", "time_buckets", "seq_mask")}
-        batch["user_buckets"] = np.zeros((B, utc.static_bucket_fields), np.int64)
-        batch["user_cats"] = np.zeros((B, utc.static_cat_fields), np.int64)
-        batch["user_cont"] = np.zeros((B, utc.static_cont_fields), np.float32)
-        for r, uid in enumerate(ids):
-            events = [e for e in hists.get(uid, []) if str(e["product_id"]) in id_of][-L:]
-            if not events:
-                continue
-            k = len(events)
-            batch["input_ids"][r, L - k:] = [id_of[str(e["product_id"])] for e in events]
-            days = np.array([(events[-1]["ts"] - e["ts"]) / 86400.0 for e in events])
-            batch["time_buckets"][r, L - k:] = np.digitize(days, TIME_BUCKET_EDGES[1:])
-            batch["seq_mask"][r, L - k:] = 1
+        batch = history_batch(ctx, cfg, [p["user_id"] for p in profiles], id_of)
         return user_vectors(tensors_to(batch, device)).float().cpu().numpy()
+
+    return fn
+
+
+def history_batch(ctx: "AppContext", cfg: Config, user_ids: list, id_of: dict) -> dict:
+    """The users' store histories as a stage-2 batch (numpy): left-padded
+    ids, newest event last, time buckets by days before it, static features
+    zero (not known at serve time)."""
+    from recsys_tpu_torch.data.dataset import TIME_BUCKET_EDGES
+
+    utc = cfg.user_tower
+    L = utc.max_len
+    hists = ctx.store.user_histories(user_ids)
+    B = len(user_ids)
+    batch = {key: np.zeros((B, L), np.int64)
+             for key in ("input_ids", "target_ids", "time_buckets", "seq_mask")}
+    batch["user_buckets"] = np.zeros((B, utc.static_bucket_fields), np.int64)
+    batch["user_cats"] = np.zeros((B, utc.static_cat_fields), np.int64)
+    batch["user_cont"] = np.zeros((B, utc.static_cont_fields), np.float32)
+    for r, uid in enumerate(user_ids):
+        events = [e for e in hists.get(uid, []) if str(e["product_id"]) in id_of][-L:]
+        if not events:
+            continue
+        k = len(events)
+        batch["input_ids"][r, L - k:] = [id_of[str(e["product_id"])] for e in events]
+        days = np.array([(events[-1]["ts"] - e["ts"]) / 86400.0 for e in events])
+        batch["time_buckets"][r, L - k:] = np.digitize(days, TIME_BUCKET_EDGES[1:])
+        batch["seq_mask"][r, L - k:] = 1
+    return batch
+
+
+def hybrid_user_vectorizer(ctx: "AppContext", cfg: Config, user_vectors, item_ids: list[str],
+                           gnn_user_of: dict[str, np.ndarray] | None,
+                           gnn_dim: int, device: torch.device | str):
+    """Hybrid-tower user vectorizer: store histories -> the batch of
+    ``history_batch`` + the user's GNN embedding (artifact lookup; zeros for
+    an unseen user, which the tower's gates take gracefully) -> the eval
+    forward ``user_vectors(batch, gnn_user)`` of
+    ``train/hybrid.restore_hybrid``. ``item_ids`` is the stage-2 id map's row
+    order (index 0 = PAD)."""
+    from recsys_tpu_torch.train.sasrec import tensors_to
+
+    id_of = {str(p): i for i, p in enumerate(item_ids)}
+    gnn_user_of = gnn_user_of or {}
+
+    def fn(profiles: list[dict]) -> np.ndarray:
+        ids = [p["user_id"] for p in profiles]
+        gnn_u = np.zeros((len(ids), gnn_dim), np.float32)
+        for r, uid in enumerate(ids):
+            gv = gnn_user_of.get(str(uid))
+            if gv is not None:
+                gnn_u[r] = gv
+        batch = history_batch(ctx, cfg, ids, id_of)
+        return user_vectors(tensors_to(batch, device),
+                            torch.as_tensor(gnn_u, device=device)).float().cpu().numpy()
 
     return fn
 
@@ -182,7 +223,7 @@ class AppContext:
     user_vectorize_fn: Callable[[list[dict]], np.ndarray] | None = None
     train_item_fn: Callable[..., dict] | None = None
     train_user_fn: Callable[..., dict] | None = None
-    rec_assets: object | None = None
+    rec_assets: object | None = None    # serve/recommend.RecommendAssets
     user_backend: str = "history mean"   # what ``_user_vectorize`` runs
     int_to_pid: dict[int, str] = field(default_factory=dict)
     _bg_threads: list = field(default_factory=list)
@@ -268,13 +309,25 @@ class AppContext:
     def recommend_for_user(self, user_id: str, top_k: int | None = None,
                            exclude_seen: bool = True, season: str | None = None,
                            mode: str | None = None) -> dict:
-        """Cosine top-k for a user vector, optionally season-aware. The
-        blend/rerank recipes are not ported, so those modes answer in cosine
-        mode, flagged in the response as the JAX server does without assets."""
+        """Top-k recommendations for a user in ``mode`` (``serve.mode`` when
+        not given):
+
+        * ``cosine`` - ANN top-k over the index, seen items excluded when
+          ``exclude_seen``, optionally season-aware (``season="auto"`` reads
+          the user's latest session season);
+        * ``blend`` / ``rerank`` - the recipes of ``serve/recommend.py``,
+          which keep seen items (the seen-item signal is where their lift
+          comes from). Without ``rec_assets`` (or, for rerank, its ranker)
+          they answer in cosine mode, flagged in the response."""
         mode = mode or self.cfg.serve.mode
-        fallback = ({"requested_mode": mode, "mode": "cosine",
-                     "fallback": "no serving assets loaded"}
-                    if mode in ("blend", "rerank") else {})
+        if mode in ("blend", "rerank"):
+            out = self._recommend_recipe(user_id, mode, top_k)
+            if out is not None:
+                return out
+            fallback = {"requested_mode": mode, "mode": "cosine",
+                        "fallback": "no serving assets loaded"}
+        else:
+            fallback = {}
         vec = self.store.get_user_vector(user_id)
         if vec is None:
             return {"error": f"no vector for user {user_id}", "results": []}
@@ -306,6 +359,34 @@ class AppContext:
             out["season"] = season
         out.update(fallback)
         return out
+
+    def _recommend_recipe(self, user_id: str, mode: str, top_k: int | None) -> dict | None:
+        """Blend / rerank serving through the offline pipeline's own scoring
+        functions; None when the assets (or the rerank ranker) are missing."""
+        from recsys_tpu_torch.serve import recommend as RC
+
+        assets = self.rec_assets
+        if assets is None or (mode == "rerank" and assets.ranker is None):
+            return None
+        vec = self.store.get_user_vector(user_id)
+        if vec is None:
+            return {"error": f"no vector for user {user_id}", "results": []}
+        sc = self.cfg.serve
+        k = top_k or sc.similarity_top_k
+        events = self.store.user_histories([user_id]).get(user_id, [])
+        iidx, days = RC.store_events_arrays(assets, events)
+        if mode == "blend":
+            idx = RC.blend_topk(assets, vec[None], [iidx], sc.blend_alpha, sc.blend_beta, k,
+                                backend=sc.blend_backend)
+        else:
+            now_day = int(days.max()) + 1 if len(days) else 0
+            idx = RC.rerank_serve_topk(assets, vec[None], [(iidx, days)], now_day, k,
+                                       pool_size=sc.rerank_pool, m_cos=sc.rerank_m_cos,
+                                       m_pop=sc.rerank_m_pop)
+        results = [{"product_id": assets.pid_of(int(r)), "rank": j + 1}
+                   for j, r in enumerate(idx[0]) if int(r) != 0]
+        return {"user_id": user_id, "mode": mode, "vectors": assets.vectors,
+                "results": results}
 
     def similar_items(self, item_id: str, top_k: int | None = None) -> dict:
         vec = self.store.get_vector(item_id)

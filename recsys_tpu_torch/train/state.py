@@ -1,5 +1,6 @@
 """Train-state plumbing: AdamW parameter groups, gradient clipping, the
-freeze gate, the lr factor, the plateau scheduler and the warmup schedule.
+freeze gate, the lr factor, the plateau scheduler, the warmup schedule and the
+hybrid trainer's schedule.
 
 Counterpart of ``recsys_tpu/train/state.py``. optax ``adamw`` and
 ``torch.optim.AdamW`` apply the same update (betas 0.9/0.999, eps 1e-8,
@@ -24,6 +25,13 @@ build around those groups:
     every param group, so it is saved with ``state_dict()`` and restored by
     ``load_state_dict()``, as the JAX factor is saved with the optimizer state.
 
+The hybrid trainer's recipe is the chain ``clip_by_global_norm -> adamw(sched)
+-> masked(scale(s))`` over the top-level modules in ``hybrid_slow_modules``:
+the masked scale multiplies the whole AdamW update of those modules, decay
+included, which is a group ``lr_factor`` of ``s``; ``hybrid_schedule`` is
+``sched`` (optax's constant, linear-warmup or warmup-cosine schedule, counted
+from 0).
+
 A parameter that took no part in the loss has no gradient in PyTorch; optax
 sees a zero gradient there and still decays the weight, so the optimizer
 gives such a parameter a zero gradient before it steps.
@@ -31,6 +39,7 @@ gives such a parameter a zero gradient before it steps.
 
 from __future__ import annotations
 
+import math
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Iterable
@@ -85,6 +94,30 @@ def warmup_linear_factor(total_steps: int, warmup_frac: float = 0.1
         return max(1.0 - (step - warmup) / decay, 0.0)
 
     return factor
+
+
+def hybrid_schedule(base_lr: float, warmup_steps: int, decay: str,
+                    total_steps: int) -> Callable[[int], float]:
+    """The hybrid trainer's learning rate at update ``step`` (0-based):
+    constant ``base_lr``; or, with warmup steps or ``decay="cosine"``, optax's
+    ``linear_schedule(0, base_lr, max(w, 1))`` or
+    ``warmup_cosine_decay_schedule(0, base_lr, w, max(total_steps, w + 1))``
+    with ``w = min(warmup_steps, max(total_steps - 1, 1))``."""
+    if warmup_steps <= 0 and decay != "cosine":
+        return lambda step: base_lr
+    warmup = min(warmup_steps, max(total_steps - 1, 1))
+    if decay != "cosine":
+        span = max(warmup, 1)
+        return lambda step: base_lr - base_lr * (1.0 - min(step, span) / span)
+    decay_steps = max(total_steps, warmup + 1) - warmup
+
+    def sched(step: int) -> float:
+        if step < warmup:
+            return base_lr - base_lr * (1.0 - step / warmup)
+        count = min(step - warmup, decay_steps)
+        return base_lr * 0.5 * (1.0 + math.cos(math.pi * count / decay_steps))
+
+    return sched
 
 
 def freeze_gate_schedule(freeze_steps: int) -> Callable[[int], float]:
@@ -149,16 +182,19 @@ class GroupedAdamW(torch.optim.AdamW):
 def grouped_adamw(model: nn.Module, label_fn: Callable[[str], str],
                   lrs: dict[str, float], weight_decay: float,
                   grad_clip: float | None = None,
-                  freeze_steps: dict[str, int] | None = None) -> GroupedAdamW:
+                  freeze_steps: dict[str, int] | None = None,
+                  lr_factors: dict[str, float] | None = None) -> GroupedAdamW:
     """One AdamW parameter group per label, in the order of ``lrs``; an
-    optional global-norm clip over all of them and a freeze gate per label."""
+    optional global-norm clip over all of them, a freeze gate and an lr
+    factor per label."""
     groups: dict[str, list] = {name: [] for name in lrs}
     for name, p in model.named_parameters():
         groups[label_fn(name)].append(p)
-    freeze_steps = freeze_steps or {}
+    freeze_steps, lr_factors = freeze_steps or {}, lr_factors or {}
     return GroupedAdamW(
         [{"params": ps, "lr": lrs[name], "name": name,
-          "freeze_steps": freeze_steps.get(name, 0)}
+          "freeze_steps": freeze_steps.get(name, 0),
+          "lr_factor": lr_factors.get(name, 1.0)}
          for name, ps in groups.items() if ps],
         weight_decay=weight_decay, grad_clip=grad_clip)
 

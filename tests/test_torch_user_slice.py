@@ -247,10 +247,14 @@ def test_user_backend_choice(world, backend, attached):
 
 
 def test_user_backend_hybrid_and_a_missing_checkpoint_raise(world, tmp_path):
+    """As the JAX server: ``hybrid`` without a hybrid checkpoint (this world
+    has none, nor GNN artifacts) raises FileNotFoundError, and ``auto`` then
+    takes the stage-2 tower (``test_user_backend_choice``); with the
+    checkpoint ``auto`` takes the hybrid tower (tests/test_torch_hybrid_slice.py)."""
     root, sets, _ = world
     args = cli.parse_args(["serve", *sets, *USER, "--set", "serve.user_backend=hybrid",
                            "--model-backed"])
-    with pytest.raises(NotImplementedError, match="hybrid slice"):
+    with pytest.raises(FileNotFoundError):
         cli.build_app(cli.config_from_args(args), args)
     for f in ("items.parquet", "users.parquet", "transactions.parquet"):
         shutil.copy(f"{root}/{f}", tmp_path)
