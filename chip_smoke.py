@@ -53,8 +53,9 @@ then (phases 10 and 11 run after 6, while the graph of 4 is still there):
      (2049, 3, 8), the DeepFM training shape (2048, 20, 16) and the
      large-candidate scoring shape (131072, 20, 16), the last also in bf16.
      rtol 1e-4 / atol 1e-3 as the JAX suite's; two calls must give the same
-     bits. CUDA-event times of each kernel and its plain form beside the byte
-     bound, at the training and the scoring shape.
+     bits. CUDA-event times of each kernel (the wrapper in a loop) and its
+     plain form, and the kernel's device time (``torch.profiler``), beside the
+     byte bound, at the training and the scoring shape.
   8. reranker slice: train-reranker through the CLI on the world of phase 2
      with the default reranker config and 200 boosting iterations; both AUCs
      above 0.5; reranker_gbdt.pkl loads again and reproduces the stage's AUC.
@@ -138,6 +139,27 @@ then (phases 10 and 11 run after 6, while the graph of 4 is still there):
      ``torch.profiler`` (device busy and idle share, launches a step, the
      top device items), the adapted catalog's top-500 for the 768 users, and
      the device time and host cost of a one-element add (the smallest launch).
+
+  17. the device indexes at full size, on bench_retrieval.py's four catalogs
+     (47,000 items k = 500 and k = 50, 105,000, 1,000,000; B = 1024 queries,
+     D = 128, ``default_rng(0)``, PAD row zero): exact (``topk_scores``), int8
+     (``ops/quant.int8_topk``) and IVF (``ops/ivf``, nlist / nprobe as there)
+     timed with CUDA events over chained repeats, the IVF build's seconds
+     (IVF dropped from a row whose build passes IVF_BUILD_LIMIT_S), recalls
+     against exact. Gates: the int8 accumulator equals the exact integer
+     product for every query; the int8 top-k equals the plain form's
+     tie-exact top-k; at 47,000 items IVF with every bucket probed gives the
+     exact top-k (values within IVF_TOL, ids equal but for ties at the edge);
+     no launch of K1-K4.
+  18. serving on the world of phase 2 through ``cli.build_app`` with
+     ``serve.ann_backend=int8`` and then ``ivf`` behind the HTTP server:
+     ingest, process-pending, similarity for SIMILARITY_QUERIES items whose
+     exact best hit leads the second by more than SERVE_TOL: the same top hit
+     as the exact answer over the stored vectors, scores within SERVE_TOL, no
+     hand kernel. With int8, POST /train/item-tower and /train/user-tower
+     (one epoch each) on the store, with TRAIN_ROUTE_USERS users' purchases:
+     "trained", finite losses, each K1 kernel twice a step (SimCSE) and once a
+     step (stage 2).
 
 One line holds every kernel with its launches, error, times and bound. The
 last line is {"ok": true, "device": {...}}; any failure exits non-zero
@@ -226,6 +248,14 @@ STAGE2_B, STAGE2_L, STAGE2_P, STAGE2_ITEMS, STAGE2_STEPS = 768, 50, 4, 47_000, 2
 # the hybrid slice (phase 15): 4 epochs x 13 passes of the 1,000-user world (one
 # 768-user batch a pass) = 52 steps; the rerank GBDT's boosting iterations
 HYBRID_EPOCHS, HYBRID_STEPS_MIN, HYBRID_RERANK_ITERS, HYBRID_GNN_DIM = 4, 13, 100, 64
+# the device indexes (phase 17): bench_retrieval.py's catalogs (items, k, nlist, nprobe),
+# queries and chained repeats; IVF at full probe against the exact top-k (unit rows,
+# sums in another order); the 1M row drops IVF if its build passes the limit
+RETRIEVAL_CATALOGS = ((47_000, 500, 256, 32), (47_000, 50, 256, 16),
+                      (105_000, 500, 512, 32), (1_000_000, 100, 1024, 32))
+RETRIEVAL_B, RETRIEVAL_REPS, IVF_TOL, IVF_BUILD_LIMIT_S = 1024, 20, 1e-5, 120.0
+# phase 18: similarity queries a backend, users whose purchases feed /train/user-tower
+SIMILARITY_QUERIES, TRAIN_ROUTE_USERS = 16, 64
 
 
 def card_line() -> str:
@@ -868,8 +898,15 @@ def fm_phase(device) -> dict:
             bwd = interleaved_ms(lambda: FM.fm_bwd_cuda(v, g), lambda: FM.fm_bwd_plain(v, g),
                                  iters)
             bounds = fm_bounds(B, F, Kd, v.element_size())
-            row.update({"fm_fwd": {"ms": fwd[0], "plain_ms": fwd[1], **bounds["fm_fwd"]},
-                        "fm_bwd": {"ms": bwd[0], "plain_ms": bwd[1], **bounds["fm_bwd"]}})
+            dev = {name: profile_steps(fn, iters)["device_busy_ms"]
+                   for name, fn in (("fm_fwd", lambda: FM.fm_fwd_cuda(v)),
+                                    ("fm_bwd", lambda: FM.fm_bwd_cuda(v, g)))}
+            row.update({"kernel": {"fwd": FM.kernel_of(v),
+                                    "bwd": FM.kernel_of(v, torch.empty_like(v))},
+                        "fm_fwd": {"ms": fwd[0], "device_ms": dev["fm_fwd"],
+                                   "plain_ms": fwd[1], **bounds["fm_fwd"]},
+                        "fm_bwd": {"ms": bwd[0], "device_ms": dev["fm_bwd"],
+                                   "plain_ms": bwd[1], **bounds["fm_bwd"]}})
         rows.append(row)
         print(json.dumps({"phase": "fm_kernel", **row}), flush=True)
     timed = {(tuple(r["shape"]), r["dtype"]): r for r in rows if "fm_fwd" in r}
@@ -1782,6 +1819,221 @@ def hybrid_step_phase(device) -> dict:
                                    "host_ms_per_call": launch["wall_ms"]}}
 
 
+# -- phase 17: the device indexes at full size -----------------------------------------
+
+def chained_ms(fn, q0: torch.Tensor, reps: int) -> float:
+    """``fn(q) -> (vals, idx)`` ``reps`` times, each query nudged by the
+    previous answer's first value so that every call waits on the one before
+    (as bench_retrieval.py chains them); CUDA events over the chain."""
+    fn(q0)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    q = q0
+    start.record()
+    for _ in range(reps):
+        vals, _ = fn(q)
+        q = q0 + 1e-6 * vals[:, :1]
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def recall_vs(idx: torch.Tensor, ref: torch.Tensor) -> float:
+    """Mean share of each row of ``ref`` that ``idx`` holds."""
+    a, e = idx.cpu().numpy(), ref.cpu().numpy()
+    return float(np.mean([len(set(a[r].tolist()) & set(e[r].tolist())) / e.shape[1]
+                          for r in range(len(e))]))
+
+
+def check_int8(name: str, q: torch.Tensor, qi, k: int) -> None:
+    """The int8 accumulator equals the exact integer product (float64 on the
+    card: exact below 2^53) for every query; the top-k equals the plain
+    form's stable sort for the first 64."""
+    from recsys_tpu_torch.ops import quant as Q
+
+    uq, _ = Q._quantize_queries(q, qi.col_scale)
+    for s in range(0, uq.shape[0], 128):
+        got = Q.int8_accumulate(uq[s:s + 128], qi).long()
+        want = (uq[s:s + 128].double() @ qi.q.double().T).long()
+        check(torch.equal(got, want), f"{name}: int8 accumulator != the integer product")
+    vals, idx = Q.int8_topk(q[:64], qi, k)
+    pv, pi, _ = Q.int8_topk_plain(q[:64], qi, k)
+    check(torch.equal(idx, pi) and torch.equal(vals, pv),
+          f"{name}: int8 top-k differs from the plain tie-exact top-k")
+
+
+def check_full_probe(name: str, q: torch.Tensor, items: torch.Tensor, vals, idx, k: int):
+    """IVF with every bucket probed against the exact top-k of the same
+    cosine scores: values within IVF_TOL in order, the same ids except where
+    an item scores within IVF_TOL of the k-th value (a tie at the edge)."""
+    qn = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    scores = qn @ (items / torch.linalg.vector_norm(items, dim=-1, keepdim=True)
+                   .clamp(min=1e-12)).T
+    scores[:, 0] = -torch.inf
+    ev, ei = torch.topk(scores, k + 1, dim=1)
+    err = float((vals - ev[:, :k]).abs().max())
+    check(err <= IVF_TOL, f"{name}: full-probe IVF values off the exact top-k by {err}")
+    kth = ev[:, k - 1].cpu().numpy()
+    got, want = idx.long().cpu().numpy(), ei[:, :k].cpu().numpy()
+    for r in range(len(got)):
+        diff = set(got[r].tolist()) ^ set(want[r].tolist())
+        if diff:
+            sc = scores[r, list(diff)].cpu().numpy()
+            check(bool((sc >= kth[r] - IVF_TOL).all()),
+                  f"{name}: full-probe IVF ids differ from the exact top-k in row {r}")
+
+
+def retrieval_phase(device) -> list[dict]:
+    from recsys_tpu_torch.eval.recall import topk_scores
+    from recsys_tpu_torch.ops import ivf as I
+    from recsys_tpu_torch.ops import quant as Q
+
+    before = all_launches()
+    rng = np.random.default_rng(0)     # bench_retrieval.py's draws, catalog after catalog
+    rows, built = [], {}
+    for n_items, k, nlist, nprobe in RETRIEVAL_CATALOGS:
+        items_np = rng.normal(0, 1, (n_items + 1, D)).astype(np.float32)
+        items_np[0] = 0
+        q0 = torch.as_tensor(rng.normal(0, 1, (RETRIEVAL_B, D)).astype(np.float32),
+                             device=device)
+        items = torch.as_tensor(items_np, device=device)
+        name = f"{n_items} items, k={k}"
+        row = {"n_items": n_items, "k": k, "batch": RETRIEVAL_B, "ivf_nlist": nlist,
+               "ivf_nprobe": nprobe}
+        exact = lambda u: topk_scores(u, items, k)
+        qi = Q.quantize_items_int8(items, device=device)
+        int8 = lambda u: Q.int8_topk(u, qi, k)
+        check_int8(name, q0, qi, k)
+        row["exact_ms"] = chained_ms(exact, q0, RETRIEVAL_REPS)
+        row["int8_ms"] = chained_ms(int8, q0, RETRIEVAL_REPS)
+        _, ie = exact(q0)
+        row["int8_recall"] = recall_vs(int8(q0)[1], ie)
+        t0 = time.perf_counter()
+        ivf = I.build_ivf(items_np, nlist=nlist, iters=10, device=device)
+        torch.cuda.synchronize()
+        row["ivf_build_s"] = time.perf_counter() - t0
+        row["ivf_cap"] = ivf.cap
+        if row["ivf_build_s"] > IVF_BUILD_LIMIT_S:
+            row["ivf"] = f"skipped: the build took over {IVF_BUILD_LIMIT_S} s"
+        else:
+            search = lambda u: I.ivf_search(ivf, u, k, nprobe)
+            row["ivf_ms"] = chained_ms(search, q0, RETRIEVAL_REPS)
+            row["ivf_recall"] = recall_vs(search(q0)[1], ie)
+            if n_items == RETRIEVAL_ROWS:
+                vals, idx = I.ivf_search(ivf, q0, k, nlist)
+                check_full_probe(name, q0, items, vals, idx, k)
+                row["full_probe_equals_exact"] = True
+        del ivf, qi, items
+        torch.cuda.empty_cache()
+        rows.append(row)
+        print(json.dumps({"phase": "retrieval", **row}), flush=True)
+    after = all_launches()
+    check(after == before, f"the device indexes launched a hand kernel: {before} -> {after}")
+    return rows
+
+
+# -- phase 18: serving with the device indexes and the /train/* routes -------------------
+
+def device_index_serve_phase(root: str, device: str = "cuda", extra_sets: tuple = ()) -> dict:
+    import pandas as pd
+
+    from recsys_tpu_torch.pipeline import cli
+    from recsys_tpu_torch.serve.ann import Int8DeviceIndex, IvfDeviceIndex
+    from recsys_tpu_torch.serve.server import make_server, serve_forever_in_thread
+
+    base_sets = ["--set", f"data.root={root}", "--set", "serve.db_path=:memory:",
+                 "--set", "simcse.epochs=1", "--set", "simcse.steps_per_epoch_min=1",
+                 "--set", "user_train.epochs=1", *extra_sets, "--device", device]
+    items = pd.read_parquet(f"{root}/items.parquet").sort_values("item_id")
+    catalog = items.to_dict("records")
+    tx = pd.read_parquet(f"{root}/transactions.parquet")
+    out = {}
+    for backend, cls in (("int8", Int8DeviceIndex), ("ivf", IvfDeviceIndex)):
+        args = cli.parse_args(["serve", *base_sets, "--model-backed",
+                               "--set", f"serve.ann_backend={backend}"])
+        ctx = cli.build_app(cli.config_from_args(args), args)
+        check(isinstance(ctx.index, cls) and ctx.index.device.type == device,
+              f"serve.ann_backend={backend}: {type(ctx.index).__name__}")
+        server = make_server(ctx, host="127.0.0.1", port=0)
+        thread = serve_forever_in_thread(server)
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        row = {}
+        try:
+            http(base, "POST", "/api/controller/products/ingest",
+                 {"products": [product_json(r) for r in catalog]})
+            while http(base, "POST", "/ai-api/serving/vectors/process-pending",
+                       {})["processed_count"]:
+                pass
+            # the exact answer from the stored vectors; queries whose best hit leads the
+            # second by more than SERVE_TOL, so that the exact top hit is well defined
+            # under int8's rounding
+            ids, vecs = ctx.store.all_vectors()
+            unit = vecs / np.linalg.norm(vecs, axis=1, keepdims=True)
+            cos = unit @ unit.T
+            np.fill_diagonal(cos, -np.inf)
+            order = np.argsort(-cos, axis=1)[:, :2]
+            gap = cos[np.arange(len(ids)), order[:, 0]] - cos[np.arange(len(ids)), order[:, 1]]
+            queries = [r for r in range(len(ids)) if gap[r] > SERVE_TOL][:SIMILARITY_QUERIES]
+            check(len(queries) == SIMILARITY_QUERIES, f"{backend}: {len(queries)} queries")
+            before, score_err, sim_ms = all_launches(), 0.0, []
+            col = {pid: r for r, pid in enumerate(ids)}
+            for r in queries:
+                t0 = time.perf_counter()
+                sim = http(base, "GET", f"/api/controller/similarity/{ids[r]}?top_k=10")
+                sim_ms.append(1e3 * (time.perf_counter() - t0))
+                res = sim["results"]
+                check(len(res) == 10 and res[0]["product_id"] == ids[order[r, 0]]
+                      and all(x["product_id"] != ids[r] for x in res),
+                      f"{backend} similarity for {ids[r]}: {res[:3]}, exact top hit "
+                      f"{ids[order[r, 0]]}")
+                for x in res:
+                    score_err = max(score_err, abs(x["score"] - float(cos[r, col[x["product_id"]]])))
+            check(score_err <= SERVE_TOL, f"{backend} similarity scores vs exact: {score_err}")
+            check(all_launches() == before, f"{backend} similarity launched a hand kernel")
+            row.update({"similarity_ms_median": float(np.median(sim_ms)),
+                        "score_err_vs_exact": score_err, "queries": len(queries)})
+            if backend == "int8":    # the /train/* routes once, on the store just filled
+                row["train"] = train_routes(base, tx, device)
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=10)
+        out[backend] = row
+    return out
+
+
+def train_routes(base: str, tx, device: str) -> dict:
+    """POST /train/item-tower and /train/user-tower on a store holding the
+    world's catalog and TRAIN_ROUTE_USERS users' purchases: each trains,
+    with finite losses, and launches each K1 kernel as often as its loss
+    calls it (twice a step for SimCSE's two directions, once for stage 2)."""
+    shoppers = tx["user_id"].drop_duplicates()[:TRAIN_ROUTE_USERS]
+    for uid in shoppers:
+        rows = tx[tx["user_id"] == uid].sort_values("day", kind="stable").tail(12)
+        sessions = [{"user_id": str(uid), "started_at": 86400.0 * float(d) + j,
+                     "events": [{"product_id": str(i), "action_type": 5,
+                                 "ts": 86400.0 * float(d) + j}]}
+                    for j, (i, d) in enumerate(zip(rows["item_id"], rows["day"]))]
+        ins = http(base, "POST", "/api/v1/debug/insert-manual-data",
+                   {"users": [{"user_id": str(uid)}], "sessions": sessions})
+        check(ins.get("ok", True) is not False, f"insert-manual-data: {ins}")
+    out = {}
+    for route, per_step in (("item-tower", 2), ("user-tower", 1)):
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        r = http(base, "POST", f"/ai-api/serving/train/{route}", {"epochs": 1})
+        seconds = time.perf_counter() - t0
+        check(r.get("trained") == route and r["steps"] > 0 and len(r["losses"]) > 0
+              and all(np.isfinite(r["losses"])), f"/train/{route}: {r}")
+        check(device == "cpu" or all(n == per_step * r["steps"] for n in K.LAUNCHES.values()),
+              f"/train/{route}: K1 launches {K.LAUNCHES} in {r['steps']} steps")
+        out[route] = {"steps": r["steps"], "seconds": seconds, "losses": [r["losses"][0],
+                                                                          r["losses"][-1]],
+                      "k1_launches": dict(K.LAUNCHES),
+                      **{key: r[key] for key in ("items", "epochs", "final") if key in r}}
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
@@ -1841,6 +2093,11 @@ def main() -> None:
         hstep = hybrid_step_phase(device)
         print(json.dumps({"phase": "hybrid_step", **hstep}), flush=True)
         seconds["phase_16"] = time.perf_counter() - start - sum(seconds.values())
+        retrieval_phase(device)
+        seconds["phase_17"] = time.perf_counter() - start - sum(seconds.values())
+        indexes = device_index_serve_phase(root)
+        print(json.dumps({"phase": "device_index_serve", **indexes}), flush=True)
+        seconds["phase_18"] = time.perf_counter() - start - sum(seconds.values())
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(json.dumps({"seconds": {**seconds, "total": time.perf_counter() - start}}), flush=True)

@@ -31,7 +31,11 @@ no converter: every shard runs the same ``SimCSEModel`` / ``LightGCL`` trees.
 Inputs and outputs are nested dicts of numpy arrays, so neither direction
 needs Flax. ``gbdt_from_sklearn`` carries a fitted scikit-learn histogram
 gradient-boosting classifier into the port's tree arrays; it reads attributes
-of the object it is given and imports nothing.
+of the object it is given and imports nothing. ``quantized_from_jax`` and
+``ivf_from_jax`` carry the device indexes' arrays (``ops/quant.py``,
+``ops/ivf.py``) from numpy onto a device, so an index built by either package
+can be searched by the other (the JAX structures take the same arrays back
+through ``np.asarray``).
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from recsys_tpu_torch.device import resolve_device
 from recsys_tpu_torch.models.layers import MultiHeadDotProductAttention
 
 _MHA_IN = ("query", "key", "value")
@@ -156,3 +161,24 @@ def gbdt_from_sklearn(model) -> dict:
     out["depth"] = max((int(n["depth"].max()) for n in nodes), default=0)
     out["baseline"] = float(np.asarray(model._baseline_prediction).reshape(-1)[0])
     return out
+
+
+def quantized_from_jax(q, col_scale, device: torch.device | str = "cuda"):
+    """The JAX ``QuantizedItems`` arrays (int8 (N+1, D), float32 (D,)) ->
+    the port's ``ops.quant.QuantizedItems`` on ``device``."""
+    from recsys_tpu_torch.ops.quant import QuantizedItems
+
+    device = resolve_device(device)
+    return QuantizedItems(torch.tensor(np.asarray(q, np.int8), device=device),
+                          torch.tensor(np.asarray(col_scale, np.float32), device=device))
+
+
+def ivf_from_jax(centroids, bucket_ids, bucket_vecs, device: torch.device | str = "cuda"):
+    """The JAX ``IvfIndexArrays`` arrays -> the port's
+    ``ops.ivf.IvfIndexArrays`` on ``device``."""
+    from recsys_tpu_torch.ops.ivf import IvfIndexArrays
+
+    device = resolve_device(device)
+    return IvfIndexArrays(torch.tensor(np.asarray(centroids, np.float32), device=device),
+                          torch.tensor(np.asarray(bucket_ids, np.int32), device=device),
+                          torch.tensor(np.asarray(bucket_vecs, np.float32), device=device))

@@ -31,7 +31,10 @@ overrides, artifact paths and one JSON line per stage:
                vectorizes items with the trained encoder and users per
                ``serve.user_backend`` (``hybrid``, ``stage2``: that tower's
                best checkpoint; ``auto``: the hybrid tower, else the stage-2
-               tower, else the history mean)
+               tower, else the history mean); ``serve.ann_backend``
+               ``exact|hnsw|ivf|int8`` (the last two on the card); the
+               ``/train/item-tower`` and ``/train/user-tower`` routes train
+               on the store's rows
 
 ``--device`` (default ``cuda``) places the model; ``--device cuda`` on a
 machine without a CUDA device raises and never falls back to the CPU.
@@ -993,26 +996,30 @@ def attach_user_backend(cfg: Config, ctx, device) -> str:
 
 
 def build_app(cfg: Config, args):
-    """The serving context of ``serve``: store, index and vectorizers."""
+    """The serving context of ``serve``: store, index, vectorizers and the
+    store-backed trainers of the ``/train/*`` routes, all on ``--device``."""
     from recsys_tpu_torch.serve.app import build_app_context, model_vectorizer
+    from recsys_tpu_torch.serve.train_glue import make_item_trainer, make_user_trainer
 
+    device = resolve_device(args.device)
+    p = _paths(cfg)
     vec = None
     model_backed = getattr(args, "model_backed", False)
     if model_backed:
         from recsys_tpu_torch.data.vocab import StdVocab
         from recsys_tpu_torch.train.simcse import restore_model
 
-        device = resolve_device(args.device)
-        p = _paths(cfg)
         model, _ = restore_model(cfg, p["item_ckpts"], StdVocab().num_fields, device)
         vec = model_vectorizer(cfg, model, device)
-    ctx = build_app_context(cfg, vec)
+    ctx = build_app_context(cfg, vec, device)
+    ctx.train_item_fn = make_item_trainer(cfg, ctx.store, device, p["item_ckpts"])
+    ctx.train_user_fn = make_user_trainer(cfg, ctx.store, device, p["user_ckpts"])
     # the blend/rerank serving assets of the tower ``--vectors`` names
     from recsys_tpu_torch.serve.recommend import load_recommend_assets
 
     vectors = getattr(args, "vectors", None) or "stage2"
     try:
-        ctx.rec_assets = load_recommend_assets(cfg, vectors, device=resolve_device(args.device))
+        ctx.rec_assets = load_recommend_assets(cfg, vectors, device=device)
         print(f"serving assets: {vectors} matrix"
               + (" + rerank GBDT" if ctx.rec_assets.ranker else ""), flush=True)
     except FileNotFoundError:

@@ -7,10 +7,12 @@ with incremental upsert/remove and binary persistence. The bulk device path
 (eval, bulk retrieval) uses eval/recall.topk_scores instead — this exists
 for low-latency host-side queries.
 
-Copy of ``recsys_tpu/serve/ann.py`` without its two device-resident
-indexes (``ivf``, ``int8``), which wait for the port of ``ops/ivf.py`` and
-``ops/quant.py``. The native sources are the port's own, under
-``recsys_tpu_torch/native/``, built at first use into ``native/build/``.
+Counterpart of ``recsys_tpu/serve/ann.py``. The native sources are the
+port's own, under ``recsys_tpu_torch/native/``, built at first use into
+``native/build/``. The two device-resident indexes (``IvfDeviceIndex``,
+``Int8DeviceIndex``) keep their rows on the host and their search arrays on
+a device they are given (``ops/ivf.py``, ``ops/quant.py`` do the math); their
+``.npz`` files are the JAX package's, so either package loads the other's.
 """
 
 from __future__ import annotations
@@ -21,6 +23,9 @@ import subprocess
 from typing import Sequence
 
 import numpy as np
+import torch
+
+from recsys_tpu_torch.device import resolve_device
 
 _NATIVE_DIR = os.path.join(os.path.dirname(__file__), "..", "native")
 _SO_PATH = os.path.join(_NATIVE_DIR, "build", "libvecindex.so")
@@ -301,3 +306,176 @@ class HnswIndex:
             except Exception:
                 pass
 
+
+
+# -- Device-resident indexes (host row store + lazy rebuild) -----------------
+
+class _HostRowStoreIndex:
+    """Shared lifecycle for device-resident indexes: the device arrays are
+    rebuilt, not edited, so mutations land in a host-side row store and the
+    index lazily rebuilds on the first query after a change, the same
+    "vectors accumulate, index refreshes" lifecycle the reference drives
+    through pgvector's ``is_vectorized`` flags."""
+
+    def __init__(self, dim: int, device: torch.device | str = "cuda"):
+        self.dim = dim
+        self.device = resolve_device(device)
+        self._ids: list[int] = []
+        self._rows: dict[int, int] = {}
+        self._data = np.zeros((0, dim), np.float32)
+        self._dirty = True
+
+    def add(self, ids: Sequence[int], vecs: np.ndarray) -> None:
+        """Upsert: new ids append in the order given, a repeated id keeps
+        the last vector (the JAX loop's rows, with one concatenation)."""
+        vecs = np.ascontiguousarray(vecs, np.float32)
+        ids_arr = np.ascontiguousarray(ids, np.int64)
+        if vecs.shape != (len(ids_arr), self.dim):
+            raise ValueError(f"add: {len(ids_arr)} ids and vectors {vecs.shape}, "
+                             f"want ({len(ids_arr)}, {self.dim})")
+        source: dict[int, int] = {}     # row -> position in this call, the last one wins
+        for i, vid in enumerate(ids_arr.tolist()):
+            row = self._rows.get(vid)
+            if row is None:
+                row = self._rows[vid] = len(self._ids)
+                self._ids.append(vid)
+            source[row] = i
+        grown = len(self._ids) - len(self._data)
+        if grown:
+            self._data = np.concatenate([self._data, np.empty((grown, self.dim), np.float32)])
+        rows = np.fromiter(source.keys(), np.int64, len(source))
+        self._data[rows] = vecs[np.fromiter(source.values(), np.int64, len(source))]
+        self._dirty = True
+
+    def remove(self, id_: int) -> bool:
+        row = self._rows.pop(id_, None)
+        if row is None:
+            return False
+        last = len(self._ids) - 1
+        if row != last:
+            self._data[row] = self._data[last]
+            self._ids[row] = self._ids[last]
+            self._rows[self._ids[row]] = row
+        self._ids.pop()
+        self._data = self._data[:last]
+        self._dirty = True
+        return True
+
+    def __len__(self) -> int:
+        return len(self._ids)
+
+    def _catalog(self) -> np.ndarray:
+        """The (N+1, D) matrix the ops take: PAD row 0, then the rows."""
+        return np.concatenate([np.zeros((1, self.dim), np.float32), self._data])
+
+    def _empty(self, m: int, k: int):
+        return np.full((m, k), -1, np.int64), np.zeros((m, k), np.float32)
+
+    def _external(self, idx: torch.Tensor, vals: torch.Tensor):
+        """Catalog rows -> the caller's ids (-1 for PAD / empty slots) and
+        finite scores (0.0 where -inf)."""
+        idx, vals = idx.cpu().numpy(), vals.cpu().numpy()
+        ext = np.concatenate([[-1], np.asarray(self._ids, np.int64)])
+        out_ids = np.where(idx > 0, ext[idx], -1)
+        return out_ids, np.where(np.isfinite(vals), vals, 0.0).astype(np.float32)
+
+
+class IvfDeviceIndex(_HostRowStoreIndex):
+    """Device-resident IVF index behind the common ``add/topk/save/load``
+    interface (``ops/ivf.py`` does the math); the counterpart of the JAX
+    package's ``IvfTpuIndex``. Rebuild = k-means + bucket packing. Suited to
+    1M+ catalogs where the exact scan stops being free; at small N it simply
+    degrades to near-exact."""
+
+    def __init__(self, dim: int, nlist: int | None = None, nprobe: int = 8,
+                 kmeans_iters: int = 10, device: torch.device | str = "cuda"):
+        super().__init__(dim, device)
+        self.nlist = nlist
+        self.nprobe = nprobe
+        self.kmeans_iters = kmeans_iters
+        self._index = None          # ops.ivf.IvfIndexArrays
+
+    def _rebuild(self) -> None:
+        from recsys_tpu_torch.ops.ivf import build_ivf
+
+        self._index = build_ivf(self._catalog(), nlist=self.nlist, iters=self.kmeans_iters,
+                                device=self.device)
+        self._dirty = False
+
+    def topk(self, queries: np.ndarray, k: int, nprobe: int | None = None):
+        from recsys_tpu_torch.ops.ivf import ivf_search
+
+        queries = np.array(np.atleast_2d(queries), np.float32)   # a writable copy
+        if not self._ids:
+            return self._empty(queries.shape[0], k)
+        if self._dirty:
+            self._rebuild()
+        vals, idx = ivf_search(self._index, queries, k, int(nprobe or self.nprobe))
+        return self._external(idx.long(), vals)
+
+    def save(self, path: str) -> None:
+        np.savez(path + ".npz", ids=np.asarray(self._ids, np.int64),
+                 data=self._data, dim=self.dim,
+                 nlist=self.nlist or 0, nprobe=self.nprobe)
+
+    @classmethod
+    def load(cls, path: str, device: torch.device | str = "cuda") -> "IvfDeviceIndex":
+        z = np.load(path + ".npz")
+        ix = cls(int(z["dim"]), nlist=int(z["nlist"]) or None, nprobe=int(z["nprobe"]),
+                 device=device)
+        if len(z["ids"]):
+            ix.add(z["ids"], z["data"])
+        return ix
+
+
+class Int8DeviceIndex(_HostRowStoreIndex):
+    """Device-resident exact scan over an int8-quantized catalog behind the
+    common ``add/topk/save/load`` interface (``ops/quant.py`` does the math);
+    the counterpart of the JAX package's ``Int8TpuIndex``.
+
+    Rebuild is just requantization (no clustering), so mutations are cheap.
+    Exact ranking over the quantized scores; pair with
+    ``ops.quant.quantization_recall`` as the offline quality gate."""
+
+    def __init__(self, dim: int, cosine: bool = True, device: torch.device | str = "cuda"):
+        super().__init__(dim, device)
+        self.cosine = cosine
+        self._q = None              # ops.quant.QuantizedItems
+
+    def _rebuild(self) -> None:
+        from recsys_tpu_torch.ops.quant import quantize_items_int8
+
+        self._q = quantize_items_int8(self._catalog(), normalize=self.cosine,
+                                      device=self.device)
+        self._dirty = False
+
+    def topk(self, queries: np.ndarray, k: int):
+        from recsys_tpu_torch.ops.quant import int8_topk
+
+        queries = np.array(np.atleast_2d(queries), np.float32)   # a writable copy
+        m = queries.shape[0]
+        if not self._ids:
+            return self._empty(m, k)
+        if self._dirty:
+            self._rebuild()
+        if self.cosine:
+            queries = queries / np.clip(
+                np.linalg.norm(queries, axis=-1, keepdims=True), 1e-12, None)
+        kk = min(k, len(self._ids))
+        vals, idx = int8_topk(queries, self._q, kk)
+        if kk < k:  # fixed-width contract: pad with -1 / 0.0
+            idx = torch.nn.functional.pad(idx, (0, k - kk))
+            vals = torch.nn.functional.pad(vals, (0, k - kk), value=-torch.inf)
+        return self._external(idx, vals)
+
+    def save(self, path: str) -> None:
+        np.savez(path + ".npz", ids=np.asarray(self._ids, np.int64),
+                 data=self._data, dim=self.dim, cosine=self.cosine)
+
+    @classmethod
+    def load(cls, path: str, device: torch.device | str = "cuda") -> "Int8DeviceIndex":
+        z = np.load(path + ".npz")
+        ix = cls(int(z["dim"]), cosine=bool(z["cosine"]), device=device)
+        if len(z["ids"]):
+            ix.add(z["ids"], z["data"])
+        return ix

@@ -17,7 +17,9 @@ the last two run the recipes of ``serve/recommend.py`` over ``rec_assets``
 and, when those (or the rerank ranker) are not loaded, answer in cosine mode,
 flagged in the response, as the JAX server does.
 
-Not ported yet: the ``ivf`` and ``int8`` device indexes.
+``serve.ann_backend`` picks the item index: ``exact`` and ``hnsw`` are the
+native host indexes, ``ivf`` and ``int8`` the device-resident ones
+(``serve/ann.IvfDeviceIndex``, ``Int8DeviceIndex``) on the context's device.
 """
 
 from __future__ import annotations
@@ -32,7 +34,8 @@ import numpy as np
 import torch
 
 from recsys_tpu_torch.config import Config
-from recsys_tpu_torch.serve.ann import HnswIndex, VectorIndex
+from recsys_tpu_torch.serve.ann import (HnswIndex, Int8DeviceIndex, IvfDeviceIndex,
+                                        VectorIndex)
 from recsys_tpu_torch.serve.store import ServeStore, TrainingItem
 from recsys_tpu_torch.train.checkpoint import save_array_with_ids
 
@@ -409,7 +412,11 @@ class AppContext:
         return f"bg-{len(self._bg_threads)}"
 
 
-def build_app_context(cfg: Config, vectorizer: Callable | None = None) -> AppContext:
+def build_app_context(cfg: Config, vectorizer: Callable | None = None,
+                      device: torch.device | str | None = None) -> AppContext:
+    """Store, item index and vectorizer of ``cfg.serve``. ``device`` places
+    a device index (``ivf``, ``int8``; default ``cuda``, which raises without
+    a card); the host indexes take none."""
     db = cfg.serve.db_path
     if db != ":memory:":
         os.makedirs(os.path.dirname(db) or ".", exist_ok=True)
@@ -421,10 +428,11 @@ def build_app_context(cfg: Config, vectorizer: Callable | None = None) -> AppCon
                           ef_search=cfg.serve.hnsw_ef_search)
     elif backend == "exact":
         index = VectorIndex(cfg.item_tower.dim, cosine=True)
-    elif backend in ("ivf", "int8"):
-        raise NotImplementedError(
-            f"serve.ann_backend={backend!r} is a device index the port does "
-            "not have yet (ROADMAP Queue 1, rest of serving: ops/ivf.py, ops/quant.py)")
+    elif backend == "ivf":
+        index = IvfDeviceIndex(cfg.item_tower.dim, nlist=cfg.serve.ivf_nlist or None,
+                               nprobe=cfg.serve.ivf_nprobe, device=device or "cuda")
+    elif backend == "int8":
+        index = Int8DeviceIndex(cfg.item_tower.dim, cosine=True, device=device or "cuda")
     else:
         raise ValueError(f"unknown serve.ann_backend {backend!r}")
     vec_fn = vectorizer or hash_vectorizer(cfg.item_tower.dim)

@@ -323,6 +323,45 @@ def test_fm_kernel_matches_plain(device, shape, dtype):
     assert torch.equal(FK.fm_bwd_cuda(v, g), dv)
 
 
+# each edge case: its input and the kernel its plan takes (both directions)
+_FM_EDGES = {
+    # 6151 rows x 4 threads: the persistent grid's last block is part empty
+    "tail_tile": ((6151, 20, 16), torch.float32, 0, "vector"),
+    # 7 x 3 fp32 values a row: 84 bytes, no 16-byte loads
+    "span_not_16_bytes": ((999, 7, 3), torch.float32, 0, "direct"),
+    # one fp32 value into the storage: the base is 4 bytes off
+    "storage_offset": ((2049, 20, 16), torch.float32, 1, "direct"),
+    "fp16": ((4097, 20, 16), torch.float16, 0, "vector"),
+    # K = 12: three 16-byte vectors a field, not a power of two
+    "k_not_dividing_32": ((3001, 5, 12), torch.float32, 0, "direct"),
+    "k_above_32": ((513, 3, 40), torch.float32, 0, "direct"),
+    # 400 fields: more than a thread's registers hold, so the backward reads v again
+    "fields_above_a_batch": ((32, 400, 16), torch.float32, 0, "vector"),
+}
+
+
+@pytest.mark.parametrize("case", list(_FM_EDGES))
+def test_fm_kernel_edge_cases(device, case):
+    shape, dtype, offset, kernel = _FM_EDGES[case]
+    rng = np.random.default_rng(len(case))
+    flat = rng.normal(size=offset + int(np.prod(shape))).astype(np.float32)
+    v = torch.as_tensor(flat, device=device).to(dtype)[offset:].view(shape)
+    g = torch.as_tensor(rng.normal(size=shape[0]).astype(np.float32), device=device)
+    assert FK.kernel_of(v) == kernel
+    assert FK.kernel_of(v, torch.empty_like(v)) == kernel
+    ref_out, ref_dv = _fm_value_and_grad(fm_interaction, v, g)
+    ulp = 2.0 ** -10 if dtype == torch.float16 else 0.0
+    FK.reset_launch_counts()
+    out = FK.fm_fwd_cuda(v)
+    dv = FK.fm_bwd_cuda(v, g)
+    torch.cuda.synchronize()
+    assert FK.LAUNCHES == {"fm_fwd": 1, "fm_bwd": 1}
+    torch.testing.assert_close(out, ref_out, rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(dv.float(), ref_dv.float(), rtol=1e-4 + ulp, atol=1e-3)
+    assert torch.equal(FK.fm_fwd_cuda(v), out)            # deterministic
+    assert torch.equal(FK.fm_bwd_cuda(v, g), dv)
+
+
 def test_fm_kernel_dispatch_and_bad_inputs(device):
     v = torch.randn(8, 3, 16, device=device)
     FK.reset_launch_counts()

@@ -33,6 +33,8 @@ def test_port_file_list_is_complete():
                      "recsys_tpu_torch/train/gnn.py", "recsys_tpu_torch/pipeline/cli.py",
                      "recsys_tpu_torch/models/user_tower.py",
                      "recsys_tpu_torch/train/sasrec.py", "recsys_tpu_torch/eval/baselines.py",
+                     "recsys_tpu_torch/ops/quant.py", "recsys_tpu_torch/ops/ivf.py",
+                     "recsys_tpu_torch/ops/topk.py", "recsys_tpu_torch/serve/train_glue.py",
                      "chip_smoke.py"):
         assert expected in names
 

@@ -186,16 +186,3 @@ def test_align_rows_realigns_the_port_matrix_to_a_consumer_order(world):
     np.testing.assert_array_equal(out[2], mat[2])
     np.testing.assert_array_equal(out[1], 0.0)
     assert found.tolist() == [True, False, True]
-
-
-@pytest.mark.parametrize("backend", ["ivf", "int8"])
-def test_device_index_backends_are_not_ported_yet(backend):
-    import dataclasses
-
-    from recsys_tpu.config import Config, ServeConfig
-    from recsys_tpu_torch.serve.app import build_app_context
-
-    cfg = dataclasses.replace(Config(), serve=ServeConfig(db_path=":memory:",
-                                                          ann_backend=backend))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_app_context(cfg)
