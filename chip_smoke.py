@@ -160,6 +160,26 @@ then (phases 10 and 11 run after 6, while the graph of 4 is still there):
      (one epoch each) on the store, with TRAIN_ROUTE_USERS users' purchases:
      "trained", finite losses, each K1 kernel twice a step (SimCSE) and once a
      step (stage 2).
+  19. the pretrained text encoder from H&M-format CSVs, in its own data root:
+     articles.csv (the 25 Kaggle columns), customers.csv and
+     transactions_train.csv written here from a seed at the default world's
+     scale (2,000 articles, 1,000 customers, 40,000 transactions over 120
+     days), then ``ingest-hm`` -> ``etl`` -> ``pretrain-text`` ->
+     ``train-item --set item_tower.text_encoder=pretrained`` (full width,
+     batch 192, 10 steps) -> ``vectorize`` -> ``serve --model-backed`` ->
+     ``orchestrate --once`` over 64 ingested products, then one scheduler
+     cycle whose weekly branch is due (an injected clock): ``/train/start``
+     trains in the background. The gates of phases 2 and 3, and: the
+     artifact has nonzero rows; each K1 kernel exactly twice a step in
+     ``train-item`` and in the background training; the checkpoint's
+     ``pretrained_embedding`` bit-identical to the artifact; orchestrate
+     drains all 64. Last, two steps of each encoder under
+     ``metrics.profile_trace``: the trace file names K1 six times a step;
+     launches and device time a step, pretrained beside hash; then each
+     encoder's step median over 10 untraced steps, in turns (hash,
+     pretrained, pretrained, hash), and the host CPU's name.
+
+Phase 2 also holds each K1 kernel to exactly two launches a step.
 
 One line holds every kernel with its launches, error, times and bound. The
 last line is {"ok": true, "device": {...}}; any failure exits non-zero
@@ -170,6 +190,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -440,7 +461,13 @@ def product_json(row: dict) -> dict:
                 **{f: row.get(f) for f in std}}}
 
 
-def slice_phase(root: str, device: str = "cuda", extra_sets: tuple = ()) -> dict:
+def slice_phase(root: str, device: str = "cuda", extra_sets: tuple = (),
+                world: tuple = (("gen-data",),), via_orchestrate: bool = False) -> dict:
+    """The CLI stages of ``world`` (each a stage and its own arguments), then
+    train-item -> vectorize -> serve with the trained encoder. The served
+    catalog is drained by a process-pending loop here, or with
+    ``via_orchestrate`` by ``orchestrate --once`` and then one scheduler cycle
+    whose weekly trigger is due (``/train/start`` must launch K1)."""
     import pandas as pd
 
     from recsys_tpu_torch.train.checkpoint import load_array_with_ids
@@ -451,16 +478,25 @@ def slice_phase(root: str, device: str = "cuda", extra_sets: tuple = ()) -> dict
     sets = ["--set", f"data.root={root}", "--set", "simcse.epochs=1",
             "--set", "simcse.steps_per_epoch_min=1", "--set", "serve.db_path=:memory:",
             *extra_sets, "--device", device]
+    stage_seconds, stages = {}, {}
+    for stage in world:
+        t0 = time.perf_counter()
+        stages[stage[0]] = cli.main([*stage, *sets])
+        stage_seconds[stage[0]] = time.perf_counter() - t0
+    n_items = len(pd.read_parquet(f"{root}/items.parquet"))
     K.reset_launch_counts()  # the main path's run starts here
-    gen = cli.main(["gen-data", *sets])
-    n_items = gen["items"]
+    t0 = time.perf_counter()
     train = cli.main(["train-item", *sets])
+    stage_seconds["train-item"] = time.perf_counter() - t0
     counts_after_train = dict(K.LAUNCHES)
-    check(all(n > 0 for n in counts_after_train.values()),
-          f"train-item did not launch every K1 kernel: {counts_after_train}")
+    check(device == "cpu" or all(n == 2 * train["steps"] for n in counts_after_train.values()),
+          f"train-item: K1 launches {counts_after_train} in {train['steps']} steps "
+          "(each kernel twice a step, one a direction)")
     check(train["steps"] >= 10, f"train-item took {train['steps']} steps")
     check(all(np.isfinite(train["losses"])), f"non-finite loss: {train['losses']}")
+    t0 = time.perf_counter()
     vec = cli.main(["vectorize", *sets])
+    stage_seconds["vectorize"] = time.perf_counter() - t0
     mat, ids, _ = load_array_with_ids(f"{root}/item_matrix")
     check(mat.shape == (n_items + 1, 128) and ids[0] == "<pad>", f"matrix {mat.shape}")
     check(bool(np.isfinite(mat).all()), "non-finite item vectors")
@@ -477,6 +513,12 @@ def slice_phase(root: str, device: str = "cuda", extra_sets: tuple = ()) -> dict
     nf = tensors["std"].shape[1]
     model, _ = restore_model(cfg, f"{root}/ckpt_item", nf, device)
     cpu_model, _ = restore_model(cfg, f"{root}/ckpt_item", nf, "cpu")
+    if cfg.item_tower.text_encoder == "pretrained":   # the frozen table never moved
+        from recsys_tpu_torch.data.text_pretrain import load_text_pretrain
+
+        table = cpu_model.encoder.text_encoder.pretrained_embedding
+        check(torch.equal(table, torch.as_tensor(load_text_pretrain(f"{root}/text_pretrain"))),
+              "the checkpoint's pretrained_embedding differs from the artifact")
     with torch.inference_mode():
         on_card = model.encode(*(torch.as_tensor(tensors[k][:64], device=device)
                                  for k in MODEL_INPUTS)).cpu()
@@ -502,12 +544,16 @@ def slice_phase(root: str, device: str = "cuda", extra_sets: tuple = ()) -> dict
                    {"products": [product_json(r) for r in picked]})
         check(ing.get("created") == len(picked), f"ingest: {ing}")
         t0, processed, loops = time.perf_counter(), 0, 0
-        while True:
-            r = http(base, "POST", "/ai-api/serving/vectors/process-pending", {})
-            if r["processed_count"] == 0:
-                break
-            processed += r["processed_count"]
-            loops += 1
+        if via_orchestrate:
+            drained = cli.main(["orchestrate", "--once", "--server", base])
+            processed, loops = drained["vectorized"], drained["loops"]
+        else:
+            while True:
+                r = http(base, "POST", "/ai-api/serving/vectors/process-pending", {})
+                if r["processed_count"] == 0:
+                    break
+                processed += r["processed_count"]
+                loops += 1
         process_s = time.perf_counter() - t0
         check(processed == len(picked), f"processed {processed}")
         row_of = {pid: r for r, pid in enumerate(ids)}
@@ -526,19 +572,23 @@ def slice_phase(root: str, device: str = "cuda", extra_sets: tuple = ()) -> dict
                 score_err = max(score_err, abs(x["score"] - ref))
         sim_ms = (time.perf_counter() - t0) * 1e3 / 8
         check(score_err <= SERVE_TOL, f"similarity scores vs vectorize: {score_err}")
+        weekly = weekly_trigger(base, ctx, device) if via_orchestrate else None
     finally:
         server.shutdown()
         server.server_close()
         thread.join(timeout=10)
-    return {"train": {k: train[k] for k in ("steps", "seconds", "step_ms_median",
-                                            "first_step_ms")},
+    out = {"stage_seconds": stage_seconds, "world": stages} if via_orchestrate else {}
+    if weekly:
+        out["weekly"] = weekly
+    return {**out, "train": {k: train[k] for k in ("steps", "seconds", "step_ms_median",
+                                                   "first_step_ms")},
             "final_loss": train["losses"][-1], "first_loss": train["losses"][0],
             "vectorize": {k: vec[k] for k in ("shape", "seconds", "items_per_s")},
             "self_rank1": self_rank1, "card_vs_cpu_encode_err": card_cpu_err,
             "serve": {"processed": processed, "loops": loops, "process_pending_s": process_s,
                       "served_vs_vectorize_err": served_err, "score_err": score_err,
                       "similarity_ms": sim_ms},
-            "launches": dict(K.LAUNCHES)}
+            "launches": counts_after_train}
 
 
 # -- phase 4: K2 against its plain form ---------------------------------------
@@ -2034,6 +2084,246 @@ def train_routes(base: str, tx, device: str) -> dict:
     return out
 
 
+# -- phase 19: the pretrained text encoder from H&M-format CSVs ---------------------------
+
+HM_ADJ = ("soft", "slim", "relaxed", "cropped", "ribbed", "classic", "oversized", "fitted",
+          "light", "warm", "wide", "long", "short", "pleated", "printed", "washed", "basic",
+          "cosy", "sporty", "smart", "cotton", "linen", "wool", "denim", "satin", "fleece",
+          "padded", "lace", "striped", "checked", "tailored", "flared", "tapered", "knitted",
+          "hooded", "zipped", "buttoned", "stretch", "waterproof", "vintage")
+HM_LINE = ("Idro", "Basic", "Tilly", "Luna", "Nova", "Ava", "Max", "Leo", "Ella", "Mia",
+           "Oslo", "Rio", "Paris", "Milo", "Zoe", "Ruby", "Noah", "Ivy", "Finn", "Kai",
+           "Lola", "Theo", "Nora", "Otto", "Sky")
+HM_TYPES = (("Vest top", "Garment Upper body", "Jersey Basic"),
+            ("Sweater", "Garment Upper body", "Knitwear"),
+            ("Blouse", "Garment Upper body", "Blouses"),
+            ("Jacket", "Garment Upper body", "Outdoor"),
+            ("Trousers", "Garment Lower body", "Trousers Denim"),
+            ("Shorts", "Garment Lower body", "Shorts"),
+            ("Skirt", "Garment Lower body", "Skirts"),
+            ("Dress", "Garment Full body", "Dresses Ladies"),
+            ("Jumpsuit/Playsuit", "Garment Full body", "Dresses Ladies"),
+            ("Socks", "Socks & Tights", "Socks and Tights"),
+            ("Sneakers", "Shoes", "Shoes"),
+            ("Bag", "Accessories", "Accessories"))
+HM_APPEAR = ("Solid", "Stripe", "Denim", "Melange", "All over pattern", "Glitter", "Lace",
+             "Check")
+HM_COLOURS = ("Black", "White", "Dark Blue", "Light Beige", "Grey", "Dark Red", "Green",
+              "Pink", "Yellow", "Orange")
+HM_VALUES = ("Dark", "Light", "Medium Dusty", "Bright", "Dusty Light")
+HM_INDEX = (("A", "Ladieswear", 1, "Ladieswear"), ("F", "Menswear", 3, "Menswear"),
+            ("D", "Divided", 2, "Divided"), ("H", "Children Sizes 92-140", 4, "Baby/Children"),
+            ("S", "Sport", 5, "Sport"))
+HM_SECTIONS = ("Womens Everyday Basics", "Men Underwear", "Divided Collection", "Kids Sport",
+               "Womens Tailoring", "Mens Casual", "Ladies Sport")
+HM_MATERIALS = ("cotton", "linen", "wool", "polyester", "viscose", "denim", "jersey",
+                "cashmere", "satin", "fleece")
+HM_FITS = ("slim", "loose", "relaxed", "oversized", "fitted", "regular fit", "skinny", "wide",
+           "cropped", "high waist")
+HM_DETAILS = ("ribbed", "pleated", "button", "zip", "pocket", "hood", "collar", "drawstring",
+              "elasticated", "embroidered", "printed", "lined", "long sleeves", "v-neck")
+HM_FUNCTIONS = ("warm", "breathable", "waterproof", "stretch", "lightweight", "soft")
+HM_ARTICLES, HM_CUSTOMERS, HM_TRANSACTIONS, HM_DAYS = 2000, 1000, 40_000, 120
+
+
+def write_hm_csvs(hm_dir: str, seed: int = 0) -> dict:
+    """articles.csv (the 25 Kaggle columns), customers.csv and
+    transactions_train.csv (ISO t_dat over HM_DAYS days) at the default
+    world's scale, made from ``seed``. Values come from small lexicons; a
+    name is a unique (adjective, type, line) triple and the description
+    names a fit, a material, two details and a function, so the RE tags
+    fill from ``detail_desc``."""
+    import pandas as pd
+
+    os.makedirs(hm_dir, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    pick = lambda seq, n: [seq[i] for i in rng.integers(0, len(seq), n)]
+    n = HM_ARTICLES
+    triple = rng.choice(len(HM_ADJ) * len(HM_TYPES) * len(HM_LINE), n, replace=False)
+    adj, rest = np.divmod(triple, len(HM_TYPES) * len(HM_LINE))
+    typ, line = np.divmod(rest, len(HM_LINE))
+    appear, colour, value = (rng.integers(0, len(x), n) for x in (HM_APPEAR, HM_COLOURS,
+                                                                 HM_VALUES))
+    index, section = rng.integers(0, len(HM_INDEX), n), rng.integers(0, len(HM_SECTIONS), n)
+    art_ids = [f"{100000001 + 1237 * i:010d}" for i in range(n)]
+    dets = rng.integers(0, len(HM_DETAILS), (n, 2))
+    articles = pd.DataFrame({
+        "article_id": art_ids, "product_code": [a[:7] for a in art_ids],
+        "prod_name": [f"{HM_ADJ[a].capitalize()} {HM_TYPES[t][0].lower()} {HM_LINE[ln]}"
+                      for a, t, ln in zip(adj, typ, line)],
+        "product_type_no": 250 + typ, "product_type_name": [HM_TYPES[t][0] for t in typ],
+        "product_group_name": [HM_TYPES[t][1] for t in typ],
+        "graphical_appearance_no": 1010000 + appear,
+        "graphical_appearance_name": [HM_APPEAR[a] for a in appear],
+        "colour_group_code": colour, "colour_group_name": [HM_COLOURS[c] for c in colour],
+        "perceived_colour_value_id": value,
+        "perceived_colour_value_name": [HM_VALUES[v] for v in value],
+        "perceived_colour_master_id": colour,
+        "perceived_colour_master_name": [HM_COLOURS[c].split()[-1] for c in colour],
+        "department_no": 1000 + typ, "department_name": [HM_TYPES[t][2] for t in typ],
+        "index_code": [HM_INDEX[i][0] for i in index],
+        "index_name": [HM_INDEX[i][1] for i in index],
+        "index_group_no": [HM_INDEX[i][2] for i in index],
+        "index_group_name": [HM_INDEX[i][3] for i in index],
+        "section_no": section, "section_name": [HM_SECTIONS[x] for x in section],
+        "garment_group_no": 1000 + typ, "garment_group_name": [HM_TYPES[t][2] for t in typ],
+        "detail_desc": [f"{f.capitalize()} {HM_TYPES[t][0].lower()} in {m} with "
+                        f"{HM_DETAILS[d0]} and {HM_DETAILS[d1]}. {fn.capitalize()}."
+                        for f, t, m, (d0, d1), fn in zip(
+                            pick(HM_FITS, n), typ, pick(HM_MATERIALS, n), dets,
+                            pick(HM_FUNCTIONS, n))],
+    })
+    articles.to_csv(f"{hm_dir}/articles.csv", index=False)
+    cust_ids = [rng.bytes(32).hex() for _ in range(HM_CUSTOMERS)]
+    ages = rng.integers(16, 80, HM_CUSTOMERS).astype(float)
+    ages[rng.random(HM_CUSTOMERS) < 0.05] = np.nan
+    pd.DataFrame({
+        "customer_id": cust_ids,
+        "FN": np.where(rng.random(HM_CUSTOMERS) < 0.4, 1.0, np.nan),
+        "Active": np.where(rng.random(HM_CUSTOMERS) < 0.4, 1.0, np.nan),
+        "club_member_status": pick(("ACTIVE", "PRE-CREATE", "LEFT CLUB"), HM_CUSTOMERS),
+        "fashion_news_frequency": pick(("NONE", "Regularly", "Monthly"), HM_CUSTOMERS),
+        "age": ages, "postal_code": [rng.bytes(8).hex() for _ in range(HM_CUSTOMERS)],
+    }).to_csv(f"{hm_dir}/customers.csv", index=False)
+    m = HM_TRANSACTIONS
+    day = np.sort(rng.integers(0, HM_DAYS, m))
+    origin = np.datetime64("2020-05-25")
+    tx = pd.DataFrame({
+        "t_dat": [str(origin + int(d)) for d in day],
+        "customer_id": [cust_ids[i] for i in (HM_CUSTOMERS * rng.random(m) ** 1.5).astype(int)],
+        "article_id": [art_ids[i] for i in (n * rng.random(m) ** 2).astype(int)],
+        "price": np.round(rng.uniform(0.005, 0.08, m), 6),
+        "sales_channel_id": rng.integers(1, 3, m),
+    })
+    tx.to_csv(f"{hm_dir}/transactions_train.csv", index=False)
+    return {"articles": n, "customers": HM_CUSTOMERS, "transactions": m}
+
+
+def host_cpu() -> str:
+    """The host CPU's model name and the cores this process may use (the
+    host-side stage seconds are this machine's)."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            name = next((ln.split(":", 1)[1].strip() for ln in f
+                         if ln.startswith("model name")), "unknown")
+    except OSError:
+        name = "unknown"
+    return f"{name}, {len(os.sched_getaffinity(0))} cores"
+
+
+def weekly_trigger(base: str, ctx, device: str) -> dict:
+    """One scheduler cycle whose weekly branch is due (an injected clock):
+    the hourly drain finds nothing left, ``/train/start`` answers and starts
+    the item trainer in the background, which launches each K1 kernel twice a
+    step."""
+    from recsys_tpu_torch.pipeline import cli
+
+    runs, train_fn = [], ctx.train_item_fn
+    ctx.train_item_fn = lambda **kw: runs.append(train_fn(**kw)) or runs[-1]
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    recs, _ = cli.orchestrate_cycles(lambda method, path, payload=None:
+                                     http(base, method, path, payload), 1,
+                                     now_fn=lambda: 1e9)
+    rec = recs[0]
+    check(rec["hourly"] == {"vectorized": 0, "loops": 0}, f"hourly cycle: {rec}")
+    check(rec.get("weekly", {}).get("started") is True, f"/train/start: {rec}")
+    for t in ctx._bg_threads:
+        t.join(timeout=600)
+    seconds = time.perf_counter() - t0
+    check(len(runs) == 1 and runs[0].get("trained") == "item-tower"
+          and all(np.isfinite(runs[0]["losses"])), f"/train/start's training: {runs}")
+    steps = runs[0]["steps"]
+    check(device == "cpu" or all(n == 2 * steps for n in K.LAUNCHES.values()),
+          f"/train/start: K1 launches {K.LAUNCHES} in {steps} steps")
+    return {"seconds": seconds, "steps": steps, "items": runs[0]["items"],
+            "k1_launches": dict(K.LAUNCHES)}
+
+
+def encoder_run(root: str, text_encoder: str, steps: int):
+    """The train-item config of ``root``'s world with ``text_encoder`` and
+    the first ``steps`` batches of its catalog."""
+    from recsys_tpu_torch.pipeline import cli
+
+    sets = ["--set", f"data.root={root}", "--set", "simcse.epochs=1",
+            "--set", "simcse.steps_per_epoch_min=1", "--set", f"simcse.batch_size={MAIN_B}",
+            "--set", f"item_tower.text_encoder={text_encoder}"]
+    cfg = cli.config_from_args(cli.parse_args(["train-item", *sets]))
+    return cfg, {k: v[:steps * MAIN_B] for k, v in cli._item_tensors(cfg).items()}
+
+
+def step_ms_in_turns(root: str, device: str, art) -> dict:
+    """train-item's step median (host clock, steps after the first), each
+    encoder 10 steps on the same batches, in turns: hash, pretrained,
+    pretrained, hash."""
+    from recsys_tpu_torch.train.simcse import train_simcse
+
+    out = {"hash": [], "pretrained": []}
+    for enc in ("hash", "pretrained", "pretrained", "hash"):
+        cfg, sub = encoder_run(root, enc, 10)
+        state = train_simcse(cfg, sub, f"{root}/ckpt_turns_{enc}", device,
+                             text_pretrain=art if enc == "pretrained" else None)
+        out[enc].append(1e3 * float(np.median(state.step_seconds[1:])))
+    return out
+
+
+def traced_steps(root: str, device: str, text_encoder: str, art) -> dict:
+    """Two train-item steps (batch MAIN_B, full width) under
+    ``metrics.profile_trace``: the trace file, the kernels it names and the
+    launches a step."""
+    from recsys_tpu_torch.train.metrics import profile_trace
+    from recsys_tpu_torch.train.simcse import train_simcse
+
+    cfg, sub = encoder_run(root, text_encoder, 2)
+    trace_dir = f"{root}/trace_{text_encoder}"
+    with profile_trace(trace_dir, device=device):
+        state = train_simcse(cfg, sub, f"{root}/ckpt_trace_{text_encoder}", device,
+                             text_pretrain=art if text_encoder == "pretrained" else None)
+    check(state.step == 2, f"traced run took {state.step} steps")
+    files = [f for f in os.listdir(trace_dir) if f.endswith(".pt.trace.json")]
+    check(len(files) == 1, f"profile_trace wrote {files}")
+    with open(os.path.join(trace_dir, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    k1 = sum("diag_ce_kernel" in e.get("name", "") for e in kernels)
+    check(device == "cpu" or k1 == 6 * state.step,
+          f"the trace names {k1} K1 kernels in {state.step} steps")
+    return {"steps": state.step, "trace_file": files[0], "k1_kernels": k1,
+            "launches_a_step": len(kernels) / max(state.step, 1),
+            "device_ms_a_step": sum(e.get("dur", 0.0) for e in kernels) / 1e3 / max(state.step, 1),
+            "step_ms": [1e3 * x for x in state.step_seconds]}
+
+
+def pretrained_slice_phase(root: str, hash_slice: dict, device: str = "cuda") -> dict:
+    """ingest-hm -> etl -> pretrain-text -> train-item with the pretrained
+    encoder (full width) -> vectorize -> serve -> orchestrate, on H&M-format
+    CSVs made here; then two traced steps of each encoder."""
+    from recsys_tpu_torch.data.text_pretrain import load_text_pretrain
+
+    data_root = f"{root}/hm_world"
+    hm_dir = f"{root}/hm_csv"
+    t0 = time.perf_counter()
+    csvs = write_hm_csvs(hm_dir)
+    csv_seconds = time.perf_counter() - t0
+    out = slice_phase(data_root, device,
+                      extra_sets=("--set", "item_tower.text_encoder=pretrained"),
+                      world=(("ingest-hm", "--hm-dir", hm_dir), ("etl",), ("pretrain-text",)),
+                      via_orchestrate=True)
+    world = out.pop("world")
+    check(world["ingest-hm"]["items"] == HM_ARTICLES, f"ingest-hm: {world['ingest-hm']}")
+    pre = world["pretrain-text"]
+    check(pre["nonzero_rows"] > 0 and pre["shape"] == [8192, 128], f"pretrain-text: {pre}")
+    check(out["serve"]["processed"] == 64, f"orchestrate drained {out['serve']}")
+    out["stage_seconds"]["orchestrate"] = out["serve"]["process_pending_s"]
+    art = load_text_pretrain(pre["artifact"])
+    traced = {enc: traced_steps(data_root, device, enc, art) for enc in ("pretrained", "hash")}
+    return {"csvs": {**csvs, "seconds": csv_seconds}, "pretrain_text": pre,
+            "host_cpu": host_cpu(), "ingest_hm": world["ingest-hm"], **out, "traced": traced,
+            "step_ms_in_turns": step_ms_in_turns(data_root, device, art),
+            "hash_encoder_phase2": {k: hash_slice["train"][k]
+                                    for k in ("steps", "step_ms_median", "first_step_ms")}}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
@@ -2098,18 +2388,24 @@ def main() -> None:
         indexes = device_index_serve_phase(root)
         print(json.dumps({"phase": "device_index_serve", **indexes}), flush=True)
         seconds["phase_18"] = time.perf_counter() - start - sum(seconds.values())
+        pretrained = pretrained_slice_phase(root, result)
+        print(json.dumps({"phase": "pretrained_slice", **pretrained}), flush=True)
+        seconds["phase_19"] = time.perf_counter() - start - sum(seconds.values())
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(json.dumps({"seconds": {**seconds, "total": time.perf_counter() - start}}), flush=True)
 
-    # K1's launches are the main path's: train-item (phase 2) and train-user (phase
-    # 13); its times are at the SimCSE shape, stage 2's B = 3072 and 8192 beside them
+    # K1's launches are the main path's: train-item (phase 2), train-user (phase 13)
+    # and train-item with the pretrained encoder (phase 19); its times are at the
+    # SimCSE shape, stage 2's B = 3072 and 8192 beside them
     k1_bounds = diag_ce_bounds(MAIN_B, D)
     kernels = [{"name": name, "route": "cuda", "source": SOURCES["diag_ce"],
                 "replaces": REPLACES[name],
-                "launches": result["launches"][name] + user["launches"][name],
+                "launches": (result["launches"][name] + user["launches"][name]
+                             + pretrained["launches"][name]),
                 "launches_train_item": result["launches"][name],
                 "launches_train_user": user["launches"][name],
+                "launches_train_item_pretrained": pretrained["launches"][name],
                 "max_abs_err": kstats["errs"][name],
                 "ms": kstats["ms"][name][0], "plain_ms": kstats["ms"][name][1],
                 **k1_bounds[name], "library_ms": None,

@@ -12,6 +12,10 @@ path, with these leaf conversions:
                    user_emb / item_emb tables, logit_scale, DeepFM's scalar
                    bias) as they are
 
+The pretrained text encoder maps the same way: ``text_encoder/
+pretrained_embedding`` is a raw parameter, ``text_encoder/pretrained_proj``
+a Dense, beside ``pos_embedding`` and ``encoder``.
+
 The reranker models map the same way: ``DCNRanker``'s ``nn.compact``
 auto-names (``CrossNet_0/cross_{i}``, ``MLP_0/Dense_{i}``, ``score``) and
 ``DeepFM``'s ``fm_embed_{f}`` / ``fm_first_{f}`` (an Embed of width 1) /

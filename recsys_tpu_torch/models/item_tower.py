@@ -10,6 +10,8 @@ Counterpart of ``recsys_tpu/models/item_tower.py``:
 The (B, F+9+1, D) token sequence is fused by a small pre-norm transformer,
 masked-mean-pooled, passed through ``DeepResidualHead`` and L2-normalized.
 Activations are bf16 over fp32 parameters, as in the JAX tower.
+``cfg.text_encoder`` picks the text encoder (``"hash"`` or ``"pretrained"``,
+``models/text_encoder.py``); either is the submodule ``text_encoder``.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from recsys_tpu_torch.models.layers import (
     masked_mean,
     normal_param,
 )
-from recsys_tpu_torch.models.text_encoder import HashTextEncoder
+from recsys_tpu_torch.models.text_encoder import HashTextEncoder, PretrainedTextEncoder
 
 
 class HybridItemTower(nn.Module):
@@ -38,18 +40,21 @@ class HybridItemTower(nn.Module):
                  cfg: ItemTowerConfig = ItemTowerConfig(),
                  vocab_cfg: VocabConfig = VocabConfig(), num_re_fields: int = 9):
         super().__init__()
-        if cfg.text_encoder != "hash":
-            raise NotImplementedError(
-                f"text_encoder={cfg.text_encoder!r}: the port has only the hash "
-                "encoder so far (ROADMAP Queue 1, item 2)")
         D = cfg.dim
         self.std_embedding = Embed(std_vocab_size, D)
         self.std_field_embedding = normal_param(num_std_fields, D)
         self.std_norm = LayerNorm(D)
-        self.text_encoder = HashTextEncoder(
-            vocab_size=vocab_cfg.text_vocab_size, dim=cfg.text_dim,
-            num_layers=cfg.text_layers, nhead=cfg.text_heads,
-            max_len=vocab_cfg.max_name_tokens)
+        text = dict(vocab_size=vocab_cfg.text_vocab_size, dim=cfg.text_dim,
+                    num_layers=cfg.text_layers, nhead=cfg.text_heads,
+                    max_len=vocab_cfg.max_name_tokens)
+        if cfg.text_encoder == "pretrained":
+            self.text_encoder = PretrainedTextEncoder(pretrained_dim=cfg.pretrained_dim,
+                                                      **text)
+        elif cfg.text_encoder == "hash":
+            self.text_encoder = HashTextEncoder(**text)
+        else:
+            raise ValueError(f"unknown item_tower.text_encoder {cfg.text_encoder!r} "
+                             "(hash | pretrained)")
         self.re_projection = Dense(cfg.text_dim, D)
         self.re_field_embedding = normal_param(num_re_fields, D)
         self.re_norm = LayerNorm(D)

@@ -1,12 +1,17 @@
-"""Pipeline CLI of the port: the stages of the item-vector, GNN and reranker
-slices.
+"""Pipeline CLI of the port: every stage of the JAX package's CLI.
 
 Counterpart of ``recsys_tpu/pipeline/cli.py``, with the same ``--set``
 overrides, artifact paths and one JSON line per stage:
 
   gen-data     synthetic persona world -> parquet (items/users/transactions)
+  ingest-hm    the H&M Kaggle CSVs (``--hm-dir``, ``--date-min``,
+               ``--date-max``) -> the same parquet trio + std_vocab.json
+  enrich       re-run the rule-based RE enrichment over the item master
   etl          splits + item/user/sequence features + validation targets
-  train-item   stage-1 SimCSE                        -> checkpoints
+  pretrain-text  PPMI-SVD token table over the catalog -> text_pretrain.npz
+  train-item   stage-1 SimCSE                        -> checkpoints; with
+               ``item_tower.text_encoder=pretrained`` over the frozen table
+               of ``pretrain-text``
   vectorize    materialize the (N+1, 128) item matrix artifact
   train-gnn    LightGCL (``--resume``, ``--fine-tune``) -> graph embeddings
   distill      magnitude->cosine projector           -> distilled vectors
@@ -35,6 +40,8 @@ overrides, artifact paths and one JSON line per stage:
                ``exact|hnsw|ivf|int8`` (the last two on the card); the
                ``/train/item-tower`` and ``/train/user-tower`` routes train
                on the store's rows
+  orchestrate  the hourly / weekly scheduler against a running server
+               (``--server``; ``--once``: one hourly cycle)
 
 ``--device`` (default ``cuda``) places the model; ``--device cuda`` on a
 machine without a CUDA device raises and never falls back to the CPU.
@@ -134,6 +141,34 @@ def cmd_gen_data(cfg: Config, args) -> dict:
             "oracle": oracle}
 
 
+def cmd_ingest_hm(cfg: Config, args) -> dict:
+    """Real-data front door: the three H&M Kaggle CSVs -> the canonical
+    parquet trio + a fitted STD vocab, so every later stage runs unchanged."""
+    from recsys_tpu_torch.data.hm_adapter import load_hm_dataset, vocab_from_items
+    p = _paths(cfg)
+    os.makedirs(p["root"], exist_ok=True)
+    items, users, tx = load_hm_dataset(
+        args.hm_dir, date_min=getattr(args, "date_min", None),
+        date_max=getattr(args, "date_max", None))
+    items.to_parquet(p["items"])
+    users.to_parquet(p["users"])
+    tx.to_parquet(p["tx"])
+    vocab_from_items(items).to_json(f"{p['root']}/std_vocab.json")
+    return {"items": len(items), "users": len(users), "transactions": len(tx),
+            "vocab": f"{p['root']}/std_vocab.json"}
+
+
+def cmd_enrich(cfg: Config, args) -> dict:
+    """Re-run the RE enrichment over the item master (idempotent)."""
+    from recsys_tpu_torch.data.synthetic import enrich_item
+    p = _paths(cfg)
+    items = pd.read_parquet(p["items"])
+    items["reinforced_feature"] = [enrich_item(r)["reinforced_feature_value"]
+                                   for r in items.to_dict("records")]
+    items.to_parquet(p["items"])
+    return {"enriched": len(items)}
+
+
 def cmd_etl(cfg: Config, args) -> dict:
     from recsys_tpu_torch.data import etl
     p = _paths(cfg)
@@ -153,19 +188,38 @@ def cmd_etl(cfg: Config, args) -> dict:
     return {"split_day": split_day, "sanity": sanity, "missing": missing}
 
 
+def cmd_pretrain_text(cfg: Config, args) -> dict:
+    """Corpus-pretrain the frozen text-embedding artifact (PPMI-SVD over the
+    catalog's names + RE fields, ``data/text_pretrain.py``). Host work."""
+    from recsys_tpu_torch.data.text_pretrain import pretrain_embeddings, save_text_pretrain
+    p = _paths(cfg)
+    emb = pretrain_embeddings(_item_tensors(cfg), cfg.vocab.text_vocab_size,
+                              dim=cfg.item_tower.pretrained_dim, seed=cfg.data.seed)
+    save_text_pretrain(p["text_pretrain"], emb)
+    nz = int((np.abs(emb).sum(axis=1) > 0).sum())
+    return {"artifact": p["text_pretrain"], "shape": list(emb.shape),
+            "nonzero_rows": nz}
+
+
 def cmd_train_item(cfg: Config, args) -> dict:
     from recsys_tpu_torch.train.simcse import train_simcse
 
     device = resolve_device(args.device)
     p = _paths(cfg)
     tensors = _item_tensors(cfg)
+    text_pretrain = None
+    if cfg.item_tower.text_encoder == "pretrained":
+        from recsys_tpu_torch.data.text_pretrain import load_text_pretrain
+        text_pretrain = load_text_pretrain(p["text_pretrain"])
     t0 = time.perf_counter()
     mesh = _mesh(cfg, args)
     state = train_simcse(cfg, tensors, p["item_ckpts"], device,
-                         init_ckpt=getattr(args, "init_ckpt", None), mesh=mesh)
+                         init_ckpt=getattr(args, "init_ckpt", None), mesh=mesh,
+                         text_pretrain=text_pretrain)
     seconds = time.perf_counter() - t0
     steady = state.step_seconds[1:] or state.step_seconds
-    return {"steps": state.step, "ckpt_dir": p["item_ckpts"], "device": str(device),
+    return {"steps": state.step, "ckpt_dir": p["item_ckpts"],
+            "text_encoder": cfg.item_tower.text_encoder, "device": str(device),
             "mesh": mesh.shape, "seconds": seconds, "losses": state.losses,
             "step_ms_median": 1e3 * statistics.median(steady) if steady else None,
             "first_step_ms": 1e3 * state.step_seconds[0] if state.step_seconds else None}
@@ -1038,9 +1092,67 @@ def cmd_serve(cfg: Config, args) -> dict:
     return {}
 
 
+def cmd_orchestrate(cfg: Config, args) -> dict:
+    """The scheduler against a running server: hourly, ingest -> loop
+    process-pending until drained (cap 100); weekly, POST /train/start.
+    ``--once`` runs a single hourly cycle."""
+    import urllib.request
+
+    base = getattr(args, "server", None) or f"http://{cfg.serve.host}:{cfg.serve.port}"
+
+    def call(method, path, payload=None):
+        req = urllib.request.Request(
+            base + path, method=method,
+            data=None if payload is None else json.dumps(payload).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            return json.loads(resp.read())
+
+    if getattr(args, "once", False):
+        return _hourly_cycle(call)
+
+    last_weekly = 0.0
+    while True:  # pragma: no cover - long-running scheduler
+        _, last_weekly = orchestrate_cycles(call, 1, last_weekly=last_weekly, log=True)
+        time.sleep(3600)
+
+
+def _hourly_cycle(call) -> dict:
+    drained, loops = 0, 0
+    while loops < 100:  # loop cap
+        r = call("POST", "/ai-api/serving/vectors/process-pending", {})
+        if r.get("processed_count", 0) == 0:
+            break
+        drained += r["processed_count"]
+        loops += 1
+    return {"vectorized": drained, "loops": loops}
+
+
+def orchestrate_cycles(call, n_cycles: int, *, last_weekly: float = 0.0,
+                       weekly_interval: float = 7 * 24 * 3600.0,
+                       now_fn=time.time, log: bool = False):
+    """``n_cycles`` hourly cycles, each followed by the weekly train trigger
+    when it is due; ``call(method, path, payload)`` and the clock ``now_fn``
+    are injected, so the weekly branch can be driven in a test. Returns
+    (records, last_weekly)."""
+    records = []
+    for _ in range(n_cycles):
+        rec = {"hourly": _hourly_cycle(call), "t": now_fn()}
+        if now_fn() - last_weekly > weekly_interval:
+            rec["weekly"] = call("POST", "/ai-api/serving/train/start", {})
+            last_weekly = now_fn()
+        if log:
+            print(json.dumps(rec), flush=True)
+        records.append(rec)
+    return records, last_weekly
+
+
 COMMANDS = {
     "gen-data": cmd_gen_data,
+    "ingest-hm": cmd_ingest_hm,
+    "enrich": cmd_enrich,
     "etl": cmd_etl,
+    "pretrain-text": cmd_pretrain_text,
     "train-item": cmd_train_item,
     "vectorize": cmd_vectorize,
     "train-gnn": cmd_train_gnn,
@@ -1053,6 +1165,7 @@ COMMANDS = {
     "ensemble-eval": cmd_ensemble_eval,
     "rerank-eval": cmd_rerank_eval,
     "serve": cmd_serve,
+    "orchestrate": cmd_orchestrate,
 }
 
 
@@ -1086,6 +1199,16 @@ def parse_args(argv=None):
                         help="rerank-eval: the popularity arm of the pool union (100)")
     parser.add_argument("--sample", type=int, default=None,
                         help="rerank-eval: inner-split ranker users sampled (20000)")
+    parser.add_argument("--hm-dir", default=None, dest="hm_dir",
+                        help="ingest-hm: directory with the H&M Kaggle CSVs")
+    parser.add_argument("--date-min", default=None, dest="date_min",
+                        help="ingest-hm: first t_dat kept (ISO date)")
+    parser.add_argument("--date-max", default=None, dest="date_max",
+                        help="ingest-hm: last t_dat kept (ISO date)")
+    parser.add_argument("--once", action="store_true",
+                        help="orchestrate: one hourly cycle, then exit")
+    parser.add_argument("--server", default=None,
+                        help="orchestrate: base URL of the server (default serve.host:port)")
     return parser.parse_args(argv)
 
 

@@ -42,7 +42,8 @@ class RecommendAssets:
     offline eval retrieved against (stage 2's trained item matrix or the
     hybrid tower's adapted one). ``item_ids`` excludes the PAD row:
     ``item_ids[r]`` is matrix row ``r + 1``. ``device`` is where the device
-    blend keeps its copy of the matrix.
+    blend keeps its copy of the matrix: the card unless the caller asks for
+    the CPU (``"cuda"`` without a card raises where it is resolved).
     """
 
     item_ids: list[str]
@@ -51,7 +52,7 @@ class RecommendAssets:
     price_log: np.ndarray              # (N+1,)
     ranker: object | None = None       # GBDTRanker (rerank mode)
     vectors: str = "stage2"            # provenance label
-    device: torch.device | str = "cpu"
+    device: torch.device | str = "cuda"
     _idx: dict = field(default_factory=dict, repr=False)
     _cache: dict = field(default_factory=dict, repr=False)
 

@@ -47,7 +47,10 @@ def _items_frame(items: list[TrainingItem]) -> pd.DataFrame:
 def make_item_trainer(cfg: Config, store: ServeStore, device: torch.device | str,
                       workdir: str):
     """-> callable(epochs=None, lr=None, init_ckpt=None) training SimCSE on
-    every product currently in the store, on ``device``."""
+    every product currently in the store, on ``device``. As in the JAX
+    route, no ``pretrain-text`` artifact is loaded: with
+    ``item_tower.text_encoder=pretrained`` the frozen table keeps its random
+    init (or ``init_ckpt``'s table)."""
     from recsys_tpu_torch.data.dataset import tokenize_items
     from recsys_tpu_torch.data.vocab import StdVocab
     from recsys_tpu_torch.train.simcse import train_simcse

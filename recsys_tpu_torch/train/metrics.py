@@ -1,14 +1,16 @@
-"""Metric logging + contrastive-health metrics.
+"""Metric logging, tracing + contrastive-health metrics.
 
 Counterpart of ``recsys_tpu/train/metrics.py``: the same JSONL records
-(``run``, ``kind``, ``step``, ``t`` and the metrics), the SimCSE
-alignment / uniformity metrics, and the user tower's interpretability
-metrics (feature-gate values, static-branch attribution) under the JAX
-package's keys.
+(``run``, ``kind``, ``step``, ``t`` and the metrics), a verbosity-leveled
+print logger, an optional wandb sink, a ``torch.profiler`` trace context,
+the SimCSE alignment / uniformity metrics, and the user tower's
+interpretability metrics (feature-gate values, static-branch attribution)
+under the JAX package's keys.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
@@ -18,6 +20,8 @@ from typing import Mapping
 import numpy as np
 import torch
 from torch import nn
+
+from recsys_tpu_torch.device import resolve_device
 
 
 class MetricWriter:
@@ -39,6 +43,49 @@ class MetricWriter:
 
     def close(self) -> None:
         self._f.close()
+
+
+class SmartLogger:
+    """Verbosity-leveled print logger: level 0 silent, 1 milestones, 2 chatty."""
+
+    def __init__(self, level: int = 1):
+        self.level = level
+
+    def log(self, msg: str, level: int = 1) -> None:
+        if level <= self.level:
+            print(msg, flush=True)
+
+
+def maybe_wandb_writer(project: str, run: str, config=None):
+    """Optional wandb sink: a callable(step, **metrics) that logs to wandb
+    when the package is importable, else a no-op (``MetricWriter``'s JSONL is
+    the primary sink either way)."""
+    try:
+        import wandb  # noqa: PLC0415
+    except ImportError:
+        return lambda step, **metrics: None
+    wandb.init(project=project, name=run, config=config or {})
+    return lambda step, **metrics: wandb.log(metrics, step=step)
+
+
+@contextlib.contextmanager
+def profile_trace(out_dir: str, device: torch.device | str = "cuda"):
+    """``torch.profiler`` trace of the block, written under ``out_dir`` as a
+    Chrome trace (``*.pt.trace.json``, which TensorBoard's profiler plugin
+    and Perfetto open). On a CUDA device it records the card's kernels as
+    well as the host; ``device="cuda"`` without a card raises. Usage:
+    ``with profile_trace("artifacts/trace"): ...``; yields the profiler."""
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    device = resolve_device(device)
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield prof
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    tensorboard_trace_handler(out_dir)(prof)
 
 
 def alignment(emb_a: torch.Tensor, emb_b: torch.Tensor) -> torch.Tensor:

@@ -35,6 +35,7 @@ from recsys_tpu_torch.data.dataset import batch_iterator
 from recsys_tpu_torch.device import resolve_device
 from recsys_tpu_torch.data.vocab import StdVocab
 from recsys_tpu_torch.models.item_tower import SimCSEModel
+from recsys_tpu_torch.models.text_encoder import PretrainedTextEncoder
 from recsys_tpu_torch.ops import select_infonce
 from recsys_tpu_torch.ops.augment import two_views
 from recsys_tpu_torch.parallel.mesh import Mesh, shard_batch
@@ -65,6 +66,9 @@ def item_tensors_to(tensors: dict, device: torch.device | str) -> dict:
 
 
 def make_optimizer(cfg: Config, model: SimCSEModel, total_steps: int):
+    """AdamW with the text encoder at its own learning rate. The frozen
+    pretrained table (the JAX package's ``"frozen"`` group) takes no
+    gradient, so ``grouped_adamw`` leaves it out of both groups."""
     sc = cfg.simcse
     opt = grouped_adamw(
         model, lambda name: "text" if "text_encoder" in name else "rest",
@@ -127,7 +131,8 @@ class Replicas:
 
     @torch.no_grad()
     def refresh(self) -> None:
-        """The master's weights and buffers into every copy."""
+        """The master's weights and buffers into every copy (the frozen
+        pretrained table too, so every replica holds the master's)."""
         for replica in self.copies.values():
             for q, p in zip(replica.parameters(), self.master.parameters()):
                 q.copy_(p)
@@ -185,13 +190,32 @@ def make_data_parallel_step(state: TrainState, cfg: Config, mesh: Mesh):
     return step
 
 
+def load_text_pretrain_into(model: SimCSEModel, text_pretrain: np.ndarray) -> None:
+    """Copy the (V, dp) corpus-pretrained token matrix into the frozen
+    ``pretrained_embedding`` of the model's text encoder."""
+    te = model.encoder.text_encoder
+    if not isinstance(te, PretrainedTextEncoder):
+        raise ValueError("text_pretrain given but item_tower.text_encoder "
+                         "is not 'pretrained'")
+    if tuple(te.pretrained_embedding.shape) != tuple(text_pretrain.shape):
+        raise ValueError(f"pretrain artifact {tuple(text_pretrain.shape)} != "
+                         f"param {tuple(te.pretrained_embedding.shape)}")
+    with torch.no_grad():
+        te.pretrained_embedding.copy_(torch.as_tensor(np.asarray(text_pretrain, np.float32)))
+
+
 def train_simcse(cfg: Config, tensors: dict, workdir: str,
                  device: torch.device | str = "cuda",
                  writer: MetricWriter | None = None,
-                 init_ckpt: str | None = None, mesh: Mesh | None = None) -> TrainState:
+                 init_ckpt: str | None = None, mesh: Mesh | None = None,
+                 text_pretrain: np.ndarray | None = None) -> TrainState:
     """Full stage-1 training over pre-tokenized item tensors. The model, the
     optimizer and the batches live on ``device``; on a ``mesh`` whose data
-    axis is > 1 every step is split over that axis's devices."""
+    axis is > 1 every step is split over that axis's devices.
+
+    ``text_pretrain``: the (V, dp) artifact of ``data/text_pretrain.py``,
+    copied into the frozen table after init and before ``init_ckpt`` is
+    restored, as in the JAX trainer."""
     sc = cfg.simcse
     device = resolve_device(device)
     if data_parallel(mesh) and sc.batch_size % mesh.shape[mesh.axis_names[0]]:
@@ -206,6 +230,8 @@ def train_simcse(cfg: Config, tensors: dict, workdir: str,
 
     model = build_model(cfg, StdVocab().size, tensors["std"].shape[1], device,
                         seed=cfg.data.seed)
+    if text_pretrain is not None:
+        load_text_pretrain_into(model, text_pretrain)
     store = CheckpointStore(workdir, maximize=False)
     if init_ckpt:
         model.load_state_dict(store.restore(init_ckpt, device)["model"])

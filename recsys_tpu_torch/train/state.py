@@ -186,10 +186,14 @@ def grouped_adamw(model: nn.Module, label_fn: Callable[[str], str],
                   lr_factors: dict[str, float] | None = None) -> GroupedAdamW:
     """One AdamW parameter group per label, in the order of ``lrs``; an
     optional global-norm clip over all of them, a freeze gate and an lr
-    factor per label."""
+    factor per label. A parameter that takes no gradient (``requires_grad``
+    off: the pretrained text table) is in no group, so neither an update nor
+    weight decay reaches it (optax's ``set_to_zero`` group in the JAX
+    package)."""
     groups: dict[str, list] = {name: [] for name in lrs}
     for name, p in model.named_parameters():
-        groups[label_fn(name)].append(p)
+        if p.requires_grad:
+            groups[label_fn(name)].append(p)
     freeze_steps, lr_factors = freeze_steps or {}, lr_factors or {}
     return GroupedAdamW(
         [{"params": ps, "lr": lrs[name], "name": name,

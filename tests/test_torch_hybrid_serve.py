@@ -59,7 +59,7 @@ def _arrays(seed):
 def _asset_pair(seed=7, ranker=True):
     ids, mat, logq, price = _arrays(seed)
     scorer = LinearScorer(seed) if ranker else None
-    return (TR.RecommendAssets(ids, mat, logq, price, scorer, "hybrid"),
+    return (TR.RecommendAssets(ids, mat, logq, price, scorer, "hybrid", device="cpu"),
             JR.RecommendAssets(ids, mat, logq, price, scorer, "hybrid"))
 
 
@@ -80,6 +80,18 @@ def test_blend_host_device_and_jax_lists_are_equal(alpha, beta, k):
                                   host)                  # "auto" on a CPU asset: the host
     with pytest.raises(ValueError, match="blend backend"):
         TR.blend_topk(t, uv, HISTS, alpha, beta, k, backend="tpu")
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="the default device exists here")
+def test_bare_assets_default_to_the_card_and_raise_without_one():
+    """Assets built without a ``device`` ask for the card: ``"auto"`` scores
+    on it, and on a box without one it raises instead of scoring on the host."""
+    ids, mat, logq, price = _arrays(7)
+    assets = TR.RecommendAssets(ids, mat, logq, price)
+    assert assets.device == "cuda"
+    uv = np.random.default_rng(1).normal(size=(2, D)).astype(np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TR.blend_topk(assets, uv, HISTS[:2], 0.1, 1.0, 5, backend="auto")
 
 
 def test_rerank_serve_topk_equals_jax():
