@@ -9,8 +9,12 @@ returns per-row ``-log softmax(logits)_ii`` with
 
 On CUDA tensors the forward and both halves of the backward are the
 hand-written kernels in ``csrc/diag_ce.cu`` (sm_90a), built with ``nvcc``
-into ``csrc/build/`` on first use and called through ``ctypes``. On CPU
-tensors the same autograd function runs the plain PyTorch math of those
+into ``csrc/build/`` on first use and called through ``ctypes``. A call is
+one cooperative launch in three phases (q and k split into TF32 planes, the
+products, the merge of partial results), in a workspace the wrapper
+allocates once per device, stream and shape and reuses. The wrapper binds
+the C functions once and skips the device switch when q's device is already
+current. On CPU tensors the same autograd function runs the plain PyTorch math of those
 kernels. A CUDA tensor never takes the plain path: the kernel launches or
 the call raises.
 
@@ -24,7 +28,7 @@ import ctypes
 
 import torch
 
-from recsys_tpu_torch.ops._build import KernelLibrary, raise_on_error as _raise_on_error
+from recsys_tpu_torch.ops._build import KernelLibrary, raise_on_error
 from recsys_tpu_torch.ops.contrastive import NEG
 
 # launches per kernel; each wrapper adds one where it launches, nowhere else
@@ -40,71 +44,119 @@ def _bind(lib: ctypes.CDLL) -> None:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.diag_ce_max_dim.restype = i32
     lib.diag_ce_max_dim.argtypes = []
+    lib.diag_ce_workspace_bytes.restype = ctypes.c_size_t
+    lib.diag_ce_workspace_bytes.argtypes = [i32, i32, i32]
     lib.diag_ce_fwd.restype = i32
-    lib.diag_ce_fwd.argtypes = [ptr] * 6 + [i32, i32, f32, ptr, ptr, ptr]
+    lib.diag_ce_fwd.argtypes = [ptr] * 6 + [i32, i32, f32, ptr, ptr, ptr, ptr]
     for name in ("diag_ce_bwd_dq", "diag_ce_bwd_dk"):
         fn = getattr(lib, name)
         fn.restype = i32
-        fn.argtypes = [ptr] * 8 + [i32, i32, f32, ptr, ptr]
+        fn.argtypes = [ptr] * 8 + [i32, i32, f32, ptr, ptr, ptr]
 
 
 LIBRARY = KernelLibrary("diag_ce.cu", _bind)
 BUILD_INFO = LIBRARY.info
 load_library = LIBRARY.load
+_MODE = {"diag_ce_fwd": 0, "diag_ce_bwd_dq": 1, "diag_ce_bwd_dk": 2}  # as csrc/diag_ce.cu
+_FNS: dict = {}  # name -> bound C function, and "max_dim", once the library is loaded
+# (device index, stream, B, D) -> workspace: kernels on one stream run in order,
+# so the three kernels share one workspace a shape and reuse it call after call
+_WORKSPACE: dict = {}
+# the current stream's handle without building a Stream object (CUDA builds of torch)
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 
-def _check_cuda_inputs(q, k, corr, pos, usr, valid):
+def _kernels() -> dict:
+    if not _FNS:
+        lib = load_library()
+        _FNS.update({name: getattr(lib, name) for name in _MODE})
+        _FNS["workspace_bytes"] = lib.diag_ce_workspace_bytes
+        _FNS["max_dim"] = lib.diag_ce_max_dim()
+    return _FNS
+
+
+def _workspace(device: torch.device, stream: int, B: int, D: int) -> torch.Tensor:
+    key = (device.index, stream, B, D)
+    ws = _WORKSPACE.get(key)
+    if ws is None:
+        n_bytes = max(_FNS["workspace_bytes"](B, D, mode) for mode in _MODE.values())
+        ws = _WORKSPACE[key] = torch.empty(n_bytes, dtype=torch.uint8, device=device)
+    return ws
+
+
+def _launch(name: str, q: torch.Tensor, *args) -> tuple:
+    """``fn(*args, workspace, *outputs, stream)`` on q's device and its
+    current stream."""
+    index = q.device.index
+    if index != torch.cuda.current_device():
+        with torch.cuda.device(index):
+            return _launch(name, q, *args)
+    B, D = q.shape
+    stream = (_RAW_STREAM(index) if _RAW_STREAM is not None
+              else torch.cuda.current_stream(q.device).cuda_stream)
+    ws = _workspace(q.device, stream, B, D)
+    outs = ((torch.empty(B, dtype=torch.float32, device=q.device),
+             torch.empty(B, dtype=torch.float32, device=q.device))
+            if name == "diag_ce_fwd" else (torch.empty_like(q),))
+    code = _FNS[name](*args, ws.data_ptr(), *(o.data_ptr() for o in outs), stream)
+    raise_on_error(code, name)
+    LAUNCHES[name] += 1
+    return outs
+
+
+def _input_error(q, k, corr, pos, usr, valid) -> Exception:
     if not q.is_cuda:
-        raise RuntimeError("the diag_ce kernel takes CUDA tensors only")
+        return RuntimeError("the diag_ce kernel takes CUDA tensors only")
+    if q.dim() != 2:
+        return ValueError(f"q: want (B, D), got {tuple(q.shape)}")
     B, D = q.shape
     for name, t, dtype, shape in (
             ("q", q, torch.float32, (B, D)), ("k", k, torch.float32, (B, D)),
             ("corr", corr, torch.float32, (B,)), ("pos", pos, torch.int32, (B,)),
             ("usr", usr, torch.int32, (B,)), ("valid", valid, torch.int32, (B,))):
         if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+            return ValueError(f"{name} is on {t.device}, q on {q.device}")
         if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(f"{name}: want contiguous {dtype} {shape}, got "
-                             f"{t.dtype} {tuple(t.shape)}")
+            return ValueError(f"{name}: want contiguous {dtype} {shape}, got "
+                              f"{t.dtype} {tuple(t.shape)}")
     if B < 1:
-        raise ValueError("empty batch")
-    max_d = load_library().diag_ce_max_dim()
-    if D > max_d:
-        raise ValueError(f"embedding width {D} > {max_d}, the kernel's limit")
+        return ValueError("empty batch")
+    return ValueError(f"embedding width {D} > {_FNS['max_dim']}, the kernel's limit")
+
+
+def _checked(q, k, corr, pos, usr, valid, *rows) -> tuple[int, int]:
+    """(B, D) of inputs the kernels take; raises on any other. ``rows`` are
+    further (B,) float32 inputs (lse, g)."""
+    if q.is_cuda and q.dim() == 2:
+        _kernels()
+        B, D = q.shape
+        dev, f32, i32 = q.device, torch.float32, torch.int32
+        if (1 <= B and D <= _FNS["max_dim"] and q.dtype == f32 and k.dtype == f32
+                and k.shape == q.shape and k.device == dev
+                and q.is_contiguous() and k.is_contiguous()
+                and all(t.dtype == dt and t.shape == (B,) and t.device == dev and t.is_contiguous()
+                        for t, dt in ((corr, f32), (pos, i32), (usr, i32), (valid, i32)))):
+            for t in rows:
+                if (t.device != dev or t.dtype != f32 or t.shape != (B,)
+                        or not t.is_contiguous()):
+                    raise ValueError(f"lse, g: want contiguous float32 ({B},) on {dev}")
+            return B, D
+    raise _input_error(q, k, corr, pos, usr, valid)
 
 
 def diag_ce_fwd_cuda(q, k, corr, pos, usr, valid, temperature: float):
     """Kernel forward: (loss, lse), both (B,) fp32."""
-    _check_cuda_inputs(q, k, corr, pos, usr, valid)
-    lib = load_library()
-    B, D = q.shape
-    loss = torch.empty(B, dtype=torch.float32, device=q.device)
-    lse = torch.empty(B, dtype=torch.float32, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    code = lib.diag_ce_fwd(q.data_ptr(), k.data_ptr(), corr.data_ptr(),
-                           pos.data_ptr(), usr.data_ptr(), valid.data_ptr(),
-                           B, D, 1.0 / temperature, loss.data_ptr(),
-                           lse.data_ptr(), stream)
-    _raise_on_error(code, "diag_ce_fwd")
-    LAUNCHES["diag_ce_fwd"] += 1
-    return loss, lse
+    B, D = _checked(q, k, corr, pos, usr, valid)
+    return _launch("diag_ce_fwd", q, q.data_ptr(), k.data_ptr(), corr.data_ptr(),
+                   pos.data_ptr(), usr.data_ptr(), valid.data_ptr(), B, D,
+                   1.0 / temperature)
 
 
 def _diag_ce_bwd_cuda(name, q, k, corr, pos, usr, valid, lse, g, temperature):
-    _check_cuda_inputs(q, k, corr, pos, usr, valid)
-    B, D = q.shape
-    for arg, t in (("lse", lse), ("g", g)):
-        if t.device != q.device or t.dtype != torch.float32 \
-                or tuple(t.shape) != (B,) or not t.is_contiguous():
-            raise ValueError(f"{arg}: want contiguous float32 ({B},) on {q.device}")
-    out = torch.empty_like(q)
-    code = getattr(load_library(), name)(
-        q.data_ptr(), k.data_ptr(), corr.data_ptr(), pos.data_ptr(), usr.data_ptr(),
-        valid.data_ptr(), lse.data_ptr(), g.data_ptr(), B, D, 1.0 / temperature,
-        out.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on_error(code, name)
-    LAUNCHES[name] += 1
-    return out
+    B, D = _checked(q, k, corr, pos, usr, valid, lse, g)
+    return _launch(name, q, q.data_ptr(), k.data_ptr(), corr.data_ptr(), pos.data_ptr(),
+                   usr.data_ptr(), valid.data_ptr(), lse.data_ptr(), g.data_ptr(), B, D,
+                   1.0 / temperature)[0]
 
 
 def diag_ce_bwd_dq_cuda(q, k, corr, pos, usr, valid, lse, g, temperature: float):
@@ -114,7 +166,7 @@ def diag_ce_bwd_dq_cuda(q, k, corr, pos, usr, valid, lse, g, temperature: float)
 
 
 def diag_ce_bwd_dk_cuda(q, k, corr, pos, usr, valid, lse, g, temperature: float):
-    """Kernel backward, key side: dk (B, D) fp32, summed over rows in-block."""
+    """Kernel backward, key side: dk (B, D) fp32, partial sums merged in a fixed order."""
     return _diag_ce_bwd_cuda("diag_ce_bwd_dk", q, k, corr, pos, usr, valid, lse, g,
                              temperature)
 

@@ -18,7 +18,8 @@ in each mode it has: the wrapper's call (CUDA events), the plain form, and the
 two kernels' time on the device (``torch.profiler``). K1 is timed through the
 loss wrappers the trainers call (forward and backward) at B = 192, 768 and
 8192, D = 128, and per kernel there, in a loop (CUDA events: at small B this
-is what the Python wrapper costs) and on the device; and at the shape stage 2
+is what the Python wrapper costs), on the device, and on the host clock
+without waiting for the device (the wrapper's own cost); and at the shape stage 2
 runs, B = 768 users x 4 positions = 3072 rows with user ids repeated and
 positive ids drawn with popularity skew from a 47,000-item catalog (form
 ``stage2``, no valid mask), kernel against plain, fwd+bwd and per kernel.
@@ -59,6 +60,25 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_us(fn, iters: int, repeats: int = 5) -> float:
+    """Host time per call of ``fn`` in a loop, without waiting for the device:
+    what the Python wrapper and the launches cost the host. The least of
+    ``repeats`` loops (the host clock of a shared machine only adds noise)."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    best = float("inf")
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        best = min(best, time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return 1e6 * best / iters
 
 
 def device_ms(fn, iters: int, name: str) -> float:
@@ -203,7 +223,8 @@ def per_kernel(tag, B, dim, q, k, corr, pos, usr, valid) -> None:
     emit(tag=tag, kernel="K1", B=B, D=dim,
          per_kernel_ms={name: cuda_ms(fn, iters) for name, fn in calls.items()},
          per_kernel_plain_ms={name: cuda_ms(fn, iters) for name, fn in plain.items()},
-         per_kernel_device_ms={name: device_ms(fn, iters, "diag_ce_kernel")
+         per_kernel_host_us={name: host_us(fn, iters) for name, fn in calls.items()},
+         per_kernel_device_ms={name: device_ms(fn, iters, "diag_ce")
                                for name, fn in calls.items()})
 
 

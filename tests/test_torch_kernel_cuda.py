@@ -100,12 +100,15 @@ def _stage2_problem(users, positions, seed, device, catalog=47_000):
             "logq": t(rng.normal(-8.0, 1.0, catalog + 1).astype(np.float32))}
 
 
-@pytest.mark.parametrize("users,positions", [(768, 4), (16, 2)], ids=["B3072", "B32"])
+@pytest.mark.parametrize("users,positions", [(768, 4), (16, 2), (1024, 4)],
+                         ids=["B3072", "B32", "B4096"])
 def test_kernel_at_the_stage2_shape(device, users, positions):
-    """The default stage-2 step's loss (768 users x 4 positions = 3072 rows)
-    and the CPU test world's (16 x 2): the wrapper the step calls, no valid
-    mask, against the plain loss; each kernel against its plain form; two
-    dk calls give the same bits."""
+    """The default stage-2 step's loss (768 users x 4 positions = 3072 rows),
+    the CPU test world's (16 x 2) and B = 4096, where an earlier design
+    switched to larger blocks: the wrapper the step calls, no valid mask,
+    against the plain loss; each kernel against its plain form; two dq and
+    two dk calls give the same bits (both sum partial results of several
+    blocks, in a fixed order)."""
     p = _stage2_problem(users, positions, users, device)
     kw = dict(temperature=0.1, user_ids=p["uid"])
     ref = _grads(lambda a, b: inbatch_logq_loss(a, b, p["pos"], p["logq"], **kw),
@@ -126,9 +129,11 @@ def test_kernel_at_the_stage2_shape(device, users, positions):
     assert float(torch.maximum((loss - loss_p).abs(), (lse - lse_p).abs()).max()) <= 1e-4
     args = (p["u"], p["i"], *meta, lse_p, torch.full((B,), 1.0 / B, device=device), 0.1)
     dk = K.diag_ce_bwd_dk_cuda(*args)
-    assert float((K.diag_ce_bwd_dq_cuda(*args) - K.diag_ce_bwd_dq_plain(*args)).abs().max()) <= 1e-5
+    dq = K.diag_ce_bwd_dq_cuda(*args)
+    assert float((dq - K.diag_ce_bwd_dq_plain(*args)).abs().max()) <= 1e-5
     assert float((dk - K.diag_ce_bwd_dk_plain(*args)).abs().max()) <= 1e-5
     assert torch.equal(K.diag_ce_bwd_dk_cuda(*args), dk)
+    assert torch.equal(K.diag_ce_bwd_dq_cuda(*args), dq)
 
 
 @pytest.mark.parametrize("B", [192, 8192])
@@ -163,9 +168,10 @@ def test_kernel_per_row_outputs(device):
                                  (4100, 160), (1, 8), (17, 3), (65, 129)])
 def test_kernel_widths_and_ragged_batches(device, B, D):
     """Widths below, at and between the kernel's two padded widths (128, 256),
-    a width that is no multiple of 4 (scalar loads), and ragged batches on both
-    sides of the small-tile / large-tile dispatch: each kernel against its
-    plain form, per-row outputs."""
+    a width that is no multiple of 4 (scalar loads), and ragged batches: fewer
+    owner blocks than SMs (one tile a range), more pairs than SMs (ranges
+    across two owner blocks), B = 1: each kernel against its plain form,
+    per-row outputs."""
     p = _logq_problem(B, D, B + D, device)
     meta = (p["logq"][p["pos"] % B], p["pos"].int(), p["uid"].int(), p["valid"])
     loss, lse = K.diag_ce_fwd_cuda(p["u"], p["i"], *meta, 0.1)
@@ -177,7 +183,7 @@ def test_kernel_widths_and_ragged_batches(device, B, D):
     dq, dk = K.diag_ce_bwd_dq_cuda(*args), K.diag_ce_bwd_dk_cuda(*args)
     assert float((dq - K.diag_ce_bwd_dq_plain(*args)).abs().max()) <= 1e-5
     assert float((dk - K.diag_ce_bwd_dk_plain(*args)).abs().max()) <= 1e-5
-    # deterministic: the column groups of a block are merged in warp order
+    # deterministic: partial results are merged in a fixed order
     assert torch.equal(K.diag_ce_bwd_dk_cuda(*args), dk)
     assert torch.equal(K.diag_ce_bwd_dq_cuda(*args), dq)
     assert torch.equal(K.diag_ce_fwd_cuda(p["u"], p["i"], *meta, 0.1)[0], loss)

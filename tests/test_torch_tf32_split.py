@@ -63,7 +63,7 @@ def test_split_is_exact_up_to_two_to_the_minus_21():
 
 
 @pytest.mark.parametrize("B,D,tau", [(192, 128, 0.08), (768, 128, 0.1), (200, 64, 0.1),
-                                     (200, 256, 0.1)])
+                                     (200, 256, 0.1), (3072, 128, 0.1)])
 def test_three_terms_reproduce_the_fp32_logits_within_the_loss_tolerance(B, D, tau):
     rng = np.random.default_rng(B + D)
     q, k = unit_rows(rng, B, D), unit_rows(rng, B, D)
