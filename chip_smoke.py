@@ -37,9 +37,13 @@ then (phases 10 and 11 run after 6, while the graph of 4 is still there):
      against the plain form in fp64 (of the same rounded x): the kernel's
      error may be at most REF_ERR_MULT times the plain fp32 form's (plus
      REF_ERR_FLOOR), and the two fp32 forms may differ by at most REF_TOL. Two
-     kernel calls must give the same bits. CUDA-event times of kernel, plain
-     form and ``torch.sparse.mm`` on a CSR tensor, beside each mode's byte
-     bound (x counted in 2 bytes in "bf16").
+     kernel calls must give the same bits. A call is one launch: the hub rows
+     (rows of more than 256 edges) are finished inside it, and must equal
+     ``hub_finish_plain`` of the partial rows it wrote bit for bit; 200 calls
+     and three replays of a CUDA-graph capture must equal the eager call bit
+     for bit, and the arrival counters must be zero after them. CUDA-event
+     times of kernel, plain form and ``torch.sparse.mm`` on a CSR tensor,
+     beside each mode's byte bound (x counted in 2 bytes in "bf16").
   5. GNN slice: etl -> train-gnn -> distill -> gnn-eval through the CLI on
      the world of phase 2, default widths, two epochs, the trainer in the
      mode ``select_propagation`` picks on the card ("bf16"); K2's counts are
@@ -232,7 +236,6 @@ REPLACES = {
     "diag_ce_bwd_dq": "recsys_tpu/ops/pallas_contrastive.py:97",
     "diag_ce_bwd_dk": "recsys_tpu/ops/pallas_contrastive.py:97",
     "spmm_csr": "recsys_tpu/ops/pallas_spmm.py:237",
-    "spmm_hub_reduce": "recsys_tpu/ops/pallas_spmm.py:237",
     "fm_fwd": "recsys_tpu/ops/pallas_fm.py:31",
     "fm_bwd": "recsys_tpu/ops/pallas_fm.py:31",
     "ring_uni": "recsys_tpu/parallel/pallas_ring.py:81",
@@ -672,8 +675,8 @@ def spmm_phase(device, graph) -> dict:
         S.reset_launch_counts()
         out, dx = spmm_value_and_grad(layout, x, g, mode)
         torch.cuda.synchronize()
-        check(S.LAUNCHES == {"spmm_csr": 2, "spmm_hub_reduce": 2},
-              f"K2 {mode} forward + backward launches: {S.LAUNCHES}")
+        check(S.LAUNCHES == {"spmm_csr": 2},
+              f"K2 {mode} forward + backward: one launch each: {S.LAUNCHES}")
         check(torch.equal(S.spmm_cuda(layout, x, mode), out),
               f"K2 {mode}: two calls differ in their bits")
         outs[mode] = out
@@ -692,58 +695,32 @@ def spmm_phase(device, graph) -> dict:
     bf16_vs_f32 = max_err(outs["bf16"], outs["f32"])   # what the trainer's mode rounds away
     out = outs["f32"]
 
-    # each kernel alone against its plain form, with times
+    # the kernel alone against its plain form, with times
     partial = torch.empty((layout.num_partials, dim), device=device)
     scratch = torch.empty_like(x)
     stream = torch.cuda.current_stream().cuda_stream
-    lib = S.load_library()
     x_as = {"f32": x, "bf16": x.to(torch.bfloat16)}
 
-    def segments_only(mode):  # spmm_csr without the cast and the hub pass; not counted
-        code = lib.spmm_csr(layout.seg_order.data_ptr(), layout.seg_ptr.data_ptr(),
-                            layout.seg_out.data_ptr(), layout.col.data_ptr(),
-                            layout.val.data_ptr(), x_as[mode].data_ptr(), int(mode == "bf16"),
-                            scratch.data_ptr(), partial.data_ptr(), layout.num_segments,
-                            dim, stream)
-        check(code == 0, f"spmm_csr: cudaError_t {code}")
+    def segments_only(mode):  # spmm_csr without the cast of x; not counted
+        S.launch_csr(layout, x_as[mode], scratch, partial, stream)
 
-    def hub_only():
-        code = lib.spmm_hub_reduce(layout.hub_row.data_ptr(), layout.hub_ptr.data_ptr(),
-                                   partial.data_ptr(), scratch.data_ptr(),
-                                   layout.num_hubs, dim, stream)
-        check(code == 0, f"spmm_hub_reduce: cudaError_t {code}")
-
-    def hub_plain():  # the same sum of partial rows in plain PyTorch
-        owner = torch.repeat_interleave(layout.hub_row.long(), layout.hub_ptr.diff().long())
-        return torch.zeros_like(x).index_add_(0, owner, partial)
-
-    hub_offsets = layout.hub_ptr.long()
-
-    def hub_library():  # one PyTorch call for the per-hub sums (rows not scattered)
-        return torch.segment_reduce(partial, "sum", offsets=hub_offsets, axis=0)
-
-    segments_only("f32")
-    hub_rows = S.spmm_cuda(layout, x, "f32")[layout.hub_row.long()]
-    hub_err = max_err(hub_plain()[layout.hub_row.long()], hub_rows)
-    check(hub_err <= REF_TOL, f"spmm_hub_reduce vs plain: {hub_err}")
-    hub_lib_err = max_err(hub_library(), hub_rows)
-    check(hub_lib_err <= REF_TOL, f"spmm_hub_reduce vs segment_reduce: {hub_lib_err}")
+    hub_finish = hub_finish_checks(layout, x, scratch, partial, segments_only)
     a_csr = torch.sparse_csr_tensor(layout.rowptr, layout.col, layout.val, size=(n, n))
     lib_err = max_err(torch.sparse.mm(a_csr, x), out)
-    E, P, H = layout.num_edges, layout.num_partials, layout.num_hubs
+    E = layout.num_edges
     by_mode = {}
     for mode in S.PRECISIONS:
         csr_ms, plain_ms = interleaved_ms(lambda: segments_only(mode),
                                           lambda: S.spmm_plain(layout, x, mode), 20)
-        both_ms, library_ms = interleaved_ms(lambda: S.spmm_cuda(layout, x, mode),
-                                             lambda: torch.sparse.mm(a_csr, x), 20)
+        wrapper_ms, library_ms = interleaved_ms(lambda: S.spmm_cuda(layout, x, mode),
+                                                lambda: torch.sparse.mm(a_csr, x), 20)
         x_bytes = x_as[mode].element_size()
         by_mode[mode] = {
             "max_abs_err": max(errs[mode]["fwd"]["kernel_vs_plain"],
                                errs[mode]["grad"]["kernel_vs_plain"], small_err[mode]),
             "ms": csr_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            # the wrapper's call: the cast of x (bf16), spmm_csr, spmm_hub_reduce
-            "wrapper_ms": both_ms,
+            # the wrapper's call: the cast of x (bf16), then the one launch
+            "wrapper_ms": wrapper_ms,
             # x (in the mode's type), col, val, rowptr read once; out written once in
             # fp32; one multiply-add per edge and feature
             **bound(n * dim * (x_bytes + 4) + 4 * (2 * E + n + 1), 2.0 * E * dim)}
@@ -754,27 +731,79 @@ def spmm_phase(device, graph) -> dict:
         by_mode[mode]["cache_share_at_least"] = max(
             0.0, 1.0 - 1e-3 * csr_ms * PEAK_BYTES_PER_S / gathered)
     cast_ms = cuda_ms(lambda: x.to(torch.bfloat16), 50)
-    segments_only("f32")
-    hub_ms, hub_plain_ms = interleaved_ms(hub_only, hub_plain, 50)
-    _, hub_library_ms = interleaved_ms(hub_only, hub_library, 50)
+    check(int(S.hub_counters(layout, stream).abs().sum()) == 0,
+          "K2: arrival counters not zero after the timed calls")
     main = by_mode["bf16"]   # the trainer's mode
     stats = {
         "small_graph_err": small_err, "reference_scale": errs, "layout_seconds": layout_s,
         "bf16_vs_f32_out": bf16_vs_f32, "bf16_cast_ms": cast_ms,
         "shape": {"nodes": n, "edges": E, "dim": dim, "segments": layout.num_segments,
-                  "hub_rows": H, "partials": P,
+                  "hub_rows": layout.num_hubs, "partials": layout.num_partials,
                   "max_row": int(layout.rowptr.diff().max())},
         "spmm_csr": {**main, "mode": "bf16", "f32": by_mode["f32"],
-                     "library_vs_kernel_err": lib_err},
-        "spmm_hub_reduce": {"max_abs_err": hub_err, "ms": hub_ms, "plain_ms": hub_plain_ms,
-                            # after spmm_csr, as the wrapper runs it: its partial rows
-                            # are then no longer all in cache
-                            "ms_after_spmm_csr": main["wrapper_ms"] - main["ms"] - cast_ms,
-                            "library_ms": hub_library_ms,
-                            "library_vs_kernel_err": hub_lib_err,
-                            **bound(4 * (P * dim + H * dim + 2 * H + 1), float(P * dim))},
+                     "library_vs_kernel_err": lib_err, "hub_finish": hub_finish},
     }
     return stats
+
+
+def hub_finish_checks(layout, x, out, partial, segments_only) -> dict:
+    """The hub rows K2 finishes inside its launch, on the reference-scale
+    graph: bit-equal to ``hub_finish_plain`` of the partial rows that launch
+    wrote (both modes); one launch a call; 200 calls bit-identical; a
+    CUDA-graph capture replayed three times bit-equal to the eager call; the
+    arrival counters at zero after all of it. Times of the plain finish and
+    of ``torch.segment_reduce`` on the same partial rows, beside the bound of
+    a separate pass (partial rows read once, hub rows written once)."""
+    hub_row = layout.hub_row.long()
+    equal = {}
+    for mode in S.PRECISIONS:
+        segments_only(mode)
+        torch.cuda.synchronize()
+        equal[mode] = torch.equal(out[hub_row], S.hub_finish_plain(layout, partial))
+        check(equal[mode], f"K2 {mode}: hub rows differ from hub_finish_plain")
+    S.reset_launch_counts()
+    first = S.spmm_cuda(layout, x, "bf16")
+    check(S.LAUNCHES == {"spmm_csr": 1}, f"K2: launches a call {S.LAUNCHES}")
+    differ = sum(not torch.equal(S.spmm_cuda(layout, x, "bf16"), first) for _ in range(200))
+    check(differ == 0, f"K2: {differ} of 200 calls differ from the first in their bits")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):   # the capture stream's counters, made before capture
+        S.spmm_cuda(layout, x, "bf16")
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        captured = S.spmm_cuda(layout, x, "bf16")
+    replays_equal = True
+    for _ in range(3):
+        captured.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        replays_equal &= torch.equal(captured, first)
+    check(replays_equal, "K2: a CUDA-graph replay differs from the eager call")
+    stream = torch.cuda.current_stream().cuda_stream
+    zero = all(int(S.hub_counters(layout, s).abs().sum()) == 0
+               for s in (stream, side.cuda_stream))
+    check(zero, "K2: arrival counters not zero after the calls")
+    del graph, captured
+
+    segments_only("f32")
+    offsets = layout.hub_ptr.long()
+    library = torch.segment_reduce(partial, "sum", offsets=offsets, axis=0)
+    plain = S.hub_finish_plain(layout, partial)
+    library_err = max_err(library, plain)
+    check(library_err <= REF_TOL, f"K2 hub rows vs segment_reduce: {library_err}")
+    plain_ms = cuda_ms(lambda: S.hub_finish_plain(layout, partial), 5)
+    library_ms = cuda_ms(lambda: torch.segment_reduce(partial, "sum", offsets=offsets,
+                                                      axis=0), 50)
+    P, H, dim = layout.num_partials, layout.num_hubs, x.shape[1]
+    return {"hub_rows": H, "partial_rows": P,
+            "largest_hub_segments": int(layout.hub_ptr.diff().max()) if H else 0,
+            "bit_equal": equal, "calls_differing_of_200": differ,
+            "graph_replays_bit_equal": replays_equal, "counters_zero": zero,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_vs_plain_err": library_err,
+            "separate_pass_bound": bound(4 * (P * dim + H * dim + 2 * H + 1), float(P * dim))}
 
 
 # -- phase 5: the GNN slice through the CLI -------------------------------
@@ -819,7 +848,7 @@ def gnn_slice_phase(root: str) -> dict:
     # forward and backward of two layers a step; the export and the check propagate once each
     expected = 4 * train["steps"] + 2 * 2
     check(train["device"].startswith("cuda") and train["steps"] > 0
-          and launches == {"spmm_csr": expected, "spmm_hub_reduce": expected},
+          and launches == {"spmm_csr": expected},
           f"train-gnn on {train['device']}: {train['steps']} steps, K2 launches {launches}")
     check(train["check"]["ok"], f"propagation check: {train['check']}")
     losses = train["epoch_losses"]
@@ -871,8 +900,7 @@ def trainer_phase(root: str, graph, edges_u, edges_i) -> dict:
     seconds = time.perf_counter() - t0
     launches = dict(S.LAUNCHES)
     per_step = 2 * cfg.gnn.num_layers  # forward and backward of every layer
-    check(state.step == steps and launches == {"spmm_csr": per_step * steps,
-                                               "spmm_hub_reduce": per_step * steps},
+    check(state.step == steps and launches == {"spmm_csr": per_step * steps},
           f"trainer: {state.step} steps, launches {launches}")
     check(len(state.losses) == 1 and np.isfinite(state.losses[0]),
           f"trainer loss: {state.losses}")
@@ -2423,6 +2451,8 @@ def main() -> None:
                                                  "bound_by", "library_ms")}}
                 for name in S.LAUNCHES]
     kernels[len(K.LAUNCHES)].update({"mode": "bf16", "f32_mode": sstats["spmm_csr"]["f32"],
+                                     "wrapper_ms": sstats["spmm_csr"]["wrapper_ms"],
+                                     "hub_finish": sstats["spmm_csr"]["hub_finish"],
                                      "cli_path_graph": gnn["spmm_at_this_graph"]})
     # K3's times are at the training shape, where most of its launches are; the
     # scoring shape (one launch a request) goes beside them

@@ -16,13 +16,19 @@ exact of the two. The backward runs in the forward's mode.
 ``block_graph``): weight-0 padding edges are dropped, the kept edges are
 sorted by destination into CSR, and rows longer than ``max_segment`` edges
 are cut into segments so that no warp walks a hub row alone (see the note
-in ``csrc/spmm.cu``); ``seg_order`` hands the kernel the segments longest
-first. It refuses a matrix that is not symmetric, because the backward is the
-same product on the incoming gradient.
+in ``csrc/spmm.cu``); ``seg_order`` hands the kernel the hub rows' segments
+first (longest first, largest hub first), then the other rows longest first.
+It refuses a matrix that is not symmetric, because the backward is the same
+product on the incoming gradient.
 
-On CUDA tensors the forward and the backward are the hand-written kernels in
-``csrc/spmm.cu`` (sm_90a), built with ``nvcc`` into ``csrc/build/`` at first
-use and called through ``ctypes``. On CPU tensors the same autograd function
+On CUDA tensors the forward and the backward are the hand-written kernel in
+``csrc/spmm.cu`` (sm_90a), one launch a call, built with ``nvcc`` into
+``csrc/build/`` at first use and called through ``ctypes``. A hub row is
+finished inside that launch by the warp of its segments that arrives last, in
+segment order; its arrivals are counted in an (H,) int32 workspace that the
+layout keeps for each (device, stream) and that every launch leaves at zero,
+so that calls on two streams never share counters and a CUDA graph can
+capture and replay the call. On CPU tensors the same autograd function
 runs ``spmm_plain``, the same sum (and, in ``"bf16"``, the same rounding of
 ``x``) written with ``index_select`` and ``index_add_``. A CUDA tensor never
 takes the plain path: the kernel launches or the call raises.
@@ -31,7 +37,7 @@ takes the plain path: the kernel launches or the call raises.
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -40,7 +46,7 @@ from recsys_tpu_torch.device import resolve_device
 from recsys_tpu_torch.ops._build import KernelLibrary, raise_on_error
 
 # launches per kernel; each wrapper adds one where it launches, nowhere else
-LAUNCHES = {"spmm_csr": 0, "spmm_hub_reduce": 0}
+LAUNCHES = {"spmm_csr": 0}
 MAX_SEGMENT = 256  # edges one warp walks; longer rows are cut (csrc/spmm.cu)
 PRECISIONS = ("bf16", "f32")
 
@@ -55,9 +61,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.spmm_supports_dim.restype = i32
     lib.spmm_supports_dim.argtypes = [i32]
     lib.spmm_csr.restype = i32
-    lib.spmm_csr.argtypes = [ptr] * 6 + [i32, ptr, ptr, i32, i32, ptr]
-    lib.spmm_hub_reduce.restype = i32
-    lib.spmm_hub_reduce.argtypes = [ptr] * 4 + [i32, i32, ptr]
+    lib.spmm_csr.argtypes = [ptr] * 6 + [i32] + [ptr] * 6 + [i32, i32, ptr]
 
 
 LIBRARY = KernelLibrary("spmm.cu", _bind)
@@ -75,9 +79,14 @@ class CsrGraph:
     destination, for the plain form). Segment ``s`` covers the edges
     ``seg_ptr[s]:seg_ptr[s + 1]``; ``seg_out[s] >= 0`` is the output row it
     owns alone, otherwise ``-(slot + 1)`` names its partial-sum slot. Hub
-    row ``hub_row[h]`` is the sum of the slots ``hub_ptr[h]:hub_ptr[h + 1]``.
-    ``seg_order`` lists the segments longest first (ties in row order): the
-    order in which the kernel's warps take them.
+    row ``hub_row[h]`` is the sum of the slots ``hub_ptr[h]:hub_ptr[h + 1]``
+    in that order, and ``slot_hub[slot]`` is the hub ``h`` a slot belongs to.
+    ``seg_order`` is the order in which the kernel's warps take the segments:
+    the hub rows' segments first, longest first, equal lengths by hub
+    (segment count largest first, then row order) in segment order; then the
+    other rows' segments longest first (ties in row order). ``hub_count``
+    holds the kernel's arrival counters, one (H,) int32 tensor for each
+    (device index, stream).
     """
 
     num_nodes: int
@@ -90,6 +99,8 @@ class CsrGraph:
     seg_order: torch.Tensor # (S,) int32
     hub_row: torch.Tensor   # (H,) int32
     hub_ptr: torch.Tensor   # (H + 1,) int32
+    slot_hub: torch.Tensor  # (P,) int32
+    hub_count: dict = field(default_factory=dict, repr=False, compare=False)
 
     @property
     def num_edges(self) -> int:
@@ -176,15 +187,36 @@ def csr_graph(src, dst, weight, num_nodes: int, max_segment: int = MAX_SEGMENT,
     seg_out = seg_row.clone()
     seg_out[is_hub_seg] = -(torch.arange(int(is_hub_seg.sum()), device=device) + 1)
     hub_row = torch.nonzero(segs_per_row > 1).flatten()
-    hub_ptr = torch.cat([zero, segs_per_row[hub_row].cumsum(0)])
-    seg_order = torch.sort(seg_ptr.diff(), descending=True, stable=True).indices
+    hub_segs = segs_per_row[hub_row]
+    hub_ptr = torch.cat([zero, hub_segs.cumsum(0)])
+    slot_hub = torch.repeat_interleave(torch.arange(hub_row.shape[0], device=device), hub_segs)
+    lengths = seg_ptr.diff()
+    seg_order = torch.cat([_hub_segments_first(lengths, segs_per_row[seg_row], is_hub_seg),
+                           _longest_first(lengths, ~is_hub_seg)])
 
     i32 = torch.int32
     return CsrGraph(num_nodes=int(num_nodes), rowptr=rowptr.to(i32), row=row.to(i32),
                     col=col.to(i32), val=val.contiguous(), seg_ptr=seg_ptr.to(i32),
                     seg_out=seg_out.to(i32), seg_order=seg_order.to(i32),
-                    hub_row=hub_row.to(i32),
-                    hub_ptr=hub_ptr.to(i32))
+                    hub_row=hub_row.to(i32), hub_ptr=hub_ptr.to(i32),
+                    slot_hub=slot_hub.to(i32))
+
+
+def _hub_segments_first(lengths, row_segs, is_hub_seg):
+    """The hub rows' segments, longest first; ties (the full-length ones) by
+    hub, largest hub first, each hub's in segment order. So the walks that
+    finish the hubs start early in the grid, and a block of 8 warps holds
+    segments of one length, as in the rest of the order (a short warp beside
+    long ones would leave its slot idle until the block retires)."""
+    index = torch.nonzero(is_hub_seg).flatten()
+    index = index[torch.sort(row_segs[index], descending=True, stable=True).indices]
+    return index[torch.sort(lengths[index], descending=True, stable=True).indices]
+
+
+def _longest_first(lengths, keep):
+    """The segments where ``keep``, longest first, ties in segment (= row) order."""
+    index = torch.nonzero(keep).flatten()
+    return index[torch.sort(lengths[index], descending=True, stable=True).indices]
 
 
 # -- the product ----------------------------------------------------------------
@@ -204,9 +236,48 @@ def _check_input(layout: CsrGraph, x: torch.Tensor) -> None:
         raise ValueError(f"x has {x.shape[0]} rows, the graph {layout.num_nodes} nodes")
 
 
+def hub_counters(layout: CsrGraph, stream: int) -> torch.Tensor:
+    """The (H,) int32 arrival counters of launches on ``stream`` (a raw
+    stream handle): made zero once, and left at zero by every launch."""
+    key = (layout.device.index, stream)
+    counters = layout.hub_count.get(key)
+    if counters is None:
+        counters = layout.hub_count[key] = torch.zeros(
+            max(layout.num_hubs, 1), dtype=torch.int32, device=layout.device)
+    return counters
+
+
+def launch_csr(layout: CsrGraph, src: torch.Tensor, out: torch.Tensor,
+               partial: torch.Tensor, stream: int) -> None:
+    """One launch of the kernel on ``stream``: ``out = A @ src`` with ``src``
+    the (N, D) fp32 or bf16 rows it gathers and ``partial`` the (P, D) fp32
+    rows of the hub segments. Not counted in ``LAUNCHES``: ``spmm_cuda``
+    counts its own. A failed launch drops the stream's counters, so that the
+    next launch starts from zeros, and raises."""
+    N, D = src.shape
+    if not (src.dtype in (torch.float32, torch.bfloat16) and N == layout.num_nodes
+            and out.shape == src.shape and partial.shape == (layout.num_partials, D)
+            and out.dtype == partial.dtype == torch.float32
+            and all(t.is_contiguous() and t.device == layout.device
+                    for t in (src, out, partial))):
+        raise ValueError("launch_csr: want contiguous src (N, D) fp32 or bf16, out (N, D) "
+                         "and partial (P, D) fp32 on the layout's device")
+    counters = hub_counters(layout, stream)
+    code = load_library().spmm_csr(
+        layout.seg_order.data_ptr(), layout.seg_ptr.data_ptr(), layout.seg_out.data_ptr(),
+        layout.col.data_ptr(), layout.val.data_ptr(), src.data_ptr(),
+        int(src.dtype == torch.bfloat16), out.data_ptr(), partial.data_ptr(),
+        layout.slot_hub.data_ptr(), layout.hub_ptr.data_ptr(), layout.hub_row.data_ptr(),
+        counters.data_ptr(), layout.num_segments, D, stream)
+    if code != 0:
+        layout.hub_count.pop((layout.device.index, stream), None)
+    raise_on_error(code, "spmm_csr")
+
+
 def spmm_cuda(layout: CsrGraph, x: torch.Tensor, precision: str = "f32") -> torch.Tensor:
-    """The kernels: (N, D) fp32 on the card -> (N, D) fp32, deterministic.
-    In ``"bf16"`` the kernel gathers from a bf16 copy of ``x`` made here."""
+    """The kernel: (N, D) fp32 on the card -> (N, D) fp32, deterministic, one
+    launch. In ``"bf16"`` the kernel gathers from a bf16 copy of ``x`` made
+    here first."""
     _check_precision(precision)
     if not x.is_cuda:
         raise RuntimeError("the spmm kernel takes CUDA tensors only")
@@ -218,22 +289,29 @@ def spmm_cuda(layout: CsrGraph, x: torch.Tensor, precision: str = "f32") -> torc
                          "(gnn.propagation=segment_sum runs any width)")
     out = torch.empty_like(x)
     partial = torch.empty((layout.num_partials, D), dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
         src = x.to(torch.bfloat16) if precision == "bf16" else x
-        code = lib.spmm_csr(layout.seg_order.data_ptr(), layout.seg_ptr.data_ptr(),
-                            layout.seg_out.data_ptr(), layout.col.data_ptr(),
-                            layout.val.data_ptr(), src.data_ptr(), int(precision == "bf16"),
-                            out.data_ptr(), partial.data_ptr(), layout.num_segments, D,
-                            stream)
-        raise_on_error(code, "spmm_csr")
+        launch_csr(layout, src, out, partial, stream)
         LAUNCHES["spmm_csr"] += 1
-        if layout.num_hubs:
-            code = lib.spmm_hub_reduce(layout.hub_row.data_ptr(), layout.hub_ptr.data_ptr(),
-                                       partial.data_ptr(), out.data_ptr(),
-                                       layout.num_hubs, D, stream)
-            raise_on_error(code, "spmm_hub_reduce")
-            LAUNCHES["spmm_hub_reduce"] += 1
+    return out
+
+
+def hub_finish_plain(layout: CsrGraph, partial: torch.Tensor) -> torch.Tensor:
+    """The hub rows from the kernel's partial rows: (P, D) fp32 -> (H, D) fp32,
+    row h the sum of the slots ``hub_ptr[h]:hub_ptr[h + 1]`` in slot order,
+    from 0, in float32, as the kernel's finishing warp adds them."""
+    ptr = layout.hub_ptr.long()
+    counts, by_size = torch.sort(ptr.diff(), descending=True)
+    first = ptr[:-1][by_size]
+    sizes = counts.cpu().numpy()
+    acc = torch.zeros((layout.num_hubs, partial.shape[1]), dtype=torch.float32,
+                      device=partial.device)
+    for k in range(int(sizes[0]) if layout.num_hubs else 0):
+        live = int(np.searchsorted(-sizes, -k, side="left"))   # hubs of more than k slots
+        acc[:live] += partial[first[:live] + k].float()
+    out = torch.empty_like(acc)
+    out[by_size] = acc
     return out
 
 

@@ -14,8 +14,10 @@ object; the first names the card and its power limit.
 
 K2 is timed at the reference-scale graph of ``chip_smoke.py`` (200,000 users,
 47,000 items, 11.3M interactions -> 22.6M directed edges, D = 64): the kernel
-in each mode it has: the wrapper's call (CUDA events), the plain form, and the
-two kernels' time on the device (``torch.profiler``). K1 is timed through the
+in each mode it has: the wrapper's call (CUDA events), the plain form, the
+segment kernel's time on the device (``torch.profiler``) and, for a checkout
+that still finishes the hub rows in a second kernel, that kernel's (0 where
+the segment kernel finishes them itself), and the launches a call. K1 is timed through the
 loss wrappers the trainers call (forward and backward) at B = 192, 768 and
 8192, D = 128, and per kernel there, in a loop (CUDA events: at small B this
 is what the Python wrapper costs), on the device, and on the host clock
@@ -140,6 +142,9 @@ def k2(tag: str, quick: bool) -> None:
                    "max_abs_err": float((out - ref).abs().max()),
                    "bit_equal": bool(torch.equal(call(layout, x, mode), out))}
             del ref
+            S.reset_launch_counts()
+            call(layout, x, mode)
+            row["launches_per_call"] = sum(S.LAUNCHES.values())
             if not quick:
                 row["wrapper_ms"] = cuda_ms(lambda: call(layout, x, mode), 20)
                 if dim == 64:

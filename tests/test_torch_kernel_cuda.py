@@ -244,8 +244,7 @@ def test_spmm_kernel_matches_plain(device, graph, max_segment, D, precision):
     out = S.spmm(layout, xk, precision)
     (dx,) = torch.autograd.grad((out * g).sum(), xk)
     torch.cuda.synchronize()
-    assert S.LAUNCHES["spmm_csr"] == 2  # forward and backward
-    assert S.LAUNCHES["spmm_hub_reduce"] == (2 if layout.num_hubs else 0)
+    assert S.LAUNCHES == {"spmm_csr": 2}  # forward and backward, one launch each
     assert out.dtype == torch.float32 and dx.dtype == torch.float32
     assert float((out.detach() - S.spmm_plain(layout, x, precision)).abs().max()) <= 1e-5
     assert float((dx - S.spmm_plain(layout, g, precision)).abs().max()) <= 1e-5
@@ -257,6 +256,69 @@ def test_spmm_kernel_matches_plain(device, graph, max_segment, D, precision):
         # the exact mode on the rounded input sums the same values, in another order
         rounded = S.spmm_cuda(layout, x.bfloat16().float(), "f32")
         assert float((out.detach() - rounded).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("D", [64, 32, 128])
+@pytest.mark.parametrize("graph,max_segment", [("small", 8), ("skewed", 256)])
+def test_spmm_hub_rows_bit_equal_to_the_plain_finish(device, graph, max_segment, D, precision):
+    """The hub rows the kernel finishes inside its launch are, bit for bit,
+    ``hub_finish_plain`` of the partial rows that launch wrote."""
+    src, dst, w, n = _small_graph() if graph == "small" else _skewed_graph()
+    layout = S.csr_graph(src, dst, w, n, max_segment=max_segment, device=device)
+    assert layout.num_hubs > 0
+    x = torch.randn(n, D, device=device)
+    src_x = x.bfloat16() if precision == "bf16" else x
+    out = torch.empty_like(x)
+    partial = torch.empty((layout.num_partials, D), device=device)
+    stream = torch.cuda.current_stream().cuda_stream
+    S.reset_launch_counts()
+    for _ in range(3):
+        S.launch_csr(layout, src_x, out, partial, stream)
+        torch.cuda.synchronize()
+        hub_rows = out[layout.hub_row.long()]
+        assert torch.equal(hub_rows, S.hub_finish_plain(layout, partial))
+    assert S.LAUNCHES == {"spmm_csr": 0}   # the uncounted entry
+    assert torch.equal(out, S.spmm_cuda(layout, x, precision))
+
+
+def test_spmm_counters_are_zero_after_many_calls(device):
+    """200 calls in a row: each is bit-identical to the first, and every
+    arrival counter is back at zero (a missing fence or reset would show as
+    an odd hub row once in many calls)."""
+    src, dst, w, n = _skewed_graph()
+    layout = S.csr_graph(src, dst, w, n, max_segment=64, device=device)
+    x = torch.randn(n, 64, device=device)
+    first = S.spmm_cuda(layout, x, "bf16")
+    S.reset_launch_counts()
+    differ = sum(not torch.equal(S.spmm_cuda(layout, x, "bf16"), first) for _ in range(200))
+    assert differ == 0 and S.LAUNCHES == {"spmm_csr": 200}
+    counters = S.hub_counters(layout, torch.cuda.current_stream().cuda_stream)
+    assert counters.shape == (layout.num_hubs,) and int(counters.abs().sum()) == 0
+
+
+def test_spmm_cuda_graph_replay_is_bit_equal_to_the_eager_call(device):
+    src, dst, w, n = _skewed_graph()
+    layout = S.csr_graph(src, dst, w, n, device=device)
+    assert layout.num_hubs > 0
+    x = torch.randn(n, 64, device=device)
+    eager = S.spmm_cuda(layout, x, "bf16")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):   # the capture stream's counters are made before capture
+        S.spmm_cuda(layout, x, "bf16")
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    S.reset_launch_counts()
+    with torch.cuda.graph(graph, stream=side):
+        captured = S.spmm_cuda(layout, x, "bf16")
+    assert S.LAUNCHES == {"spmm_csr": 1}
+    for _ in range(3):
+        captured.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, eager)
+    assert int(S.hub_counters(layout, side.cuda_stream).abs().sum()) == 0
 
 
 def test_trainer_mode_on_the_card(device):

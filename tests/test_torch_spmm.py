@@ -177,6 +177,8 @@ def test_duplicate_pairs_sum(graph):
 
 
 def test_wrapper_checks_its_input(graph):
+    """Its ``LAUNCHES`` check replaces the earlier one, which also named the
+    separate hub kernel."""
     layout = S.csr_graph(graph.src, graph.dst, graph.weight, graph.num_nodes, device="cpu")
     x = torch.zeros(graph.num_nodes, 8)
     with pytest.raises(ValueError, match="rows"):
@@ -184,7 +186,8 @@ def test_wrapper_checks_its_input(graph):
     with pytest.raises(RuntimeError, match="CUDA"):
         S.spmm_cuda(layout, x)
     assert S.spmm(layout, x.double()).dtype == torch.float32
-    assert S.LAUNCHES == {"spmm_csr": 0, "spmm_hub_reduce": 0}  # no kernel on the CPU
+    # no kernel on the CPU; one kernel on the card (the hub pass has no launch of its own)
+    assert S.LAUNCHES == {"spmm_csr": 0}
 
 
 # -- the "bf16" mode -------------------------------------------------------------
@@ -265,12 +268,30 @@ def test_spmm_precision_is_checked(graph):
 
 @pytest.mark.parametrize("max_segment", [256, 16, 1])
 def test_layout_orders_segments_longest_first(graph, max_segment):
+    """The order the kernel's warps take the segments in: every hub row's
+    segment first, longest first, equal lengths by hub (segment count largest
+    first, then row order), each hub's in segment order; then the other rows'
+    segments longest first, ties in row order. Replaces this test's earlier
+    check of one longest-first order over all segments, hub or not."""
     layout = S.csr_graph(graph.src, graph.dst, graph.weight, graph.num_nodes,
                          max_segment=max_segment, device="cpu")
     order = layout.seg_order.numpy()
     assert order.dtype == np.int32
     assert sorted(order.tolist()) == list(range(layout.num_segments))   # every segment once
-    lengths = np.diff(layout.seg_ptr.numpy())[order]
-    assert (np.diff(lengths) <= 0).all() and lengths[0] == lengths.max()
-    ties = np.diff(lengths) == 0
-    assert (np.diff(order)[ties] > 0).all()              # equal lengths stay in row order
+    lengths = np.diff(layout.seg_ptr.numpy())
+    seg_out = layout.seg_out.numpy()
+    P = layout.num_partials
+    head, tail = order[:P], order[P:]
+    assert (seg_out[head] < 0).all() and (seg_out[tail] >= 0).all()     # the hubs' first
+    # the head: longest first, then larger hubs, then segment order
+    hub = layout.slot_hub.numpy()[-(seg_out[head] + 1)]
+    size = np.diff(layout.hub_ptr.numpy())[hub]
+    key = np.stack([-lengths[head], -size, head], 1)
+    assert all(tuple(a) < tuple(b) for a, b in zip(key[:-1], key[1:]))
+    # the tail: longest first, equal lengths in row order
+    tail_lengths = lengths[tail]
+    assert (np.diff(tail_lengths) <= 0).all()
+    ties = np.diff(tail_lengths) == 0
+    assert (np.diff(tail)[ties] > 0).all()
+    if max_segment < 256:
+        assert layout.num_hubs > 0 and lengths[head[0]] == max_segment
