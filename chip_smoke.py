@@ -182,6 +182,28 @@ then (phases 10 and 11 run after 6, while the graph of 4 is still there):
      launches and device time a step, pretrained beside hash; then each
      encoder's step median over 10 untraced steps, in turns (hash,
      pretrained, pretrained, hash), and the host CPU's name.
+  20. the main path at the H&M catalog: the world of
+     scripts/quality_hm_v4_data.sh (105,000 items, 365 days,
+     ``data.repeat_prob=0.10``, ``data.name_style_words=2``) cut to fit the
+     run: users 1,370,000 -> 60,000, ``simcse.epochs`` 3 -> 1,
+     ``user_train.epochs`` 25 -> 1, HM_CUT_REQUESTS recommendations. Through
+     the CLI: gen-data -> etl (host work, in a child process started
+     before the kernels build, so that it runs beside phases 1-19) ->
+     train-item (full width, 546 steps) -> vectorize -> train-user (full
+     width) -> eval -> serve --model-backed
+     with ``serve.user_backend=stage2``, blend mode over the 105,001-row
+     catalog. Gates: gen-data's and etl's JSON, eval's n_eval and the
+     popularity and repurchase baselines (within 1e-12) equal to
+     HM_CUT_REF, the JAX package's numbers; each K1 kernel exactly twice a
+     train-item step and once a train-user step, none from eval; train-item's
+     losses finite and falling (the mean of the last 50 steps below the
+     first 50's), train-user's finite (one epoch); Recall@{20,100,500} > 0;
+     the served user vector within SERVE_TOL of the tower's; tie order:
+     ``topk_scores``, the device blend and the blend sweep on a 105,001-row
+     matrix of repeated rows equal to a numpy reference that puts equal
+     scores lowest index first (``np.lexsort``). Then ``topk_scores``'
+     top-500 at (768, 105,001): ``torch.topk`` against ``stable_topk`` on
+     the same scores, in turns, and the whole call, CUDA events.
 
 Phase 2 also holds each K1 kernel to exactly two launches a step.
 
@@ -280,6 +302,31 @@ RETRIEVAL_CATALOGS = ((47_000, 500, 256, 32), (47_000, 50, 256, 16),
 RETRIEVAL_B, RETRIEVAL_REPS, IVF_TOL, IVF_BUILD_LIMIT_S = 1024, 20, 1e-5, 120.0
 # phase 18: similarity queries a backend, users whose purchases feed /train/user-tower
 SIMILARITY_QUERIES, TRAIN_ROUTE_USERS = 16, 64
+# phase 20: the H&M world's shape (scripts/quality_hm_v4_data.sh) with its users cut
+# from 1,370,000 to 60,000; one epoch of each tower; 546 SimCSE steps (105,000 // 192)
+HM_CUT_ITEMS, HM_CUT_ITEM_STEPS, HM_CUT_REQUESTS = 105_000, 546, 5
+HM_CUT_WORLD_TIMEOUT_S = 300.0   # the wait for gen-data and etl once phase 19 has ended
+HM_CUT_WORLD = ("--set", f"data.num_items={HM_CUT_ITEMS}", "--set", "data.num_users=60000",
+                "--set", "data.days=365", "--set", "data.repeat_prob=0.10",
+                "--set", "data.name_style_words=2")
+# the JAX package's numbers at HM_CUT_WORLD, printed by scripts/jax_hm_cut_reference.py
+# (its gen-data and etl stages, prepare_stage2 and baseline_report, on the CPU)
+HM_CUT_REF = {
+    "gen": {"items": 105000, "users": 60000, "transactions": 1463167,
+            "oracle": {"oracle_recall": 0.22993149481819777,
+                       "popularity_recall": 0.04180572633058142, "k": 100,
+                       "target_rows": 5693}},
+    "etl": {"split_day": 358,
+            "sanity": {"pad_inside_sequence": 0, "target_users": 9502,
+                       "covered_target_users": 9501, "coverage": 0.9998947589981056},
+            "missing": {"missing_tx": 0, "total_tx": 1463167}},
+    "n_eval": 9499,
+    "baselines": {"popularity": {"recall@20": 0.015601357445235728,
+                                 "recall@100": 0.03758803045570062,
+                                 "recall@500": 0.07681937963546562},
+                  "repurchase": {"recall@20": 0.15698900180424677,
+                                 "recall@100": 0.183654829922859,
+                                 "recall@500": 0.20733779677879127}}}
 
 
 def card_line() -> str:
@@ -2354,6 +2401,280 @@ def pretrained_slice_phase(root: str, hash_slice: dict, device: str = "cuda") ->
                                     for k in ("steps", "step_ms_median", "first_step_ms")}}
 
 
+# -- phase 20: the main path at the H&M catalog, users cut ------------------------
+
+def hm_cut_sets(root: str, device) -> list[str]:
+    return ["--set", f"data.root={root}", *HM_CUT_WORLD, "--set", "simcse.epochs=1",
+            "--set", "user_train.epochs=1", "--set", "serve.db_path=:memory:",
+            "--set", "serve.user_backend=stage2", "--device", str(device)]
+
+
+# the child of hm_cut_world_start: the CLI's gen-data and etl, one tagged line each
+HM_CUT_CHILD = """
+import json, sys, time
+from recsys_tpu_torch.pipeline import cli
+for stage in ("gen-data", "etl"):
+    t0 = time.perf_counter()
+    out = cli.main([stage, *sys.argv[1:]])
+    print("hm_cut " + json.dumps({"stage": stage, "seconds": time.perf_counter() - t0,
+                                  "out": out}), flush=True)
+"""
+
+
+def hm_cut_world_start(root: str) -> subprocess.Popen:
+    """Phase 20's gen-data and etl, host work only, through the CLI in a
+    child process started before the kernels build, so that they run beside
+    phases 1-19; its output goes to files in ``root``."""
+    with open(f"{root}/hm_cut_world.out", "w") as out, \
+            open(f"{root}/hm_cut_world.err", "w") as err:
+        return subprocess.Popen(
+            [sys.executable, "-c", HM_CUT_CHILD, *hm_cut_sets(f"{root}/hm_cut", "cuda")],
+            cwd=os.path.dirname(os.path.abspath(__file__)), stdout=out, stderr=err,
+            env={**os.environ, "OMP_NUM_THREADS": "2"})
+
+
+def hm_cut_world_stop(world: subprocess.Popen) -> None:
+    if world.poll() is None:
+        world.kill()
+        world.wait()
+
+
+def hm_cut_phase(root: str, device, world: subprocess.Popen) -> dict:
+    """gen-data -> etl (``world``, the child of ``hm_cut_world_start(root)``)
+    -> train-item -> vectorize -> train-user -> eval -> serve on the H&M
+    world's shape with its users cut (HM_CUT_WORLD), then the tie order of the
+    three dense top-k sites and their cost at the eval shape."""
+    import pandas as pd
+
+    from recsys_tpu_torch.data.dataset import IdMap
+    from recsys_tpu_torch.pipeline import cli
+    from recsys_tpu_torch.serve.server import make_server, serve_forever_in_thread
+    from recsys_tpu_torch.train.checkpoint import load_array_with_ids
+    from recsys_tpu_torch.train.sasrec import restore_stage2, tensors_to
+
+    t_phase = time.perf_counter()
+    data = f"{root}/hm_cut"
+    sets = hm_cut_sets(data, device)
+    seconds, out = {}, {}
+    try:
+        rc = world.wait(timeout=HM_CUT_WORLD_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        rc = None
+    with open(f"{root}/hm_cut_world.err") as f:
+        err = f.read()[-3000:]
+    check(rc == 0, f"gen-data / etl child: exit {rc}: {err}")
+    with open(f"{root}/hm_cut_world.out") as f:
+        for rec in [json.loads(ln[len("hm_cut "):]) for ln in f if ln.startswith("hm_cut ")]:
+            out[rec["stage"]], seconds[rec["stage"]] = rec["out"], rec["seconds"]
+    check(set(out) == {"gen-data", "etl"}, f"gen-data / etl child printed {sorted(out)}")
+    seconds["world_wait"] = time.perf_counter() - t_phase
+    for stage in ("train-item", "vectorize", "train-user", "eval"):
+        if stage in ("train-item", "train-user"):
+            K.reset_launch_counts()       # each training stage's run starts here
+        t0 = time.perf_counter()
+        out[stage] = cli.main([stage, *sets])
+        seconds[stage] = time.perf_counter() - t0
+        if stage in ("train-item", "train-user"):
+            out[stage]["launches"] = dict(K.LAUNCHES)
+    gen, etl, item, user, ev = (out[k] for k in ("gen-data", "etl", "train-item", "train-user",
+                                                  "eval"))
+    check({k: gen[k] for k in HM_CUT_REF["gen"]} == HM_CUT_REF["gen"],
+          f"gen-data {gen} against the JAX package's {HM_CUT_REF['gen']}")
+    check({k: etl[k] for k in HM_CUT_REF["etl"]} == HM_CUT_REF["etl"],
+          f"etl {etl} against the JAX package's {HM_CUT_REF['etl']}")
+    check(all(n == 2 * item["steps"] for n in item["launches"].values())
+          and item["steps"] == HM_CUT_ITEM_STEPS,
+          f"train-item: K1 {item['launches']} in {item['steps']} steps")
+    losses = np.asarray(item["losses"])
+    check(bool(np.isfinite(losses).all()) and losses[-50:].mean() < losses[:50].mean(),
+          f"train-item losses: first {losses[:50].mean()}, last {losses[-50:].mean()}")
+    check(out["vectorize"]["shape"] == [HM_CUT_ITEMS + 1, 128], f"vectorize {out['vectorize']}")
+    after_eval = dict(K.LAUNCHES)
+    check(after_eval == user["launches"], f"eval launched K1: {user['launches']} -> {after_eval}")
+    check(all(n == user["steps"] for n in user["launches"].values()),
+          f"train-user: K1 {user['launches']} in {user['steps']} steps")
+    check(bool(np.isfinite(user["epoch_losses"]).all()), f"train-user {user['epoch_losses']}")
+    check(ev["n_eval"] == HM_CUT_REF["n_eval"] and all(ev[f"recall@{k}"] > 0
+                                                         for k in (20, 100, 500)),
+          f"eval n_eval {ev['n_eval']} (JAX {HM_CUT_REF['n_eval']}), recalls {ev}")
+    for name in ("popularity", "repurchase"):
+        for key, want in HM_CUT_REF["baselines"][name].items():
+            got = ev["baselines"][name][key]
+            check(abs(got - want) <= 1e-12, f"baseline {name} {key}: {got} (JAX {want})")
+
+    # serve: five recommendations in blend mode over the 105,001-row catalog
+    t0 = time.perf_counter()
+    args = cli.parse_args(["serve", *sets, "--model-backed"])
+    cfg = cli.config_from_args(args)
+    ctx = cli.build_app(cfg, args)
+    check(ctx.user_backend == "stage-2 tower (best checkpoint)" and ctx.rec_assets is not None,
+          f"serve: {ctx.user_backend}")
+    _, uv_ids, _ = load_array_with_ids(f"{data}/eval_uvecs")
+    mat, mat_ids, _ = load_array_with_ids(f"{data}/eval_item_matrix")
+    item_map = IdMap(mat_ids[1:])
+    _, user_vectors, _ = restore_stage2(cfg, {"item_map": item_map}, f"{data}/ckpt_user", device)
+    tx = pd.read_parquet(f"{data}/transactions.parquet")
+    shoppers = [str(u) for u in uv_ids[:HM_CUT_REQUESTS]]
+    server = make_server(ctx, host="127.0.0.1", port=0)
+    thread = serve_forever_in_thread(server)
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    served_err, rec_ms = 0.0, []
+    try:
+        histories, tx_user = {}, tx["user_id"].astype(str)
+        for uid in shoppers:
+            rows = tx[tx_user == uid].sort_values("day", kind="stable").tail(12)
+            histories[uid] = [(str(i), 86400.0 * float(d) + j)
+                              for j, (i, d) in enumerate(zip(rows["item_id"], rows["day"]))]
+        # the histories' products: ingest -> process-pending until drained
+        pids = sorted({pid for h in histories.values() for pid, _ in h})
+        items = pd.read_parquet(f"{data}/items.parquet")
+        picked = items[items["item_id"].astype(str).isin(pids)].to_dict("records")
+        http(base, "POST", "/api/controller/products/ingest",
+             {"products": [product_json(r) for r in picked]})
+        processed = 0
+        while (n := http(base, "POST", "/ai-api/serving/vectors/process-pending",
+                         {})["processed_count"]):
+            processed += n
+        check(processed == len(pids), f"process-pending: {processed} of {len(pids)} products")
+        for uid in shoppers:
+            http(base, "POST", "/api/v1/debug/insert-manual-data", {
+                "users": [{"user_id": uid}],
+                "sessions": [{"user_id": uid, "events": [
+                    {"product_id": pid, "action_type": 3, "ts": ts}
+                    for pid, ts in histories[uid]]}]})
+        done = http(base, "POST", "/ai-api/serving/users/process-pending", {})
+        check(done["processed_count"] == len(shoppers), f"users process-pending: {done}")
+        for uid in shoppers:
+            t1 = time.perf_counter()
+            rec = http(base, "GET", f"/api/controller/recommendations/{uid}?top_k=20&mode=blend")
+            rec_ms.append(1e3 * (time.perf_counter() - t1))
+            res = rec["results"]
+            check(rec.get("mode") == "blend" and len(res) == 20
+                  and all(r["product_id"] not in (None, "<pad>") for r in res),
+                  f"blend recommendations for {uid}: {rec}")
+            want = user_vectors(tensors_to(left_padded_batch(cfg, item_map, histories[uid]),
+                                           device))
+            served_err = max(served_err, float(np.abs(ctx.store.get_user_vector(uid)
+                                                      - want.cpu().numpy()[0]).max()))
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+    check(served_err <= SERVE_TOL, f"served user vectors vs the tower: {served_err}")
+    seconds["serve"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ties = tie_order_checks(device)
+    seconds["ties"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    topk_cost = eval_topk_cost(device, mat)
+    seconds["topk_cost"] = time.perf_counter() - t0
+    seconds["phase"] = time.perf_counter() - t_phase
+    return {"gen": gen, "etl": etl,
+            "train_item": {k: item[k] for k in ("steps", "seconds", "step_ms_median",
+                                                "first_step_ms", "launches")},
+            "item_loss_first_last": [float(losses[:50].mean()), float(losses[-50:].mean())],
+            "vectorize": {k: out["vectorize"][k] for k in ("shape", "seconds", "items_per_s")},
+            "train_user": {k: user[k] for k in ("steps", "seconds", "step_ms_median",
+                                                "epoch_losses", "launches")},
+            "eval": {k: ev[k] for k in ("recall@20", "recall@100", "recall@500", "n_eval",
+                                        "step_ms_median", "seconds")},
+            "baselines": ev["baselines"], "blend_best": ev["blend"]["best_metrics"],
+            "serve": {"users": len(shoppers), "products": processed,
+                      "served_vs_tower_err": served_err,
+                      "blend_ms_median": float(np.median(rec_ms))},
+            "ties": ties, "topk_cost": topk_cost, "stage_seconds": seconds}
+
+
+def lexsort_topk(scores: np.ndarray, k: int) -> np.ndarray:
+    """Top-k ids of each row by (value descending, index ascending)."""
+    cols = np.broadcast_to(np.arange(scores.shape[1]), scores.shape)
+    return np.lexsort((cols, -scores), axis=1)[:, :k]
+
+
+def tie_order_checks(device) -> dict:
+    """The three dense top-k sites on the card against a numpy reference
+    that puts equal values lowest index first: an H&M-sized matrix whose rows
+    are 128 basis directions, each repeated ~820 times (the products are
+    exact, the distinct scores 0.01 apart, every top-k cuts a tie group)."""
+    from recsys_tpu_torch.eval import baselines as B
+    from recsys_tpu_torch.eval.recall import topk_scores
+    from recsys_tpu_torch.serve import recommend as RC
+
+    rng = np.random.default_rng(0)
+    n, dim, q = HM_CUT_ITEMS, 128, 64
+    group = rng.integers(0, dim, n)
+    items = np.zeros((n + 1, dim), np.float32)
+    items[np.arange(1, n + 1), group] = 1.0
+    users = (np.stack([rng.permutation(dim) for _ in range(q)]) - 64).astype(np.float32) * 0.01
+    logq = np.concatenate([[-20.0], rng.permutation(dim)[group] * 0.05 - 3.0]).astype(np.float32)
+    hist = rng.integers(0, n + 1, (q, 8))
+    scores = users @ items.T
+    scores[:, 0] = -np.inf
+    _, idx = topk_scores(torch.as_tensor(users, device=device),
+                         torch.as_tensor(items, device=device), 500)
+    check(np.array_equal(idx.cpu().numpy(), lexsort_topk(scores, 500)),
+          "topk_scores: equal scores not lowest index first")
+
+    def blend_ref(alpha: float, beta: float, rows) -> np.ndarray:
+        cos = scores[rows].copy()
+        cos[:, 0] = 0.0                                   # the PAD row's cosine
+        cos = (cos - cos.min(1, keepdims=True)) / (cos.max(1, keepdims=True)
+                                                    - cos.min(1, keepdims=True))
+        seen = np.zeros_like(cos)
+        seen[np.repeat(np.arange(len(rows)), hist.shape[1]), hist[rows].reshape(-1)] = 1.0
+        lo, hi = float(logq.min()), float(logq.max())
+        pop = ((logq.astype(np.float64) - lo) / (hi - lo)).astype(np.float32)
+        s = np.float32(1 - alpha) * cos + np.float32(alpha) * pop[None, :] + np.float32(beta) * seen
+        s[:, 0] = -np.inf
+        return s
+
+    ids = [f"p{r}" for r in range(1, n + 1)]
+    assets = RC.RecommendAssets(ids, items, logq, np.zeros(n + 1, np.float32), device=device)
+    got = RC._blend_topk_device(assets, users[:8], [h[h > 0] for h in hist[:8]], 0.1, 1.0, 20)
+    check(np.array_equal(got, lexsort_topk(blend_ref(0.1, 1.0, np.arange(8)), 20)),
+          "device blend: equal scores not lowest index first")
+    combos = [(a, b) for a in (0.0, 0.1) for b in (0.0, 1.0)]
+    lists, real = [], B.recall_at_ks
+    B.recall_at_ks = lambda idx, *a, **kw: (lists.append(np.array(idx)), real(idx, *a, **kw))[1]
+    try:
+        uids = [f"u{r}" for r in range(q)]
+        B.blend_sweep(users, items, logq, hist, uids, {u: {1} for u in uids},
+                      alphas=(0.0, 0.1), betas=(0.0, 1.0), device=device)
+    finally:
+        B.recall_at_ks = real
+    check(len(lists) == len(combos), f"blend sweep: {len(lists)} lists")
+    for (alpha, beta), got in zip(combos, lists):
+        check(np.array_equal(got, lexsort_topk(blend_ref(alpha, beta, np.arange(q)), 500)),
+              f"blend sweep a{alpha} b{beta}: equal scores not lowest index first")
+    return {"topk_scores": "lowest index first", "blend_device": "lowest index first",
+            "blend_sweep": f"lowest index first, {len(combos)} combinations",
+            "shape": [q, n + 1]}
+
+
+def eval_topk_cost(device, matrix: np.ndarray) -> dict:
+    """``topk_scores``' top-500 at the eval batch (768 users) over the trained
+    catalog: ``torch.topk`` (the parent's) against ``stable_topk`` on the same
+    scores, and the whole call (product + top-k), CUDA events."""
+    from recsys_tpu_torch.eval.recall import topk_scores
+    from recsys_tpu_torch.ops.topk import stable_topk
+
+    items = torch.as_tensor(matrix, device=device)
+    u = torch.as_tensor(np.random.default_rng(1).normal(size=(768, items.shape[1]))
+                        .astype(np.float32), device=device)
+    scores = u @ (items / items.norm(dim=1, keepdim=True).clamp(min=1e-12)).T
+    scores[:, 0] = -torch.inf
+    plain = [cuda_ms(lambda: torch.topk(scores, 500, dim=1), 10)]
+    stable = [cuda_ms(lambda: stable_topk(scores, 500), 10)]
+    plain.append(cuda_ms(lambda: torch.topk(scores, 500, dim=1), 10))
+    stable.insert(0, cuda_ms(lambda: stable_topk(scores, 500), 10))
+    whole = cuda_ms(lambda: topk_scores(u, items, 500), 10)
+    check(torch.equal(torch.topk(scores, 500, dim=1).values, stable_topk(scores, 500)[0]),
+          "stable_topk values differ from torch.topk's")
+    return {"shape": list(scores.shape), "k": 500, "torch_topk_ms": plain,
+            "stable_topk_ms": stable, "topk_scores_ms": whole,
+            "stable_over_torch": float(np.mean(stable) / np.mean(plain))}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
@@ -2364,22 +2685,24 @@ def main() -> None:
     print(json.dumps({"torch": torch.__version__, "cuda": torch.version.cuda,
                       "python": sys.version.split()[0], "allow_tf32": False}), flush=True)
     print(card_line(), flush=True)
-    t0 = time.perf_counter()
-    modules = {"diag_ce": K, "spmm": S, "fm": FM, "ring": R}
-    with concurrent.futures.ThreadPoolExecutor(len(modules)) as pool:  # one nvcc per source, together
-        for job in [pool.submit(m.load_library) for m in modules.values()]:
-            job.result()
-    print(json.dumps({"build": SOURCES, "seconds": time.perf_counter() - t0,
-                      "nvcc_seconds": {n: m.BUILD_INFO.get("seconds")
-                                       for n, m in modules.items()},
-                      "cached": [m.BUILD_INFO.get("cached") for m in modules.values()],
-                      "ptxas": [ln.strip() for m in modules.values()
-                                for ln in m.BUILD_INFO.get("ptxas", "").splitlines()
-                                if "registers" in ln or "spill" in ln]}), flush=True)
-
-    _rows, kstats = kernel_phase(device)
     root = tempfile.mkdtemp(prefix="chip_smoke_")
+    world = hm_cut_world_start(root)           # phase 20's data, beside phases 1-19
     try:
+        t0 = time.perf_counter()
+        modules = {"diag_ce": K, "spmm": S, "fm": FM, "ring": R}
+        # one nvcc per source, together
+        with concurrent.futures.ThreadPoolExecutor(len(modules)) as pool:
+            for job in [pool.submit(m.load_library) for m in modules.values()]:
+                job.result()
+        print(json.dumps({"build": SOURCES, "seconds": time.perf_counter() - t0,
+                          "nvcc_seconds": {n: m.BUILD_INFO.get("seconds")
+                                           for n, m in modules.items()},
+                          "cached": [m.BUILD_INFO.get("cached") for m in modules.values()],
+                          "ptxas": [ln.strip() for m in modules.values()
+                                    for ln in m.BUILD_INFO.get("ptxas", "").splitlines()
+                                    if "registers" in ln or "spill" in ln]}), flush=True)
+
+        _rows, kstats = kernel_phase(device)
         result = slice_phase(root)
         print(json.dumps({"phase": "slice", **result}), flush=True)
         graph, edges_u, edges_i = reference_scale_graph(seed=0)
@@ -2421,21 +2744,30 @@ def main() -> None:
         pretrained = pretrained_slice_phase(root, result)
         print(json.dumps({"phase": "pretrained_slice", **pretrained}), flush=True)
         seconds["phase_19"] = time.perf_counter() - start - sum(seconds.values())
+        hm_cut = hm_cut_phase(root, device, world)
+        print(json.dumps({"phase": "hm_cut", **hm_cut}), flush=True)
+        seconds["phase_20"] = time.perf_counter() - start - sum(seconds.values())
     finally:
+        hm_cut_world_stop(world)
         shutil.rmtree(root, ignore_errors=True)
     print(json.dumps({"seconds": {**seconds, "total": time.perf_counter() - start}}), flush=True)
 
-    # K1's launches are the main path's: train-item (phase 2), train-user (phase 13)
-    # and train-item with the pretrained encoder (phase 19); its times are at the
-    # SimCSE shape, stage 2's B = 3072 and 8192 beside them
+    # K1's launches are the main path's: train-item (phase 2), train-user (phase 13),
+    # train-item with the pretrained encoder (phase 19), and train-item and
+    # train-user at the H&M catalog (phase 20); its times are at the SimCSE
+    # shape, stage 2's B = 3072 and 8192 beside them
     k1_bounds = diag_ce_bounds(MAIN_B, D)
     kernels = [{"name": name, "route": "cuda", "source": SOURCES["diag_ce"],
                 "replaces": REPLACES[name],
                 "launches": (result["launches"][name] + user["launches"][name]
-                             + pretrained["launches"][name]),
+                             + pretrained["launches"][name]
+                             + hm_cut["train_item"]["launches"][name]
+                             + hm_cut["train_user"]["launches"][name]),
                 "launches_train_item": result["launches"][name],
                 "launches_train_user": user["launches"][name],
                 "launches_train_item_pretrained": pretrained["launches"][name],
+                "launches_hm_cut_train_item": hm_cut["train_item"]["launches"][name],
+                "launches_hm_cut_train_user": hm_cut["train_user"]["launches"][name],
                 "max_abs_err": kstats["errs"][name],
                 "ms": kstats["ms"][name][0], "plain_ms": kstats["ms"][name][1],
                 **k1_bounds[name], "library_ms": None,

@@ -39,17 +39,10 @@ import tempfile
 import numpy as np
 import torch
 
-from recsys_tpu_torch.config import (Config, DataConfig, GNNConfig, ItemTowerConfig,
-                                     MeshConfig, SimCSEConfig, UserTowerConfig,
-                                     UserTrainConfig, VocabConfig)
+from recsys_tpu_torch.config import (Config, DataConfig, GNNConfig, MeshConfig,
+                                     UserTowerConfig, UserTrainConfig, VocabConfig)
 from recsys_tpu_torch.device import resolve_device
-
-_CFG = Config(
-    data=DataConfig(num_items=64, num_users=32, days=30, seed=0),
-    vocab=VocabConfig(max_field_tokens=8, max_name_tokens=8, text_vocab_size=1024),
-    item_tower=ItemTowerConfig(),
-    simcse=SimCSEConfig(batch_size=16),
-)
+from recsys_tpu_torch.entry import CFG as _CFG
 
 
 def dryrun_multichip(n_devices: int, device: torch.device | str = "cuda") -> dict:

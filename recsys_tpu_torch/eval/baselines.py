@@ -16,8 +16,9 @@ All emit top-k index matrices for ``recall_at_ks``, so the denominator is the
 tower eval's. The JAX package's jitted device paths are plain PyTorch here
 and run where ``device`` says: the card by default (``device.resolve_device``
 raises where there is none), ``"cpu"`` when the caller asks; ``device=None``
-takes the JAX package's host numpy path. ``torch.topk`` promises no
-order among equal scores, so lists are compared by their recall and values.
+takes the JAX package's host numpy path. The device top-k returns equal
+scores lowest index first, as the JAX device paths' ``jax.lax.top_k``
+(``ops/topk.stable_topk``); the host paths keep numpy's order.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import torch
 
 from recsys_tpu_torch.device import resolve_device
 from recsys_tpu_torch.eval.recall import recall_at_ks, recall_per_user
+from recsys_tpu_torch.ops.topk import stable_topk
 
 
 def popularity_ranking(logq: np.ndarray, max_k: int) -> np.ndarray:
@@ -284,9 +286,10 @@ def _blend_per_user(full_idx: dict, best: str, user_ids, targets_idx,
 def _blend_sweep_device(user_vecs, item_matrix, logq, histories, user_ids,
                         targets_idx, ks, alphas, betas,
                         per_user_k: int | None, device: torch.device | str) -> dict:
-    """Device backend of ``blend_sweep``, the same math in plain PyTorch.
-    ``torch.topk`` is exact but promises no order among equal scores: the
-    recalls equal the host's when no two scores tie at the k boundary."""
+    """Device backend of ``blend_sweep``, the same math in plain PyTorch,
+    with the JAX device sweep's order among equal scores (``jax.lax.top_k``:
+    lowest index first). The recalls equal the host's when no two scores tie
+    at the k boundary."""
     device = resolve_device(device)
     items = np.array(item_matrix, np.float32)
     items /= np.clip(np.linalg.norm(items, axis=-1, keepdims=True), 1e-12, None)
@@ -308,7 +311,7 @@ def _blend_sweep_device(user_vecs, item_matrix, logq, histories, user_ids,
         for alpha, beta in combos:
             s = (1 - alpha) * cos + alpha * pop_dev[None, :] + beta * seen
             s[:, 0] = -torch.inf                               # PAD row
-            per_combo.append(torch.topk(s, max_k, dim=1).indices)
+            per_combo.append(stable_topk(s, max_k)[1])
         parts.append(torch.stack(per_combo).cpu().numpy())
     table: dict = {}
     for m, (alpha, beta) in enumerate(combos):

@@ -2,7 +2,8 @@
 
 Counterpart of the dense, exact part of ``recsys_tpu/eval/recall.py``:
 normalize the item matrix once, score the whole catalog (``U @ I^T``), take
-top-max(K) on the device, then compute set-intersection recall on the host
+top-max(K) on the device (equal scores lowest index first, as
+``jax.lax.top_k``), then compute set-intersection recall on the host
 with users absent from the ground truth dropped from the denominator. The
 numpy helpers are the JAX package's code unchanged. On a mesh whose model
 axis is > 1 the item matrix and the prior are row-sharded, every shard
@@ -16,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from recsys_tpu_torch.ops.topk import stable_topk
 from recsys_tpu_torch.parallel.collectives import sharded_topk
 from recsys_tpu_torch.parallel.mesh import Mesh, shard_rows
 
@@ -58,8 +60,8 @@ def topk_scores(user_vecs: torch.Tensor, item_matrix: torch.Tensor, k: int,
 
     ``prior``: optional per-item additive score (N+1,) — e.g. a scaled
     log-popularity blend — applied before top-k; on a mesh it is sharded like
-    the item matrix. Tied scores come back in no promised order
-    (``torch.topk``)."""
+    the item matrix. Equal scores come back lowest index first, as
+    ``jax.lax.top_k`` returns them (``ops/topk.stable_topk``)."""
     if method != "exact":
         raise NotImplementedError(
             f"topk_scores method {method!r}: only the exact top-k is ported")
@@ -71,7 +73,7 @@ def topk_scores(user_vecs: torch.Tensor, item_matrix: torch.Tensor, k: int,
     if prior is not None:
         scores = scores + prior.float()[None, :]
     scores[:, 0] = -torch.inf
-    return torch.topk(scores, k, dim=1)
+    return stable_topk(scores, k)
 
 
 def recall_at_ks(topk_idx: np.ndarray, user_ids: list, targets_idx: dict,

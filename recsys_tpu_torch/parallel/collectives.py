@@ -12,7 +12,8 @@ lookup's sum.
   * ``gather_global_negatives`` - (B_local, D) embeddings -> the (B_global, D)
     negatives matrix on every shard.
   * ``sharded_topk`` - top-k over a column-sharded score matrix: per-shard
-    top-k, global re-indexing, one merge.
+    top-k, global re-indexing, one merge; equal scores lowest global index
+    first, as the JAX function's ``jax.lax.top_k`` calls give them.
   * ``sharded_topk_ring_merge`` - the same with the merge folded into S-1
     ring hops under a strict total order.
   * ``rowsharded_lookup`` / ``rowsharded_lookup_a2a`` - embedding lookup into
@@ -24,6 +25,8 @@ from __future__ import annotations
 from typing import Callable, Sequence
 
 import torch
+
+from recsys_tpu_torch.ops.topk import stable_topk
 
 
 def _once_per_device(shards: Sequence[torch.Tensor], make: Callable) -> list:
@@ -69,11 +72,12 @@ def local_index_offset(index: int, local_rows: int) -> int:
 
 
 def _local_topk(scores_shards: Sequence[torch.Tensor], k: int):
-    """Per-shard top-k with the indices shifted to global ids."""
+    """Per-shard top-k with the indices shifted to global ids, equal scores
+    lowest index first."""
     vals, idx = [], []
     for i, scores in enumerate(scores_shards):
         n_local = scores.shape[-1]
-        v, j = torch.topk(scores, min(k, n_local), dim=-1)
+        v, j = stable_topk(scores, min(k, n_local))
         vals.append(v)
         idx.append(j + local_index_offset(i, n_local))
     return vals, idx
@@ -86,7 +90,9 @@ def sharded_topk(scores_shards: Sequence[torch.Tensor], k: int
     ``scores_shards[i]``: (B, N_local), shard i's columns of the full (B, N)
     score matrix. Returns ``(values, global_indices)``, each (B, k), for every
     shard, identical on all of them: local top-k, all-gather of the (B, k)
-    candidates, final top-k of the (B, S*k) pool."""
+    candidates, final top-k of the (B, S*k) pool. The pool lies in shard
+    order, so its lowest position among equal scores is the lowest global
+    index: the merge's ``stable_topk`` keeps ``jax.lax.top_k``'s order."""
     vals, idx = _local_topk(scores_shards, k)
     B = vals[0].shape[0]
     all_vals, all_idx = all_gather(vals), all_gather(idx)     # (S, B, k_local) each
@@ -94,7 +100,7 @@ def sharded_topk(scores_shards: Sequence[torch.Tensor], k: int
     def merge(av, ai):
         merged_vals = av.movedim(0, 1).reshape(B, -1)
         merged_idx = ai.movedim(0, 1).reshape(B, -1)
-        top_vals, pos = torch.topk(merged_vals, min(k, merged_vals.shape[-1]), dim=-1)
+        top_vals, pos = stable_topk(merged_vals, min(k, merged_vals.shape[-1]))
         return top_vals, torch.gather(merged_idx, -1, pos)
 
     merged: dict[int, tuple] = {}

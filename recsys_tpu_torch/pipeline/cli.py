@@ -282,7 +282,8 @@ def cmd_train_user(cfg: Config, args) -> dict:
     t0 = time.perf_counter()
     state, history, _ = train_user_tower(cfg, data, pretrained, p["user_ckpts"], device,
                                          mesh=_mesh(cfg, args),
-                                         resume=getattr(args, "resume", False))
+                                         resume=getattr(args, "resume", False),
+                                         deadline=getattr(args, "deadline", None))
     return {"epochs": len(history), "best": _best_epoch(history),
             "final": history[-1] if history else {}, "device": str(device),
             "steps": state.step, "seconds": time.perf_counter() - t0,
@@ -313,9 +314,11 @@ def cmd_eval(cfg: Config, args) -> dict:
 
     device = resolve_device(args.device)
     p = _paths(cfg)
+    marks = [("start", time.perf_counter())]
     items, users, tx = _load_world(cfg)
     data = prepare_stage2(cfg, items, users, tx)
     pretrained = _pretrained_matrix(cfg, data["item_map"], required=True)
+    marks.append(("prepare", time.perf_counter()))
     tens = data["tensors"]
     bs = batch_plan(cfg, tens["input_ids"].shape[0])[0]
     model, uv_fn, _ = restore_stage2(cfg, data, p["user_ckpts"], device, pretrained)
@@ -324,6 +327,7 @@ def cmd_eval(cfg: Config, args) -> dict:
     timer = StepTimer(device)
     metrics = evaluate_stage2(cfg, model, uv_fn, data, device, mesh, bs, dev_tensors, timer)
     eval_seconds = timer.seconds()
+    marks.append(("model_eval", time.perf_counter()))
     on_card = _on_card(device)
     ks = sorted(cfg.user_train.eval_ks)
     k_primary = ks[min(1, len(ks) - 1)]
@@ -334,6 +338,7 @@ def cmd_eval(cfg: Config, args) -> dict:
                                            ks=cfg.user_train.eval_ks, item_matrix=pretrained,
                                            per_user_k=k_primary, device=on_card)
     base_pu = metrics["baselines"].pop("_per_user")
+    marks.append(("baselines", time.perf_counter()))
     uvecs, uids = collect_user_vectors(cfg, uv_fn, data, device, bs, rows=rows,
                                        dev_tensors=dev_tensors)
     item_matrix = model.item.item_matrix.detach().float().cpu().numpy()
@@ -344,6 +349,7 @@ def cmd_eval(cfg: Config, args) -> dict:
     blend = blend_sweep(uvecs, item_matrix, data["logq"], hist, uids, data["targets_idx"],
                         ks=cfg.user_train.eval_ks, per_user_k=k_primary, device=on_card)
     blend_pu = blend.pop("_per_user")
+    marks.append(("user_vectors_and_blend", time.perf_counter()))
     metrics["blend"] = {"best": blend["best"], "best_metrics": blend["best_metrics"],
                         "model_only": blend["table"].get("a0.0_b0.0")}
     # paired bootstrap at the primary k: does the learned stack beat the
@@ -363,6 +369,7 @@ def cmd_eval(cfg: Config, args) -> dict:
                 sig["model_vs_content_profile"] = paired_delta_ci(
                     model_pu, base_pu["content_profile"])
         metrics["significance"] = sig
+    marks.append(("bootstrap", time.perf_counter()))
     # the blend again with the eval window's season prior in place of the global one
     train_tx, _, split_day = time_split(tx, cfg.data.valid_days)
     eval_season = str(np.asarray(SEASONS)[season_of_day(split_day,
@@ -373,9 +380,12 @@ def cmd_eval(cfg: Config, args) -> dict:
                              ks=cfg.user_train.eval_ks, device=on_card)
         metrics["blend_seasonal"] = {"season": eval_season, "best": sblend["best"],
                                      "best_metrics": sblend["best_metrics"]}
+    marks.append(("seasonal_blend", time.perf_counter()))
     with open(p["eval"], "w") as f:
         json.dump(metrics, f, indent=1)
-    return {**metrics, "device": str(device), "step_ms_median": _median_ms(eval_seconds)}
+    seconds = {name: t - t_prev for (_, t_prev), (name, t) in zip(marks, marks[1:])}
+    return {**metrics, "device": str(device), "step_ms_median": _median_ms(eval_seconds),
+            "seconds": seconds}
 
 
 def cmd_train_gnn(cfg: Config, args) -> dict:
@@ -1184,6 +1194,9 @@ def parse_args(argv=None):
     parser.add_argument("--init-ckpt", default=None, dest="init_ckpt")
     parser.add_argument("--resume", action="store_true",
                         help="train-gnn, train-user: continue from the latest checkpoint")
+    parser.add_argument("--deadline", type=float, default=None,
+                        help="train-user: a Unix time; no epoch starts that the last "
+                             "epoch's length says would end after it")
     parser.add_argument("--fine-tune", action="store_true", dest="fine_tune",
                         help="train-gnn: previous weights, fresh optimizer, cosine decay")
     parser.add_argument("--iterations", type=int, default=None,

@@ -15,7 +15,9 @@ so the served list is the evaluated list by construction. Three serving modes
 ``blend_topk`` has a host form (numpy) and a device form: the same scoring in
 plain torch on the card over the cached device copy of the matrix, full fp32
 matmul (``torch.backends.cuda.matmul.allow_tf32`` is off by default), so
-both return the same list.
+both return the same list where no two scores tie. Among equal scores each
+form keeps its JAX twin's order: the host form numpy's (``argpartition``),
+the device form ``jax.lax.top_k``'s (lowest index first).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from recsys_tpu_torch.config import Config
 from recsys_tpu_torch.device import resolve_device
 from recsys_tpu_torch.eval import rerank_eval as R
 from recsys_tpu_torch.eval.baselines import popularity_ranking
+from recsys_tpu_torch.ops.topk import stable_topk
 
 PAD = 0
 _DAY_S = 86400.0
@@ -184,7 +187,9 @@ def _blend_scores(items: torch.Tensor, pop: torch.Tensor, u: torch.Tensor,
                   hist: torch.Tensor, hist_mask: torch.Tensor, alpha: float,
                   beta: float, k: int):
     """normalize -> cosine -> per-row minmax -> popularity prior -> seen
-    scatter -> top-k: plain torch, the device form of the host scoring."""
+    scatter -> top-k: plain torch, the device form of the host scoring. Equal
+    scores come back lowest index first, as the JAX device blend's
+    ``jax.lax.top_k`` returns them."""
     cos = u @ items.T
     lo = cos.min(1, keepdim=True).values
     hi = cos.max(1, keepdim=True).values
@@ -192,7 +197,7 @@ def _blend_scores(items: torch.Tensor, pop: torch.Tensor, u: torch.Tensor,
     seen = torch.zeros_like(cosn).scatter_reduce_(1, hist, hist_mask, reduce="amax")
     s = (1 - alpha) * cosn + alpha * pop[None, :] + beta * seen
     s[:, PAD] = -torch.inf
-    return torch.topk(s, k, dim=1)
+    return stable_topk(s, k)
 
 
 def _blend_topk_device(assets: RecommendAssets, uvecs, hists, alpha, beta,

@@ -323,10 +323,13 @@ def batch_plan(cfg: Config, n: int) -> tuple[int, int, int]:
 def train_user_tower(cfg: Config, data: dict, pretrained_matrix: np.ndarray | None,
                      workdir: str, device: torch.device | str = "cuda",
                      mesh: Mesh | None = None, resume: bool = False,
-                     writer: MetricWriter | None = None):
+                     writer: MetricWriter | None = None, deadline: float | None = None):
     """Train the stage-2 towers; returns ``(state, history, user_vectors_fn)``.
     ``history`` holds each epoch's eval metrics, ``state.losses`` each epoch's
-    mean loss and ``state.step_seconds`` each step's time (``StepTimer``)."""
+    mean loss and ``state.step_seconds`` each step's time (``StepTimer``).
+    ``deadline`` (a ``time.time()`` value): no epoch starts that the last
+    epoch's length says would end after it; the best epoch is checkpointed
+    as always."""
     ut = cfg.user_train
     device = resolve_device(device)
     tensors = data["tensors"]
@@ -362,6 +365,8 @@ def train_user_tower(cfg: Config, data: dict, pretrained_matrix: np.ndarray | No
                 MetricWriter(f"{workdir}/metrics.jsonl", "sasrec")))
         for epoch in range(start_epoch, ut.epochs + 1):
             t0, seen, losses = time.time(), 0, []
+            if deadline is not None and history and t0 + epoch_s > deadline:
+                break
             timer = StepTimer(device)
             for _pass in range(passes):
                 for idx in batch_iterator(n, bs, rng):
@@ -392,6 +397,7 @@ def train_user_tower(cfg: Config, data: dict, pretrained_matrix: np.ndarray | No
                            step=gstep, metric=r100,
                            extra={"epoch": epoch, "plateau_best": plateau.best,
                                   "plateau_scale": plateau.scale, **metrics})
+            epoch_s = time.time() - t0
     return state, history, user_vectors_fn
 
 

@@ -51,6 +51,22 @@ def worlds(configs):
     return jax_synthetic.generate_dataset(jc.data), t_synthetic.generate_dataset(tc.data)
 
 
+# the knobs of the H&M-scale world (scripts/quality_hm_v4_data.sh) on the small world
+V4_KNOBS = {"name_style_words": 2, "repeat_prob": 0.10}
+
+
+@pytest.fixture(scope="module", params=["default", "v4_knobs"])
+def knob_case(request, configs, worlds):
+    """(configs, worlds) with the default data knobs, or with ``V4_KNOBS``."""
+    if request.param == "default":
+        return configs, worlds
+    over = {**OVERRIDES, "data": {**OVERRIDES["data"], **V4_KNOBS}}
+    cfgs = (jax_config.load_config(None, over), t_config.load_config(None, over))
+    assert cfgs[1].data.name_style_words == 2 and cfgs[1].data.repeat_prob == 0.10
+    return cfgs, (jax_synthetic.generate_dataset(cfgs[0].data),
+                  t_synthetic.generate_dataset(cfgs[1].data))
+
+
 def _frames_equal(a: pd.DataFrame, b: pd.DataFrame) -> None:
     pd.testing.assert_frame_equal(a, b, check_exact=True)
 
@@ -110,7 +126,8 @@ def test_native_pack_builds_in_the_ports_own_directory():
         np.testing.assert_array_equal(got, ref)
 
 
-def test_synthetic_world_is_equal(worlds):
+def test_synthetic_world_is_equal(knob_case):
+    _, worlds = knob_case
     for ref, got in zip(*worlds):
         _frames_equal(got, ref)
     items, _, tx = worlds[1]
@@ -121,7 +138,8 @@ def test_synthetic_world_is_equal(worlds):
     assert t_synthetic.enrich_item(dict(row)) == jax_synthetic.enrich_item(dict(row))
 
 
-def test_etl_outputs_are_equal(worlds, configs):
+def test_etl_outputs_are_equal(knob_case):
+    configs, worlds = knob_case
     items, users, tx = worlds[1]
     cfg = configs[1]
     outs = []

@@ -3,9 +3,10 @@ through the port's CLI on the verify recipe's world, ``eval.json`` against
 the JAX ``eval`` stage, the baselines and the blend sweep against the JAX
 functions, resume, and model-backed serving with the stage-2 tower.
 
-Tolerances: recalls of the training-free baselines and of the blend sweep are
-equal to the JAX package's (the same numpy code on the host; the torch path on
-the CPU scores continuous values, so no tie sits at a k boundary); the served
+Tolerances: the index lists of the training-free baselines and of the blend
+sweep, and so their recalls, are equal to the JAX package's (the same numpy
+code on the host; the torch path on the CPU scores continuous values, so no
+tie sits at a k boundary; ties are held in tests/test_torch_topk_ties.py); the served
 user vector is within 2e-2 of the tower's eval forward on the same
 left-padded history (the serving bound of tests/test_serve.py).
 """
@@ -92,7 +93,10 @@ def test_eval_json_has_the_jax_stages_keys(world, tmp_path):
     assert keys(got) == keys(ref)
     assert {"baselines", "blend", "significance", "blend_seasonal"} <= set(got)
     assert got["baselines"] == ref["baselines"]
-    assert set(out["eval"]) == set(ref) | {"device", "step_ms_median"}
+    assert set(out["eval"]) == set(ref) | {"device", "step_ms_median", "seconds"}
+    assert set(out["eval"]["seconds"]) == {"prepare", "model_eval", "baselines",
+                                           "user_vectors_and_blend", "bootstrap",
+                                           "seasonal_blend"}
 
 
 @pytest.fixture(scope="module")
@@ -108,30 +112,57 @@ def blend_inputs():
             "hist": hist, "uids": [f"u{r}" for r in range(n_users)], "targets": targets}
 
 
+def capture_lists(monkeypatch, module) -> list:
+    """Record every index list ``module`` hands ``recall_at_ks``, in order."""
+    lists, real = [], module.recall_at_ks
+
+    def capture(idx, *args, **kwargs):
+        lists.append(np.array(idx))
+        return real(idx, *args, **kwargs)
+
+    monkeypatch.setattr(module, "recall_at_ks", capture)
+    return lists
+
+
+def assert_lists_equal(got: list, ref: list) -> None:
+    assert len(got) == len(ref) > 0
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g, r)
+
+
 @pytest.mark.parametrize("device", [None, "cpu"], ids=["host", "torch"])
-def test_blend_sweep_recalls_equal_jax(blend_inputs, device):
+def test_blend_sweep_recalls_equal_jax(blend_inputs, device, monkeypatch):
     from recsys_tpu.eval import baselines as JB
 
     x = blend_inputs
     args = (x["uvecs"], x["items"], x["logq"], x["hist"], x["uids"], x["targets"])
-    ref = JB.blend_sweep(*args, ks=(5, 20), device=False, per_user_k=5)
+    ref_lists = capture_lists(monkeypatch, JB)
+    # each path against its JAX twin: the host numpy sweep, or the device sweep
+    # (``jax.lax.top_k``); their orders differ where two scores tie (here two
+    # items of one user score exactly 1.0 at alpha 0, beta 1)
+    ref = JB.blend_sweep(*args, ks=(5, 20), device=device is not None, per_user_k=5)
+    got_lists = capture_lists(monkeypatch, TB)
     got = TB.blend_sweep(*args, ks=(5, 20), device=device, per_user_k=5)
+    assert_lists_equal(got_lists, ref_lists)
     assert got["table"] == ref["table"] and got["best"] == ref["best"]
     for k in ("best", "model_only", "uids"):
         np.testing.assert_array_equal(got["_per_user"][k], ref["_per_user"][k])
 
 
 @pytest.mark.parametrize("device", [None, "cpu"], ids=["host", "torch"])
-def test_baseline_report_recalls_equal_jax(blend_inputs, device):
+def test_baseline_report_recalls_equal_jax(blend_inputs, device, monkeypatch):
     from recsys_tpu.eval import baselines as JB
 
     x = blend_inputs
     tensors = {"user_ids": x["uids"], "input_ids": x["hist"][:, :-1],
                "target_ids": x["hist"][:, 1:]}
+    ref_lists = capture_lists(monkeypatch, JB)
     ref = JB.baseline_report(tensors, x["logq"], x["targets"], ks=(5, 20),
                              item_matrix=x["items"], per_user_k=20)
+    got_lists = capture_lists(monkeypatch, TB)
     got = TB.baseline_report(tensors, x["logq"], x["targets"], ks=(5, 20),
                              item_matrix=x["items"], per_user_k=20, device=device)
+    assert_lists_equal(got_lists, ref_lists)
     ref_pu, got_pu = ref.pop("_per_user"), got.pop("_per_user")
     assert got == ref and set(got) == {"popularity", "repurchase", "content_profile",
                                        "content_profile_recency"}
@@ -163,6 +194,22 @@ def test_train_user_resume_continues_after_the_last_epoch(world, tmp_path):
     entry = CheckpointStore(str(tmp_path / "ckpt_user")).restore_latest()[1]
     assert entry["extra"]["epoch"] == 2 and entry["step"] == again["steps"]
     assert entry["extra"]["plateau_best"] is not None and "plateau_scale" in entry["extra"]
+
+
+def test_train_user_deadline_starts_no_epoch_that_would_end_after_it(world, tmp_path):
+    """The first epoch always runs; the second would end after a deadline
+    that has already passed, so it does not start."""
+    import time
+
+    root, _, out = world
+    for f in ("items.parquet", "users.parquet", "transactions.parquet",
+              "item_matrix.npy", "item_matrix.ids.json"):
+        shutil.copy(f"{root}/{f}", tmp_path)
+    sets = ["--set", f"data.root={tmp_path}", *WORLD, "--device", "cpu",
+            *USER, "--set", "user_train.epochs=3"]
+    got = cli.main(["train-user", *sets, "--deadline", str(time.time())])
+    assert got["epochs"] == 1 and got["steps"] == out["train-user"]["steps"]
+    assert CheckpointStore(str(tmp_path / "ckpt_user")).restore_latest()[1]["extra"]["epoch"] == 1
 
 
 def _http(base, method, path, payload=None):
