@@ -19,9 +19,21 @@ then (phases 10 and 11 run after 6, while the graph of 4 is still there):
      (abs); two dq and two dk calls must give the same bits. CUDA-event times of kernel
      and plain form, per kernel at B=192, 3072 and 8192.
   2. slice: the port's CLI stages gen-data -> train-item (full-width item
-     tower, batch 192, ~10 steps) -> vectorize on the card. K1's launch
-     counts are zeroed just before and read just after; every kernel must
-     have launched.
+     tower, batch 192, ~10 steps) -> vectorize on the card. train-item runs
+     its step as one CUDA graph (``train/step_graph.StepGraph``): the first
+     WARMUP_STEPS steps eagerly, every later one a replay, exactly. K1's launch
+     counts (a captured launch counts once a replay) are zeroed just before
+     and read just after; every kernel must have launched. Then the item step
+     on that catalog, eager and captured, from one seeded state with
+     ``simcse.feature_dropout=0`` and ``item_tower.dropout=0`` (the name-word
+     deletion draws from generators of one seed): GRAPH_STEPS steps on the
+     same batches, losses within GRAPH_LOSS_TOL every step and parameters
+     within GRAPH_PARAM_TOL at the end (the same kernels replayed; a sum by
+     atomics, as in the embedding backward, may add in another order); the
+     step medians in turns (eager, captured, captured, eager; CUDA events),
+     K1 twice a step, a replay under ``set_sync_debug_mode("error")`` (no
+     host sync inside it), and five steps of each under ``torch.profiler``
+     (device busy and idle share, kernels run and host launch calls a step).
   3. serve: the port's HTTP server with the trained encoder answers
      ingest -> process-pending -> similarity; served vectors must match the
      vectorize matrix.
@@ -114,16 +126,23 @@ then (phases 10 and 11 run after 6, while the graph of 4 is still there):
      (ingest, interactions for a few users, users' process-pending, then
      ``GET /api/controller/recommendations/{uid}``). K1's counts are zeroed
      before ``train-user`` and read after ``eval``: each K1 kernel once an
-     optimizer step, exactly, and none from ``eval``. Losses finite, the epoch
+     optimizer step, exactly, and none from ``eval``; every step after the
+     eager warm-up a graph replay. Losses finite, the epoch
      mean falling, Recall@{20,100,500} > 0, the served user vector within
      SERVE_TOL of the tower's eval forward on the same left-padded history, no
      PAD row in any list.
   14. the stage-2 step at the reference shape (``bench.py``'s: B 768, L 50,
-     47,000 items, a log-normal ``logq``, a unit-row item matrix), built here:
-     20 steps of ``make_stage2_step`` after 2 warm-up steps, median step time
-     through ``StepTimer``, K1 exactly 20 launches a kernel; five more steps
-     under ``torch.profiler`` for K1's share of the device time; then
-     ``evaluate_stage2``'s full-catalog top-500 for the 768 users.
+     47,000 items, a log-normal ``logq``, a unit-row item matrix; four
+     batches of users), built here, through ``StepGraph`` eager and captured:
+     the captured step against the eager one from one seeded state with
+     ``user_tower.dropout=0``, ``user_train.random_cut_prob=0`` and the
+     sampled positions fixed through ``draws`` (GRAPH_STEPS steps, the
+     tolerances of phase 2); then both with the default config, the step
+     medians in turns (StepTimer), K1 exactly once a step; a replay under
+     ``set_sync_debug_mode("error")``; five steps of each under
+     ``torch.profiler`` (busy and idle share, kernels run and host launch
+     calls a step, K1's share of the device time); then
+     ``evaluate_stage2``'s full-catalog top-500 for 768 users.
   15. the hybrid slice through the CLI on the world of phase 2, reusing its
      stage-1 matrix, phase 5's GNN artifacts and phase 13's eval sidecars:
      ``train-hybrid`` at full width (the tower's 4 layers, batch 768; 4 epochs
@@ -156,12 +175,18 @@ then (phases 10 and 11 run after 6, while the graph of 4 is still there):
      exact top-k (values within IVF_TOL, ids equal but for ties at the edge);
      no launch of K1-K4.
   18. serving on the world of phase 2 through ``cli.build_app`` with
-     ``serve.ann_backend=int8`` and then ``ivf`` behind the HTTP server:
-     ingest, process-pending, similarity for SIMILARITY_QUERIES items whose
-     exact best hit leads the second by more than SERVE_TOL: the same top hit
-     as the exact answer over the stored vectors, scores within SERVE_TOL, no
-     hand kernel. With int8, POST /train/item-tower and /train/user-tower
-     (one epoch each) on the store, with TRAIN_ROUTE_USERS users' purchases:
+     ``serve.ann_backend=int8`` and then ``ivf`` (at the default probe
+     count, 8 of ~45 buckets here) behind the HTTP server: ingest,
+     process-pending, similarity for items whose exact best hit leads the
+     second by more than SERVE_TOL, ten answers each, none the item itself,
+     scores within SERVE_TOL of the exact ones over the stored vectors, no
+     hand kernel. int8 gives the exact top hit for each of SIMILARITY_QUERIES
+     such items. IVF probes a few buckets, so it promises no exact top hit:
+     over IVF_QUERIES such items its share of exact top hits must reach
+     IVF_TOP_HIT_FLOOR; beside it, the index with every bucket probed gives
+     the exact top hit for each of them.
+     With int8, POST /train/item-tower and /train/user-tower (one epoch
+     each) on the store, with TRAIN_ROUTE_USERS users' purchases:
      "trained", finite losses, each K1 kernel twice a step (SimCSE) and once a
      step (stage 2).
   19. the pretrained text encoder from H&M-format CSVs, in its own data root:
@@ -195,7 +220,8 @@ then (phases 10 and 11 run after 6, while the graph of 4 is still there):
      catalog. Gates: gen-data's and etl's JSON, eval's n_eval and the
      popularity and repurchase baselines (within 1e-12) equal to
      HM_CUT_REF, the JAX package's numbers; each K1 kernel exactly twice a
-     train-item step and once a train-user step, none from eval; train-item's
+     train-item step and once a train-user step, none from eval; both
+     trainers' steps graph replays after the warm-up; train-item's
      losses finite and falling (the mean of the last 50 steps below the
      first 50's), train-user's finite (one epoch); Recall@{20,100,500} > 0;
      the served user vector within SERVE_TOL of the tower's; tie order:
@@ -246,6 +272,7 @@ try:
     from recsys_tpu_torch.ops.contrastive import bidirectional_infonce, inbatch_logq_loss
     from recsys_tpu_torch.ops.fm import fm_interaction
     from recsys_tpu_torch.parallel import ring as R
+    from recsys_tpu_torch.train.step_graph import WARMUP_STEPS
 except ImportError as e:  # run outside the repository
     fail(f"cannot import the port ({e}); run from the repository root")
 
@@ -289,8 +316,16 @@ RETRIEVAL_USERS, RETRIEVAL_ROWS, RETRIEVAL_K = 768, 47_000, 500
 # first-step loss on 4 data shards (quarter batches through the bf16 tower)
 # against one device (the whole batch); both take K1 on the (192, 128) views
 DP_LOSS_TOL = 1e-3
-# stage 2 at the reference shape (bench.py:71-95) and the rows its loss sees
+# stage 2 at the reference shape (bench.py:71-95) and the rows its loss sees; the
+# phase's data holds STAGE2_BATCHES batches of users
 STAGE2_B, STAGE2_L, STAGE2_P, STAGE2_ITEMS, STAGE2_STEPS = 768, 50, 4, 47_000, 20
+STAGE2_BATCHES = 4
+# a captured step against the eager step from the same state (phases 2 and 14):
+# GRAPH_STEPS steps on the same batches, losses within GRAPH_LOSS_TOL every step,
+# every parameter within GRAPH_PARAM_TOL at the end; step times in turns of
+# TURN_STEPS steps (eager, captured, captured, eager)
+GRAPH_STEPS, GRAPH_LOSS_TOL, GRAPH_PARAM_TOL, TURN_STEPS = 20, 1e-5, 1e-5, 10
+TURNS = ("eager", "captured", "captured", "eager")
 # the hybrid slice (phase 15): 4 epochs x 13 passes of the 1,000-user world (one
 # 768-user batch a pass) = 52 steps; the rerank GBDT's boosting iterations
 HYBRID_EPOCHS, HYBRID_STEPS_MIN, HYBRID_RERANK_ITERS, HYBRID_GNN_DIM = 4, 13, 100, 64
@@ -300,8 +335,14 @@ HYBRID_EPOCHS, HYBRID_STEPS_MIN, HYBRID_RERANK_ITERS, HYBRID_GNN_DIM = 4, 13, 10
 RETRIEVAL_CATALOGS = ((47_000, 500, 256, 32), (47_000, 50, 256, 16),
                       (105_000, 500, 512, 32), (1_000_000, 100, 1024, 32))
 RETRIEVAL_B, RETRIEVAL_REPS, IVF_TOL, IVF_BUILD_LIMIT_S = 1024, 20, 1e-5, 120.0
-# phase 18: similarity queries a backend, users whose purchases feed /train/user-tower
+# phase 18: similarity queries a backend, users whose purchases feed /train/user-tower;
 SIMILARITY_QUERIES, TRAIN_ROUTE_USERS = 16, 64
+# IVF served at its default probe count: the share of IVF_QUERIES well-separated
+# items whose top hit is the exact one. IVF misses a few in a hundred of them
+# in this world (PERF.md); the floor lies over five binomial deviations below
+# that share at 256 queries. IVF_FULL_PROBE probes every bucket (more than any
+# nlist here), where the answer is the exact one.
+IVF_QUERIES, IVF_TOP_HIT_FLOOR, IVF_FULL_PROBE = 256, 0.85, 1 << 16
 # phase 20: the H&M world's shape (scripts/quality_hm_v4_data.sh) with its users cut
 # from 1,370,000 to 60,000; one epoch of each tower; 546 SimCSE steps (105,000 // 192)
 HM_CUT_ITEMS, HM_CUT_ITEM_STEPS, HM_CUT_REQUESTS = 105_000, 546, 5
@@ -544,6 +585,8 @@ def slice_phase(root: str, device: str = "cuda", extra_sets: tuple = (),
     check(device == "cpu" or all(n == 2 * train["steps"] for n in counts_after_train.values()),
           f"train-item: K1 launches {counts_after_train} in {train['steps']} steps "
           "(each kernel twice a step, one a direction)")
+    check(device == "cpu" or train["graph_replays"] == train["steps"] - WARMUP_STEPS,
+          f"train-item: {train['graph_replays']} graph replays in {train['steps']} steps")
     check(train["steps"] >= 10, f"train-item took {train['steps']} steps")
     check(all(np.isfinite(train["losses"])), f"non-finite loss: {train['losses']}")
     t0 = time.perf_counter()
@@ -632,8 +675,8 @@ def slice_phase(root: str, device: str = "cuda", extra_sets: tuple = (),
     out = {"stage_seconds": stage_seconds, "world": stages} if via_orchestrate else {}
     if weekly:
         out["weekly"] = weekly
-    return {**out, "train": {k: train[k] for k in ("steps", "seconds", "step_ms_median",
-                                                   "first_step_ms")},
+    return {**out, "train": {k: train[k] for k in ("steps", "graph_replays", "seconds",
+                                                   "step_ms_median", "first_step_ms")},
             "final_loss": train["losses"][-1], "first_loss": train["losses"][0],
             "vectorize": {k: vec[k] for k in ("shape", "seconds", "items_per_s")},
             "self_rank1": self_rank1, "card_vs_cpu_encode_err": card_cpu_err,
@@ -1497,6 +1540,7 @@ def sharded_slice_phase(root: str, n_items: int) -> dict:
     # direction of the loss, so twice a step
     check(all(n == 2 * train["steps"] for n in K.LAUNCHES.values()),
           f"K1 on the data-parallel step: {K.LAUNCHES} in {train['steps']} steps")
+    check(train["graph_replays"] == 0, "the data-parallel step runs eagerly")
     k1_launches = dict(K.LAUNCHES)
 
     # corruption and dropout off: the loss falls, and the first step's loss is the one-device run's
@@ -1571,6 +1615,8 @@ def user_slice_phase(root: str) -> dict:
     check(launches == after_train, f"eval launched K1: {after_train} -> {launches}")
     check(all(n == train["steps"] for n in launches.values()),
           f"K1 on train-user: {launches} in {train['steps']} steps")
+    check(train["graph_replays"] == train["steps"] - WARMUP_STEPS,
+          f"train-user: {train['graph_replays']} graph replays in {train['steps']} steps")
     losses = train["epoch_losses"]
     check(train["device"].startswith("cuda") and len(losses) == 2
           and all(np.isfinite(losses)) and losses[-1] < losses[0],
@@ -1633,8 +1679,8 @@ def user_slice_phase(root: str) -> dict:
         server.server_close()
         thread.join(timeout=10)
     check(served_err <= SERVE_TOL, f"served user vectors vs the tower: {served_err}")
-    return {"train": {k: train[k] for k in ("steps", "seconds", "step_ms_median",
-                                            "epoch_losses")},
+    return {"train": {k: train[k] for k in ("steps", "graph_replays", "seconds",
+                                            "step_ms_median", "epoch_losses")},
             "eval": {k: ev[k] for k in ("recall@20", "recall@100", "recall@500", "n_eval",
                                         "step_ms_median")},
             "blend_best": ev["blend"]["best_metrics"], "baselines": ev["baselines"],
@@ -1646,86 +1692,211 @@ def user_slice_phase(root: str) -> dict:
 
 # -- phase 14: the stage-2 step at the reference shape ---------------------------------
 
-def reference_stage2(device, seed: int = 0) -> dict:
-    """The stage-2 step at ``bench.py``'s shape, built from a seed: the default
-    (full) widths, one batch of 768 users x 50 real positions with random ids
-    over a 47,000-item catalog, a log-normal ``logq``, a unit-row item matrix.
-    Returns the config, the step, the eval forward, the batch (numpy and on
-    the device), the model and a generator."""
+def reference_stage2_world(seed: int = 0, items: int = STAGE2_ITEMS) -> dict:
+    """The stage-2 data at ``bench.py``'s shape, built from a seed: STAGE2_BATCHES
+    batches of 768 users x 50 real positions with random ids over an
+    ``items`` catalog, a log-normal ``logq``, a unit-row item matrix."""
+    from recsys_tpu_torch.config import Config
+
+    utc = Config().user_tower
+    rng = np.random.default_rng(seed)
+    n, L, N = STAGE2_B * STAGE2_BATCHES, STAGE2_L, items
+    rows = {
+        "input_ids": rng.integers(1, N + 1, (n, L)), "target_ids": rng.integers(1, N + 1, (n, L)),
+        "time_buckets": rng.integers(0, utc.num_time_buckets, (n, L)),
+        "seq_mask": np.ones((n, L), np.int64),
+        "user_buckets": rng.integers(0, 10, (n, utc.static_bucket_fields)),
+        "user_cats": rng.integers(0, 2, (n, utc.static_cat_fields)),
+        "user_cont": rng.normal(0, 1, (n, utc.static_cont_fields)).astype(np.float32)}
+    logq = rng.normal(-8.0, 1.0, N + 1).astype(np.float32)
+    matrix = rng.normal(size=(N + 1, utc.d_model)).astype(np.float32)
+    matrix /= np.linalg.norm(matrix, axis=1, keepdims=True)
+    matrix[0] = 0.0
+    return {"rows": rows, "logq": logq, "matrix": matrix, "items": N, "rng": rng}
+
+
+def stage2_trainer(world: dict, device, capture: bool, cfg=None, seed: int = 0) -> dict:
+    """A stage-2 trainer on ``world`` (the default (full) widths unless
+    ``cfg``), seeded: its step through a ``StepGraph`` (captured or eager),
+    the model, the eval forward and the data on the device."""
     from recsys_tpu_torch.config import Config
     from recsys_tpu_torch.train import sasrec
     from recsys_tpu_torch.train.state import TrainState
+    from recsys_tpu_torch.train.step_graph import StepGraph
 
-    cfg = Config()
-    utc = cfg.user_tower
-    rng = np.random.default_rng(seed)
-    B, L, N = STAGE2_B, STAGE2_L, STAGE2_ITEMS
-    batch_np = {
-        "input_ids": rng.integers(1, N + 1, (B, L)), "target_ids": rng.integers(1, N + 1, (B, L)),
-        "time_buckets": rng.integers(0, utc.num_time_buckets, (B, L)),
-        "seq_mask": np.ones((B, L), np.int64),
-        "user_buckets": rng.integers(0, 10, (B, utc.static_bucket_fields)),
-        "user_cats": rng.integers(0, 2, (B, utc.static_cat_fields)),
-        "user_cont": rng.normal(0, 1, (B, utc.static_cont_fields)).astype(np.float32)}
-    logq = rng.normal(-8.0, 1.0, N + 1).astype(np.float32)
-    items = rng.normal(size=(N + 1, utc.d_model)).astype(np.float32)
-    items /= np.linalg.norm(items, axis=1, keepdims=True)
-    items[0] = 0.0
-    model = sasrec.init_stage2_params(cfg, N + 1, items, device, seed=0)
+    cfg = cfg or Config()
+    model = sasrec.init_stage2_params(cfg, world["items"] + 1, world["matrix"], device, seed=0)
     state = TrainState(model, sasrec.make_stage2_optimizer(cfg, model, steps_per_epoch=1787))
-    step, user_vectors = sasrec.make_stage2_step(cfg, state, logq)
-    return {"cfg": cfg, "step": step, "user_vectors": user_vectors, "batch_np": batch_np,
-            "batch": sasrec.tensors_to(batch_np, device), "model": model, "rng": rng,
-            "generator": torch.Generator(device).manual_seed(seed)}
+    step, user_vectors = sasrec.make_stage2_step(cfg, state, world["logq"])
+    data = sasrec.tensors_to(world["rows"], device)
+    gen = torch.Generator(device).manual_seed(seed)
+    return {"cfg": cfg, "runner": StepGraph(step, state, data, STAGE2_B, gen, capture=capture),
+            "model": model, "user_vectors": user_vectors, "data": data}
+
+
+def batch_indices(n: int, batch: int, count: int, seed: int) -> list:
+    rng = np.random.default_rng(seed)
+    return [rng.permutation(n)[:batch] for _ in range(count)]
+
+
+def captured_vs_eager(make, batches, loss_of, draws=None) -> dict:
+    """``make(capture)`` -> (runner, model), two trainers from the same seeded
+    state; both run the same batches (and draws): the largest loss gap of
+    any step, and of any parameter at the end."""
+    (eager, m_eager), (graph, m_graph) = make(False), make(True)
+    gaps = []
+    for i, idx in enumerate(batches):
+        d = None if draws is None else draws[i]
+        gaps.append(abs(float(loss_of(eager(idx, d))) - float(loss_of(graph(idx, d)))))
+    param_gap = max(float((a - b).abs().max())
+                    for a, b in zip(m_eager.state_dict().values(), m_graph.state_dict().values()))
+    check(graph.replays == len(batches) - WARMUP_STEPS and eager.replays == 0,
+          f"replays: captured {graph.replays}, eager {eager.replays} in {len(batches)} steps")
+    check(max(gaps) <= GRAPH_LOSS_TOL, f"captured vs eager losses: {gaps}")
+    check(param_gap <= GRAPH_PARAM_TOL, f"captured vs eager parameters: {param_gap}")
+    return {"steps": len(batches), "max_loss_gap": max(gaps), "loss_gaps": gaps,
+            "max_param_gap": param_gap}
+
+
+def steps_in_turns(runners: dict, batches, device) -> dict:
+    """Each runner's CUDA-event step times (``StepTimer``) in TURNS of
+    TURN_STEPS steps; the median by runner."""
+    from recsys_tpu_torch.train.state import StepTimer
+
+    times = {name: [] for name in runners}
+    it = iter(batches)
+    for name in TURNS:
+        timer = StepTimer(device)
+        for _ in range(TURN_STEPS):
+            runners[name](next(it))
+            timer.mark()
+        times[name] += timer.seconds()
+    return {name: {"step_ms_median": 1e3 * float(np.median(t)), "step_ms": [1e3 * x for x in t]}
+            for name, t in times.items()}
 
 
 def stage2_step_phase(device) -> dict:
-    from torch.profiler import ProfilerActivity, profile
+    """Phase 14: the stage-2 step at the reference shape, eager and captured."""
+    import dataclasses
 
+    from recsys_tpu_torch.config import Config
     from recsys_tpu_torch.train import sasrec
     from recsys_tpu_torch.train.state import StepTimer
 
-    ref = reference_stage2(device)
-    cfg, step, batch, gen = ref["cfg"], ref["step"], ref["batch"], ref["generator"]
-    B, N, rng = STAGE2_B, STAGE2_ITEMS, ref["rng"]
-    for _ in range(2):                     # warm-up: allocator, cuBLAS handles
-        step(batch, gen)
+    world = reference_stage2_world()
+    B, N, n = STAGE2_B, STAGE2_ITEMS, STAGE2_B * STAGE2_BATCHES
+    # the captured step against the eager one: dropout and the random cut off, the
+    # sampled positions fixed (every slot is real here)
+    base = Config()
+    quiet = dataclasses.replace(
+        base, user_tower=dataclasses.replace(base.user_tower, dropout=0.0),
+        user_train=dataclasses.replace(base.user_train, random_cut_prob=0.0))
+    prng = np.random.default_rng(1)
+    draws = [{"positions": torch.as_tensor(prng.integers(0, STAGE2_L, (B, STAGE2_P)),
+                                           device=device)} for _ in range(GRAPH_STEPS)]
+
+    def make(capture):
+        t = stage2_trainer(world, device, capture, cfg=quiet)
+        return t["runner"], t["model"]
+
+    held = captured_vs_eager(make, batch_indices(n, B, GRAPH_STEPS, seed=2),
+                             lambda out: out["loss"], draws)
+    del make
+    # step times in turns, the default config; the counts start after each
+    # trainer's warm-up and capture
+    trainers = {"eager": stage2_trainer(world, device, False),
+                "captured": stage2_trainer(world, device, True)}
+    runners = {name: t["runner"] for name, t in trainers.items()}
+    batches = iter(batch_indices(n, B, 6 + len(TURNS) * TURN_STEPS + 11, seed=3))
+    for _ in range(3):
+        for runner in runners.values():
+            runner(next(batches))
     K.reset_launch_counts()  # this path's run starts here
-    timer, losses = StepTimer(device), []
-    for _ in range(STAGE2_STEPS):
-        losses.append(step(batch, gen)["loss"])
-        timer.mark()
-    seconds = timer.seconds()
+    turns = steps_in_turns(runners, batches, device)
     launches = dict(K.LAUNCHES)
-    check(all(n == STAGE2_STEPS for n in launches.values()),
-          f"K1 on the stage-2 step: {launches} in {STAGE2_STEPS} steps")
-    losses = [float(x) for x in losses]
-    check(all(np.isfinite(losses)), f"stage-2 losses {losses}")
+    n_steps = len(TURNS) * TURN_STEPS
+    check(all(n == n_steps for n in launches.values()),
+          f"K1 on the stage-2 step: {launches} in {n_steps} steps")
+    # no host sync inside a replay
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(5):
-            step(batch, gen)
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0) / 5
-    # self time: a kernel's own row holds its device time, the op that launched it none
-    dev = {e.key: (getattr(e, "self_device_time_total", None)
-                   or getattr(e, "self_cuda_time_total", 0.0)) for e in prof.key_averages()}
-    busy_ms = sum(dev.values()) / 1e3 / 5
-    k1_ms = sum(v for k, v in dev.items() if "diag_ce" in k) / 1e3 / 5
-    # the full-catalog top-500 of evaluate_stage2 for the 768 users
-    data = {"tensors": {**ref["batch_np"], "user_ids": [f"u{r}" for r in range(B)]},
-            "targets_idx": {f"u{r}": set(rng.integers(1, N + 1, 3).tolist()) for r in range(B)}}
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        runners["captured"](next(batches))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    traced = {name: profile_steps(lambda r=runner: r(next(batches)), 5)
+              for name, runner in runners.items()}
+    for prof in traced.values():
+        prof["k1_share_of_device"] = (prof["k1_device_ms"] / prof["device_busy_ms"]
+                                      if prof["device_busy_ms"] else None)
+    # the full-catalog top-500 of evaluate_stage2 for 768 users
+    cap = trainers["captured"]
+    rows = {k: v[:B] for k, v in world["rows"].items()}
+    data = {"tensors": {**rows, "user_ids": [f"u{r}" for r in range(B)]},
+            "targets_idx": {f"u{r}": set(world["rng"].integers(1, N + 1, 3).tolist())
+                            for r in range(B)}}
     eval_timer = StepTimer(device)
-    metrics = sasrec.evaluate_stage2(cfg, ref["model"], ref["user_vectors"], data, device,
-                                     timer=eval_timer)
+    metrics = sasrec.evaluate_stage2(cap["cfg"], cap["model"], cap["user_vectors"], data,
+                                     device, timer=eval_timer)
     check(metrics["n_eval"] == B and all(np.isfinite(v) for v in metrics.values()),
           f"evaluate_stage2 at the reference shape: {metrics}")
-    return {"step_ms_median": 1e3 * float(np.median(seconds)),
-            "step_ms": [1e3 * x for x in seconds], "losses": [losses[0], losses[-1]],
-            "launches": launches, "profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "k1_device_ms": k1_ms, "k1_share_of_device": k1_ms / busy_ms if busy_ms else None,
-            "eval_ms": 1e3 * sum(eval_timer.seconds()), "eval": metrics}
+    return {"held": held, "turns": turns, "launches": launches, "traced": traced,
+            "replay_under_sync_debug": "error", "eval_ms": 1e3 * sum(eval_timer.seconds()),
+            "eval": metrics}
+
+
+def item_step_phase(root: str, device) -> dict:
+    """Phase 2's item-tower step, eager and captured, on phase 2's catalog at
+    batch 192: held against each other from the same state with
+    ``simcse.feature_dropout=0`` and ``item_tower.dropout=0`` (the name-word
+    deletion still draws, from generators of the same seed), then the step
+    medians in turns and five steps of each under the profiler."""
+    import dataclasses
+
+    from recsys_tpu_torch.data.vocab import StdVocab
+    from recsys_tpu_torch.pipeline import cli
+    from recsys_tpu_torch.train import simcse
+    from recsys_tpu_torch.train.state import TrainState
+    from recsys_tpu_torch.train.step_graph import StepGraph
+
+    base = cli.config_from_args(cli.parse_args(["train-item", "--set", f"data.root={root}"]))
+    tensors = cli._item_tensors(base)
+    data = simcse.item_tensors_to(tensors, device)
+    n, bs = tensors["std"].shape[0], base.simcse.batch_size
+
+    def make(cfg, capture):
+        model = simcse.build_model(cfg, StdVocab().size, tensors["std"].shape[1], device,
+                                   seed=cfg.data.seed)
+        opt, sched = simcse.make_optimizer(cfg, model, total_steps=100)   # 10 warm-up steps
+        state = TrainState(model, opt, sched)
+        gen = torch.Generator(device).manual_seed(cfg.data.seed)
+        return StepGraph(simcse.make_train_step(state, cfg), state, data, bs, gen,
+                         capture=capture), model
+
+    quiet = dataclasses.replace(
+        base, simcse=dataclasses.replace(base.simcse, feature_dropout=0.0),
+        item_tower=dataclasses.replace(base.item_tower, dropout=0.0))
+    held = captured_vs_eager(lambda capture: make(quiet, capture),
+                             batch_indices(n, bs, GRAPH_STEPS, seed=2), lambda out: out[0])
+    runners = {name: make(base, name == "captured")[0] for name in ("eager", "captured")}
+    batches = iter(batch_indices(n, bs, 6 + len(TURNS) * TURN_STEPS + 11, seed=3))
+    for _ in range(3):
+        for runner in runners.values():
+            runner(next(batches))
+    K.reset_launch_counts()
+    turns = steps_in_turns(runners, batches, device)
+    n_steps = len(TURNS) * TURN_STEPS
+    check(all(n == 2 * n_steps for n in K.LAUNCHES.values()),
+          f"K1 on the item step: {K.LAUNCHES} in {n_steps} steps")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        runners["captured"](next(batches))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    traced = {name: profile_steps(lambda r=runner: r(next(batches)), 5)
+              for name, runner in runners.items()}
+    return {"batch": bs, "held": held, "turns": turns, "traced": traced}
 
 
 # -- phase 15: the hybrid slice through the CLI ---------------------------------------
@@ -1858,9 +2029,14 @@ def hybrid_slice_phase(root: str) -> dict:
 
 # -- phase 16: the hybrid step at the stage-2 reference shape ----------------------------
 
+# the host's launch calls: kernels one by one, and whole graphs
+HOST_LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch", "cuGraphLaunch")
+
+
 def profile_steps(fn, n: int) -> dict:
     """``n`` calls of ``fn`` under ``torch.profiler``: wall and device time a
-    call, device launches a call and the top device items by self time."""
+    call, device launches (kernels run) and host launch calls a call, K1's
+    device time a call and the top device items by self time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1870,17 +2046,20 @@ def profile_steps(fn, n: int) -> dict:
             fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / n
-    dev, count = {}, 0
+    dev, count, host = {}, 0, 0
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
         if t > 0:
             dev[e.key] = t / 1e3 / n
             count += e.count
+        elif e.key.startswith(HOST_LAUNCH_CALLS):
+            host += e.count
     busy = sum(dev.values())
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "device_idle_share": max(0.0, 1.0 - busy / wall_ms) if wall_ms else None,
-            "launches_per_call": count / n,
+            "launches_per_call": count / n, "host_launch_calls_per_call": host / n,
+            "k1_device_ms": sum(v for k, v in dev.items() if "diag_ce" in k),
             "top_device_items_ms": {k[:160]: v for k, v in top}}
 
 
@@ -2100,25 +2279,39 @@ def device_index_serve_phase(root: str, device: str = "cuda", extra_sets: tuple 
             np.fill_diagonal(cos, -np.inf)
             order = np.argsort(-cos, axis=1)[:, :2]
             gap = cos[np.arange(len(ids)), order[:, 0]] - cos[np.arange(len(ids)), order[:, 1]]
-            queries = [r for r in range(len(ids)) if gap[r] > SERVE_TOL][:SIMILARITY_QUERIES]
-            check(len(queries) == SIMILARITY_QUERIES, f"{backend}: {len(queries)} queries")
-            before, score_err, sim_ms = all_launches(), 0.0, []
+            n_queries = SIMILARITY_QUERIES if backend == "int8" else IVF_QUERIES
+            queries = [r for r in range(len(ids)) if gap[r] > SERVE_TOL][:n_queries]
+            check(len(queries) == n_queries, f"{backend}: {len(queries)} queries")
+            before, score_err, sim_ms, hits = all_launches(), 0.0, [], []
             col = {pid: r for r, pid in enumerate(ids)}
             for r in queries:
                 t0 = time.perf_counter()
                 sim = http(base, "GET", f"/api/controller/similarity/{ids[r]}?top_k=10")
                 sim_ms.append(1e3 * (time.perf_counter() - t0))
                 res = sim["results"]
-                check(len(res) == 10 and res[0]["product_id"] == ids[order[r, 0]]
-                      and all(x["product_id"] != ids[r] for x in res),
-                      f"{backend} similarity for {ids[r]}: {res[:3]}, exact top hit "
-                      f"{ids[order[r, 0]]}")
+                check(len(res) == 10 and all(x["product_id"] != ids[r] for x in res),
+                      f"{backend} similarity for {ids[r]}: {res[:3]}")
+                hits.append(res[0]["product_id"] == ids[order[r, 0]])
+                check(backend == "ivf" or hits[-1], f"{backend} similarity for {ids[r]}: "
+                      f"{res[:3]}, exact top hit {ids[order[r, 0]]}")
                 for x in res:
                     score_err = max(score_err, abs(x["score"] - float(cos[r, col[x["product_id"]]])))
             check(score_err <= SERVE_TOL, f"{backend} similarity scores vs exact: {score_err}")
             check(all_launches() == before, f"{backend} similarity launched a hand kernel")
             row.update({"similarity_ms_median": float(np.median(sim_ms)),
-                        "score_err_vs_exact": score_err, "queries": len(queries)})
+                        "score_err_vs_exact": score_err, "queries": len(queries),
+                        "top_hit_equals_exact": float(np.mean(hits))})
+            if backend == "ivf":
+                row["nprobe"] = ctx.index.nprobe
+                check(row["top_hit_equals_exact"] >= IVF_TOP_HIT_FLOOR,
+                      f"ivf at nprobe {ctx.index.nprobe}: top hit exact for "
+                      f"{row['top_hit_equals_exact']} of the queries, under {IVF_TOP_HIT_FLOOR}")
+                ext, _ = ctx.index.topk(vecs[queries], 2, nprobe=IVF_FULL_PROBE)
+                full = [next(ctx.int_to_pid.get(x) for x in got.tolist()
+                             if ctx.int_to_pid.get(x) != ids[r]) == ids[order[r, 0]]
+                        for got, r in zip(ext, queries)]
+                check(all(full), f"ivf with every bucket probed: top hit exact for "
+                      f"{sum(full)} of {len(full)} queries")
             if backend == "int8":    # the /train/* routes once, on the store just filled
                 row["train"] = train_routes(base, tx, device)
         finally:
@@ -2485,6 +2678,9 @@ def hm_cut_phase(root: str, device, world: subprocess.Popen) -> dict:
     check(all(n == 2 * item["steps"] for n in item["launches"].values())
           and item["steps"] == HM_CUT_ITEM_STEPS,
           f"train-item: K1 {item['launches']} in {item['steps']} steps")
+    for name, run in (("train-item", item), ("train-user", user)):
+        check(run["graph_replays"] == run["steps"] - WARMUP_STEPS,
+              f"{name}: {run['graph_replays']} graph replays in {run['steps']} steps")
     losses = np.asarray(item["losses"])
     check(bool(np.isfinite(losses).all()) and losses[-50:].mean() < losses[:50].mean(),
           f"train-item losses: first {losses[:50].mean()}, last {losses[-50:].mean()}")
@@ -2570,12 +2766,14 @@ def hm_cut_phase(root: str, device, world: subprocess.Popen) -> dict:
     seconds["topk_cost"] = time.perf_counter() - t0
     seconds["phase"] = time.perf_counter() - t_phase
     return {"gen": gen, "etl": etl,
-            "train_item": {k: item[k] for k in ("steps", "seconds", "step_ms_median",
-                                                "first_step_ms", "launches")},
+            "train_item": {k: item[k] for k in ("steps", "graph_replays", "seconds",
+                                                "step_ms_median", "first_step_ms",
+                                                "launches")},
             "item_loss_first_last": [float(losses[:50].mean()), float(losses[-50:].mean())],
             "vectorize": {k: out["vectorize"][k] for k in ("shape", "seconds", "items_per_s")},
-            "train_user": {k: user[k] for k in ("steps", "seconds", "step_ms_median",
-                                                "epoch_losses", "launches")},
+            "train_user": {k: user[k] for k in ("steps", "graph_replays", "seconds",
+                                                "step_ms_median", "epoch_losses",
+                                                "launches")},
             "eval": {k: ev[k] for k in ("recall@20", "recall@100", "recall@500", "n_eval",
                                         "step_ms_median", "seconds")},
             "baselines": ev["baselines"], "blend_best": ev["blend"]["best_metrics"],
@@ -2705,6 +2903,8 @@ def main() -> None:
         _rows, kstats = kernel_phase(device)
         result = slice_phase(root)
         print(json.dumps({"phase": "slice", **result}), flush=True)
+        item_step = item_step_phase(root, device)
+        print(json.dumps({"phase": "item_step", **item_step}), flush=True)
         graph, edges_u, edges_i = reference_scale_graph(seed=0)
         sstats = spmm_phase(device, graph)
         print(json.dumps({"phase": "spmm_kernel", **sstats}), flush=True)

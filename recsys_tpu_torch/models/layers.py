@@ -115,7 +115,7 @@ class MultiHeadDotProductAttention(nn.Module):
         q = self.query(x).view(B, L, H, hd)
         k = self.key(x).view(B, L, H, hd)
         v = self.value(x).view(B, L, H, hd)
-        q = q / torch.tensor(math.sqrt(hd), dtype=q.dtype, device=q.device)
+        q = q / torch.full((), math.sqrt(hd), dtype=q.dtype, device=q.device)  # no host copy
         w = torch.einsum("bqhd,bkhd->bhqk", q, k)
         if mask is not None:
             w = w.masked_fill(~mask, torch.finfo(w.dtype).min)

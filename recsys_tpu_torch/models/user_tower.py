@@ -30,6 +30,7 @@ initialised from the stage-1 artifact; ``Stage2Model`` holds both towers as
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from recsys_tpu_torch.config import UserTowerConfig
@@ -47,14 +48,17 @@ from recsys_tpu_torch.models.layers import (
 
 
 class SASRecItemTower(nn.Module):
-    """Trainable item-embedding matrix, PAD row 0."""
+    """Trainable item-embedding matrix, PAD row 0. The lookup is an embedding
+    lookup: its gradient sums each row's incoming gradients, the function of
+    ``jnp.take`` and its scatter-add VJP, through the embedding backward
+    rather than the slower index backward of ``item_matrix[ids]``."""
 
     def __init__(self, num_items: int, dim: int = 128):
         super().__init__()
         self.item_matrix = normal_param(num_items, dim, std=0.02)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return self.item_matrix[ids]
+        return F.embedding(ids, self.item_matrix)
 
 
 class SASRecUserTower(nn.Module):

@@ -4,10 +4,17 @@ Each kernel source under ``csrc/`` has a plain C interface. It is compiled
 with ``nvcc`` for sm_90a into ``csrc/build/`` at first use, keyed by the hash
 of the source and the flags, and loaded with ``ctypes``. A failed build
 raises; nothing carries on without the kernel.
+
+Launch counts: a wrapper counts each launch with ``count_launch``. A launch
+made while a stream is being captured into a CUDA graph does not run then;
+it is logged inside ``captured_launches()`` instead, and every replay of the
+graph adds the logged launches to their counts (``count_replay``), so a count
+is what the card ran.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -17,6 +24,8 @@ import threading
 import time
 from pathlib import Path
 from typing import Callable
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -80,3 +89,36 @@ def raise_on_error(code: int, name: str) -> None:
     """``code`` is the ``cudaGetLastError()`` a launch function returned."""
     if code != 0:
         raise RuntimeError(f"{name} launch failed: cudaError_t {code}")
+
+
+# (counts, name) of each launch captured inside ``captured_launches()``
+_CAPTURE_LOG: list | None = None
+
+
+def count_launch(counts: dict, name: str) -> None:
+    """One launch of kernel ``name``: counted now, or logged for the replays
+    of the graph being captured."""
+    if not torch.cuda.is_current_stream_capturing():
+        counts[name] += 1
+    elif _CAPTURE_LOG is None:
+        raise RuntimeError(f"{name} launched in a CUDA graph capture outside "
+                           "captured_launches(): its replays would go uncounted")
+    else:
+        _CAPTURE_LOG.append((counts, name))
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """Log the kernel launches captured inside the block; yields the log,
+    which ``count_replay`` adds to the counts once a replay."""
+    global _CAPTURE_LOG
+    outer, _CAPTURE_LOG = _CAPTURE_LOG, []
+    try:
+        yield _CAPTURE_LOG
+    finally:
+        _CAPTURE_LOG = outer
+
+
+def count_replay(log: list) -> None:
+    for counts, name in log:
+        counts[name] += 1

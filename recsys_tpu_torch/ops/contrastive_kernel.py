@@ -14,9 +14,10 @@ one cooperative launch in three phases (q and k split into TF32 planes, the
 products, the merge of partial results), in a workspace the wrapper
 allocates once per device, stream and shape and reuses. The wrapper binds
 the C functions once and skips the device switch when q's device is already
-current. On CPU tensors the same autograd function runs the plain PyTorch math of those
-kernels. A CUDA tensor never takes the plain path: the kernel launches or
-the call raises.
+current. The launch counts follow ``ops/_build.count_launch``: a launch
+captured into a CUDA graph counts once each replay. On CPU tensors the same
+autograd function runs the plain PyTorch math of those kernels. A CUDA
+tensor never takes the plain path: the kernel launches or the call raises.
 
 ``fused_diag_ce_reference`` is the plain form with the same signature,
 differentiated by autograd; it is the oracle the kernel is held against.
@@ -28,10 +29,11 @@ import ctypes
 
 import torch
 
-from recsys_tpu_torch.ops._build import KernelLibrary, raise_on_error
+from recsys_tpu_torch.ops._build import KernelLibrary, count_launch, raise_on_error
 from recsys_tpu_torch.ops.contrastive import NEG
 
-# launches per kernel; each wrapper adds one where it launches, nowhere else
+# launches per kernel; each wrapper adds one where it launches (a captured
+# launch one a replay), nowhere else
 LAUNCHES = {"diag_ce_fwd": 0, "diag_ce_bwd_dq": 0, "diag_ce_bwd_dk": 0}
 
 
@@ -100,7 +102,7 @@ def _launch(name: str, q: torch.Tensor, *args) -> tuple:
             if name == "diag_ce_fwd" else (torch.empty_like(q),))
     code = _FNS[name](*args, ws.data_ptr(), *(o.data_ptr() for o in outs), stream)
     raise_on_error(code, name)
-    LAUNCHES[name] += 1
+    count_launch(LAUNCHES, name)
     return outs
 
 

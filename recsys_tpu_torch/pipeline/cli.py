@@ -218,7 +218,8 @@ def cmd_train_item(cfg: Config, args) -> dict:
                          text_pretrain=text_pretrain)
     seconds = time.perf_counter() - t0
     steady = state.step_seconds[1:] or state.step_seconds
-    return {"steps": state.step, "ckpt_dir": p["item_ckpts"],
+    return {"steps": state.step, "graph_replays": state.graph_replays,
+            "ckpt_dir": p["item_ckpts"],
             "text_encoder": cfg.item_tower.text_encoder, "device": str(device),
             "mesh": mesh.shape, "seconds": seconds, "losses": state.losses,
             "step_ms_median": 1e3 * statistics.median(steady) if steady else None,
@@ -286,7 +287,8 @@ def cmd_train_user(cfg: Config, args) -> dict:
                                          deadline=getattr(args, "deadline", None))
     return {"epochs": len(history), "best": _best_epoch(history),
             "final": history[-1] if history else {}, "device": str(device),
-            "steps": state.step, "seconds": time.perf_counter() - t0,
+            "steps": state.step, "graph_replays": state.graph_replays,
+            "seconds": time.perf_counter() - t0,
             "epoch_losses": state.losses, "step_ms_median": _median_ms(state.step_seconds)}
 
 

@@ -24,11 +24,15 @@ Counterpart of ``recsys_tpu/train/sasrec.py``:
 Every random draw of a step (cut gates and positions, sampled positions,
 dropout, the random columns of ``mixed_hnm``) comes from one
 ``torch.Generator``; ``draws`` hands a step fixed draws instead, so that a
-test can replay the JAX package's. With ``user_train.lookup="a2a"`` the item
+test can replay the JAX package's. ``train_user_tower`` runs its steps
+through ``train/step_graph.StepGraph``: on the card the step (the batch's
+gather, both forwards, the loss, the backward, the optimizer) is one CUDA
+graph replayed once a batch, as the JAX step is one jitted program; on the
+CPU the same step runs eagerly. With ``user_train.lookup="a2a"`` the item
 lookups go through ``parallel/collectives.rowsharded_lookup_a2a`` over the
-mesh's model axis; the rest of the step runs on the first device. The
-tower's side-info gates are off, as in the JAX package, so the hashed side
-ids (``data["side"]``) are never read.
+mesh's model axis; the rest of the step runs on the first device, eagerly
+(that path is not captured). The tower's side-info gates are off, as in the
+JAX package, so the hashed side ids (``data["side"]``) are never read.
 """
 
 from __future__ import annotations
@@ -57,6 +61,7 @@ from recsys_tpu_torch.train.checkpoint import CheckpointStore, snapshot_due
 from recsys_tpu_torch.train.metrics import MetricWriter, gate_weights, static_branch_importance
 from recsys_tpu_torch.train.state import (
     PlateauScheduler, StepTimer, TrainState, grouped_adamw, set_lr_factor)
+from recsys_tpu_torch.train.step_graph import StepGraph
 
 BATCH_KEYS = ("input_ids", "target_ids", "time_buckets", "seq_mask",
               "user_buckets", "user_cats", "user_cont")
@@ -211,7 +216,7 @@ def stage2_loss(cfg: Config, model: Stage2Model, lookup, logq: torch.Tensor, bat
     tgt_emb = lookup(tgt_ids)
     if ut.item_target_norm == "l2" or ut.loss_variant in ("hnm", "mixed_hnm", "margin"):
         tgt_emb = l2_normalize(tgt_emb)     # mining assumes cosine
-    user_row_ids = torch.arange(B, device=u1.device).repeat_interleave(P)
+    user_row_ids = torch.arange(B * P, device=u1.device) // P    # each user's P rows
     main = main_loss(cfg, rows, tgt_emb, tgt_ids, logq, user_row_ids, generator,
                      draws.get("rand_cols"))
     cl = duorec_loss(u1[:, -1], u2[:, -1], batch["target_ids"][:, -1],
@@ -357,6 +362,8 @@ def train_user_tower(cfg: Config, data: dict, pretrained_matrix: np.ndarray | No
     dev_tensors = tensors_to(tensors, device)
     rng = np.random.default_rng(cfg.data.seed + 1)
     gen = torch.Generator(device).manual_seed(cfg.data.seed)
+    runner = StepGraph(step_fn, state, dev_tensors, bs, gen,
+                       capture=device.type == "cuda" and ut.lookup == "dense")
     gstep = (start_epoch - 1) * steps_per_epoch
     history: list[dict] = []
     with contextlib.ExitStack() as stack:
@@ -370,7 +377,7 @@ def train_user_tower(cfg: Config, data: dict, pretrained_matrix: np.ndarray | No
             timer = StepTimer(device)
             for _pass in range(passes):
                 for idx in batch_iterator(n, bs, rng):
-                    aux = step_fn(_slice(dev_tensors, idx), gen)
+                    aux = runner(idx)
                     timer.mark()
                     losses.append(aux["loss"])
                     gstep += 1
@@ -398,6 +405,7 @@ def train_user_tower(cfg: Config, data: dict, pretrained_matrix: np.ndarray | No
                            extra={"epoch": epoch, "plateau_best": plateau.best,
                                   "plateau_scale": plateau.scale, **metrics})
             epoch_s = time.time() - t0
+    state.graph_replays = runner.replays
     return state, history, user_vectors_fn
 
 

@@ -4,7 +4,11 @@ Counterpart of ``recsys_tpu/train/simcse.py``. One step: two corrupted views
 (on the device, ``ops/augment.py``), both tower forwards with dropout, the
 bidirectional InfoNCE at tau = 0.08 through ``select_infonce`` (on CUDA the
 hand-written kernel K1, forward and backward), AdamW with the text encoder
-at its own learning rate, linear warmup/decay. Alignment/uniformity every
+at its own learning rate, linear warmup/decay computed on the device. On the
+card ``train_simcse`` runs the step (the batch's gather, both views, both
+forwards, the loss, the backward, the optimizer) as one CUDA graph replayed
+once a batch (``train/step_graph.StepGraph``), as the JAX step is one jitted
+program; on the CPU the same step runs eagerly. Alignment/uniformity every
 ``metrics_every`` steps; per-epoch checkpoints, best by loss.
 
 On a mesh whose data axis is > 1 the step is data-parallel under one
@@ -15,7 +19,8 @@ global (the JAX step is one global-batch program), the loss is the same
 ``select_infonce`` on the (B_global, D) views (K1 on CUDA, as on one device),
 the gradients are summed onto one set of master weights and one optimizer
 step follows. Shards that share a device share the module; a shard on another
-device has a replica that is refreshed after every step.
+device has a replica that is refreshed after every step. This step is not
+captured: it runs eagerly.
 
 ``materialize_item_vectors`` writes the (N+1, D) matrix (row 0 = PAD) with
 its id sidecar, in the JAX package's format.
@@ -41,7 +46,8 @@ from recsys_tpu_torch.ops.augment import two_views
 from recsys_tpu_torch.parallel.mesh import Mesh, shard_batch
 from recsys_tpu_torch.train.checkpoint import CheckpointStore, save_array_with_ids
 from recsys_tpu_torch.train.metrics import MetricWriter, alignment, uniformity
-from recsys_tpu_torch.train.state import TrainState, grouped_adamw, warmup_linear_factor
+from recsys_tpu_torch.train.state import TrainState, WarmupLinearLR, grouped_adamw
+from recsys_tpu_torch.train.step_graph import StepGraph
 
 ITEM_KEYS = ("std", "re_ids", "re_mask", "re_value", "txt_ids", "txt_mask")
 MODEL_INPUTS = ("std", "re_ids", "re_mask", "txt_ids", "txt_mask")
@@ -66,16 +72,16 @@ def item_tensors_to(tensors: dict, device: torch.device | str) -> dict:
 
 
 def make_optimizer(cfg: Config, model: SimCSEModel, total_steps: int):
-    """AdamW with the text encoder at its own learning rate. The frozen
-    pretrained table (the JAX package's ``"frozen"`` group) takes no
-    gradient, so ``grouped_adamw`` leaves it out of both groups."""
+    """(optimizer, schedule): AdamW with the text encoder at its own learning
+    rate, under the linear warmup and decay computed on the device from the
+    update count. The frozen pretrained table (the JAX package's
+    ``"frozen"`` group) takes no gradient, so ``grouped_adamw`` leaves it out
+    of both groups."""
     sc = cfg.simcse
     opt = grouped_adamw(
         model, lambda name: "text" if "text_encoder" in name else "rest",
         {"text": sc.text_encoder_lr, "rest": sc.lr}, sc.weight_decay)
-    sched = torch.optim.lr_scheduler.LambdaLR(
-        opt, warmup_linear_factor(total_steps, sc.warmup_frac))
-    return opt, sched
+    return opt, WarmupLinearLR(opt, total_steps, sc.warmup_frac)
 
 
 def loss_on_views(model: SimCSEModel, cfg: Config, v1: dict, v2: dict,
@@ -241,6 +247,8 @@ def train_simcse(cfg: Config, tensors: dict, workdir: str,
                else make_train_step(state, cfg))
     data = item_tensors_to(tensors, device)
     gen = torch.Generator(device).manual_seed(cfg.data.seed)
+    runner = StepGraph(step_fn, state, data, sc.batch_size, gen,
+                       capture=device.type == "cuda" and not data_parallel(mesh))
     rng = np.random.default_rng(cfg.data.seed)
     t0, seen = time.time(), 0
     with contextlib.ExitStack() as stack:
@@ -252,8 +260,7 @@ def train_simcse(cfg: Config, tensors: dict, workdir: str,
             for _pass in range(passes):
                 for idx in batch_iterator(n, sc.batch_size, rng):
                     t_step = time.perf_counter()
-                    ix = torch.as_tensor(idx, device=device)
-                    loss, e1, e2 = step_fn({k: v[ix] for k, v in data.items()}, gen)
+                    loss, e1, e2 = runner(idx)
                     loss = float(loss)  # waits for the step to finish
                     state.step_seconds.append(time.perf_counter() - t_step)
                     state.losses.append(loss)
@@ -270,6 +277,7 @@ def train_simcse(cfg: Config, tensors: dict, workdir: str,
             store.save(f"encoder_ep{epoch:02d}",
                        {"model": model.state_dict(), "optimizer": opt.state_dict()},
                        step=state.step, metric=mean_loss)
+    state.graph_replays = runner.replays
     return state
 
 

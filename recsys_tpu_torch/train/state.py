@@ -4,10 +4,8 @@ hybrid trainer's schedule.
 
 Counterpart of ``recsys_tpu/train/state.py``. optax ``adamw`` and
 ``torch.optim.AdamW`` apply the same update (betas 0.9/0.999, eps 1e-8,
-decoupled decay on every parameter of a group), and the ``LambdaLR`` factor
-below equals ``warmup_linear_schedule``: the learning rate is 0 at the first
-update, as in optax. ``GroupedAdamW`` is the optax chain the JAX trainers
-build around those groups:
+decoupled decay on every parameter of a group). ``GroupedAdamW`` is the optax
+chain the JAX trainers build around those groups:
 
     clip_by_global_norm(grad_clip)            over every gradient, all groups
     -> multi_transform({group: [freeze gate] -> adamw(lr_group)})
@@ -21,16 +19,29 @@ build around those groups:
     count still ticks (bias correction after the unfreeze is the JAX
     package's) and the decoupled decay still shrinks the weights;
   * the lr factor multiplies every group's whole update, decay included,
-    which is the same as multiplying the group's learning rate. It sits in
-    every param group, so it is saved with ``state_dict()`` and restored by
-    ``load_state_dict()``, as the JAX factor is saved with the optimizer state.
+    which is the same as multiplying the group's learning rate.
+
+The optimizer decides nothing on the host, as the JAX step is one compiled
+program: a group's update count (``"updates"``) and its lr factor are
+tensors on the group's device, the gate is computed there from the count,
+AdamW takes the group's learning rate times its factor as a device tensor,
+and ``set_lr_factor`` writes into the factor's tensor. On the card AdamW
+runs fused (one multi-tensor kernel, its count on the device) and
+``capturable``, so one CUDA graph of a step replays every update right
+(``train/step_graph.py``). ``load_state_dict`` writes a checkpoint's count
+and factor (host numbers or tensors) into the tensors in place.
+
+SimCSE's linear warmup and decay (``warmup_linear_factor``, optax's
+``warmup_linear_schedule``: the learning rate is 0 at the first update) is
+``WarmupLinearLR``: each group's ``lr`` is a tensor that its ``step()``
+recomputes on the device from the group's count.
 
 The hybrid trainer's recipe is the chain ``clip_by_global_norm -> adamw(sched)
 -> masked(scale(s))`` over the top-level modules in ``hybrid_slow_modules``:
 the masked scale multiplies the whole AdamW update of those modules, decay
 included, which is a group ``lr_factor`` of ``s``; ``hybrid_schedule`` is
 ``sched`` (optax's constant, linear-warmup or warmup-cosine schedule, counted
-from 0).
+from 0), set as a host float ``lr`` by a ``LambdaLR`` (its step runs eagerly).
 
 A parameter that took no part in the loss has no gradient in PyTorch; optax
 sees a zero gradient there and still decays the weight, so the optimizer
@@ -52,10 +63,11 @@ from torch import nn
 class TrainState:
     model: nn.Module
     optimizer: torch.optim.Optimizer
-    scheduler: torch.optim.lr_scheduler.LRScheduler | None = None
+    scheduler: torch.optim.lr_scheduler.LRScheduler | WarmupLinearLR | None = None
     step: int = 0
     losses: list[float] = field(default_factory=list)         # per step
     step_seconds: list[float] = field(default_factory=list)   # see StepTimer
+    graph_replays: int = 0                                    # steps run as a CUDA graph replay
 
 
 class StepTimer:
@@ -84,11 +96,16 @@ class StepTimer:
 
 def warmup_linear_factor(total_steps: int, warmup_frac: float = 0.1
                          ) -> Callable[[int], float]:
-    """Multiplier of the base lr: 0 -> 1 over the warmup, then 1 -> 0."""
+    """Multiplier of the base lr: 0 -> 1 over the warmup, then 1 -> 0. Takes
+    an int, or a count tensor (the factor is then a tensor on its device)."""
     warmup = max(int(total_steps * warmup_frac), 1)
     decay = max(total_steps - warmup, 1)
 
-    def factor(step: int) -> float:
+    def factor(step):
+        if isinstance(step, torch.Tensor):
+            step = step.float()
+            return torch.where(step < warmup, step / warmup,
+                               (1.0 - (step - warmup) / decay).clamp(min=0.0))
         if step < warmup:
             return step / warmup
         return max(1.0 - (step - warmup) / decay, 0.0)
@@ -120,15 +137,6 @@ def hybrid_schedule(base_lr: float, warmup_steps: int, decay: str,
     return sched
 
 
-def freeze_gate_schedule(freeze_steps: int) -> Callable[[int], float]:
-    """1.0 from update ``freeze_steps`` on (0-based), else 0.0: the gate a
-    group's gradients are multiplied by before its AdamW."""
-    def sched(step: int) -> float:
-        return 1.0 if step >= freeze_steps else 0.0
-
-    return sched
-
-
 @torch.no_grad()
 def clip_by_global_norm_(grads: Iterable[torch.Tensor], max_norm: float) -> torch.Tensor:
     """optax ``clip_by_global_norm`` in place: the global L2 norm over all
@@ -144,7 +152,8 @@ def clip_by_global_norm_(grads: Iterable[torch.Tensor], max_norm: float) -> torc
 
 class GroupedAdamW(torch.optim.AdamW):
     """AdamW over named parameter groups behind a global-norm clip, per-group
-    freeze gates and an lr factor (see the module docstring)."""
+    freeze gates and an lr factor, computed on the parameters' device (see
+    the module docstring)."""
 
     def __init__(self, groups: list[dict], weight_decay: float,
                  grad_clip: float | None = None):
@@ -152,9 +161,16 @@ class GroupedAdamW(torch.optim.AdamW):
             g.setdefault("freeze_steps", 0)
             g.setdefault("updates", 0)
             g.setdefault("lr_factor", 1.0)
-        super().__init__(groups, betas=(0.9, 0.999), eps=1e-8,
-                         weight_decay=weight_decay)
+        on_card = groups[0]["params"][0].device.type == "cuda"
+        super().__init__(groups, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay,
+                         capturable=on_card, fused=on_card)
         self.grad_clip = grad_clip
+        self._lrs = []       # each group's lr times its factor, the tensor AdamW reads
+        for g in self.param_groups:
+            device = g["params"][0].device
+            g["updates"] = torch.tensor(float(g["updates"]), device=device)
+            g["lr_factor"] = torch.tensor(float(g["lr_factor"]), device=device)
+            self._lrs.append(torch.zeros((), device=device))
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -164,19 +180,62 @@ class GroupedAdamW(torch.optim.AdamW):
                 p.grad = torch.zeros_like(p)
         if self.grad_clip:
             clip_by_global_norm_([p.grad for p in params], self.grad_clip)
-        lrs = []
-        for g in self.param_groups:
-            if freeze_gate_schedule(g["freeze_steps"])(g["updates"]) == 0.0:
-                for p in g["params"]:
-                    p.grad.zero_()
-            g["updates"] += 1
-            lrs.append(g["lr"])
-            g["lr"] = g["lr"] * g["lr_factor"]
+        lrs = [g["lr"] for g in self.param_groups]
+        for g, lr in zip(self.param_groups, self._lrs):
+            if g["freeze_steps"] > 0:
+                torch._foreach_mul_([p.grad for p in g["params"]],
+                                    (g["updates"] >= g["freeze_steps"]).float())
+            g["updates"].add_(1)
+            torch.mul(g["lr_factor"], g["lr"], out=lr)
+            g["lr"] = lr
         try:
             return super().step(closure)
         finally:
             for g, lr in zip(self.param_groups, lrs):
                 g["lr"] = lr
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        """The checkpoint's groups and moments, with this optimizer's
+        device choices (fused, capturable; a checkpoint from the CPU has
+        neither) and its count and factor tensors, which a captured step
+        reads, filled in place."""
+        device_keys = ("capturable", "fused", "foreach")
+        mine = [{k: g[k] for k in ("updates", "lr_factor", *device_keys)}
+                for g in self.param_groups]
+        super().load_state_dict({**state_dict, "param_groups": [
+            {**g, **{k: m[k] for k in device_keys}}
+            for g, m in zip(state_dict["param_groups"], mine)]})
+        for g, m in zip(self.param_groups, mine):
+            m["updates"].fill_(float(g["updates"]))
+            m["lr_factor"].fill_(float(g["lr_factor"]))
+            g.update(m)
+
+
+class WarmupLinearLR:
+    """``warmup_linear_factor`` as a device program: every group's ``lr``
+    becomes a tensor on its device, and ``step()``, called after each
+    optimizer step as ``LambdaLR.step`` is, sets it to ``initial_lr *
+    factor(updates)`` from the group's update count, on the device. The
+    schedule's position is the optimizer's count, so its own state is
+    empty."""
+
+    def __init__(self, optimizer: GroupedAdamW, total_steps: int, warmup_frac: float = 0.1):
+        self.optimizer = optimizer
+        self.factor = warmup_linear_factor(total_steps, warmup_frac)
+        for g in optimizer.param_groups:
+            g.setdefault("initial_lr", float(g["lr"]))
+            g["lr"] = torch.zeros((), device=g["updates"].device)
+        self.step()
+
+    def step(self) -> None:
+        for g in self.optimizer.param_groups:
+            g["lr"].copy_(g["initial_lr"] * self.factor(g["updates"]))
+
+    def state_dict(self) -> dict:
+        return {}
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        self.step()
 
 
 def grouped_adamw(model: nn.Module, label_fn: Callable[[str], str],
@@ -206,9 +265,9 @@ def grouped_adamw(model: nn.Module, label_fn: Callable[[str], str],
 def set_lr_factor(optimizer: torch.optim.Optimizer, factor: float) -> None:
     """Set the update scale of a ``GroupedAdamW`` (``with_lr_factor``'s
     injected scale): it multiplies every group's whole update from the next
-    step on."""
+    step on. Written into the factor's tensor, which a captured step reads."""
     for g in optimizer.param_groups:
-        g["lr_factor"] = float(factor)
+        g["lr_factor"].fill_(float(factor))
 
 
 class PlateauScheduler:

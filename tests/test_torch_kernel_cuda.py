@@ -136,6 +136,191 @@ def test_kernel_at_the_stage2_shape(device, users, positions):
     assert torch.equal(K.diag_ce_bwd_dq_cuda(*args), dq)
 
 
+@pytest.mark.parametrize("users,positions", [(96, 2), (768, 4)], ids=["B192", "B3072"])
+def test_kernel_replays_from_a_cuda_graph_bit_for_bit_and_counted(device, users, positions):
+    """K1's forward, dq and dk captured into one CUDA graph (on its capture
+    stream, whose workspace the warm-up made) and replayed: every replay
+    gives the eager calls' bits, and ``LAUNCHES`` counts each kernel once a
+    replay (none at the capture)."""
+    from recsys_tpu_torch.ops._build import captured_launches, count_replay
+
+    p = _stage2_problem(users, positions, users, device)
+    B = users * positions
+    meta = (p["logq"][p["pos"]], p["pos"].int(), p["uid"].int(),
+            torch.ones(B, dtype=torch.int32, device=device))
+    g = torch.full((B,), 1.0 / B, device=device)
+
+    def calls():
+        loss, lse = K.diag_ce_fwd_cuda(p["u"], p["i"], *meta, 0.1)
+        args = (p["u"], p["i"], *meta, lse, g, 0.1)
+        return loss, lse, K.diag_ce_bwd_dq_cuda(*args), K.diag_ce_bwd_dk_cuda(*args)
+
+    eager = calls()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):   # the capture stream's workspace is made before capture
+        calls()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    K.reset_launch_counts()
+    with captured_launches() as log, torch.cuda.graph(graph, stream=side):
+        captured = calls()
+    assert all(n == 0 for n in K.LAUNCHES.values()) and len(log) == 3
+    for replay in range(1, 4):
+        for out in captured:
+            out.zero_()
+        graph.replay()
+        count_replay(log)
+        torch.cuda.synchronize()
+        assert all(torch.equal(c, e) for c, e in zip(captured, eager))
+        assert all(n == replay for n in K.LAUNCHES.values())
+
+
+class _TwoMaps(torch.nn.Module):
+    def __init__(self, rng):
+        super().__init__()
+        w = lambda: torch.nn.Parameter(torch.as_tensor(
+            rng.normal(0, 0.1, (64, 128)).astype(np.float32)))
+        self.a, self.b = w(), w()
+
+
+def _k1_trainer(device, seed: int, pause_in_capture=None):
+    """(model, state, step, data): two linear maps of a row's features, the
+    bidirectional InfoNCE through K1 (each kernel twice a step) and the
+    port's optimizer. ``pause_in_capture()`` runs in the step while its
+    stream is being captured."""
+    from recsys_tpu_torch.train.state import TrainState, grouped_adamw
+
+    rng = np.random.default_rng(seed)
+    model = _TwoMaps(rng).to(device)
+    state = TrainState(model, grouped_adamw(model, lambda n: "all", {"all": 1e-2}, 0.01,
+                                            grad_clip=1.0))
+    data = {"x": torch.as_tensor(rng.normal(size=(1024, 64)).astype(np.float32),
+                                 device=device)}
+
+    def step(batch, generator):
+        x = batch["x"]
+        e1 = torch.nn.functional.normalize(x @ model.a, dim=1)
+        e2 = torch.nn.functional.normalize(x @ model.b, dim=1)
+        loss = K.fused_bidirectional_infonce(e1, e2, 0.08)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        state.optimizer.step()
+        state.step += 1
+        if pause_in_capture is not None and torch.cuda.is_current_stream_capturing():
+            pause_in_capture()
+        return {"loss": loss.detach()}
+
+    return model, state, step, data
+
+
+def test_optimizer_resumes_a_cpu_checkpoint_fused_on_the_card(device):
+    """A checkpoint of the optimizer written on the CPU (neither fused nor
+    capturable) loads into the card's: the card's device choices stay, Adam's
+    counts move to the card, and four more steps there give the CPU's
+    weights within 1e-6 (fused AdamW sums in another order)."""
+    from recsys_tpu_torch.train.state import TrainState, grouped_adamw, set_lr_factor
+
+    rng = np.random.default_rng(0)
+    grads = [[torch.as_tensor(rng.normal(size=(64, 128)).astype(np.float32)) for _ in range(2)]
+             for _ in range(8)]
+    runs = {}
+    for where in ("cpu", "cuda"):
+        model = _TwoMaps(np.random.default_rng(1)).to(where)
+        state = TrainState(model, grouped_adamw(
+            model, lambda n: "a" if n == "a" else "b", {"a": 1e-2, "b": 1e-3}, 0.01,
+            grad_clip=1.0, freeze_steps={"b": 3}))
+        runs[where] = (model, state.optimizer)
+    cpu_model, cpu_opt = runs["cpu"]
+    for g in grads[:4]:
+        cpu_model.a.grad, cpu_model.b.grad = g
+        cpu_opt.step()
+    set_lr_factor(cpu_opt, 0.5)
+    card_model, card_opt = runs["cuda"]
+    card_model.load_state_dict(cpu_model.state_dict())
+    card_opt.load_state_dict(cpu_opt.state_dict())
+    for g in card_opt.param_groups:
+        assert g["fused"] and g["capturable"] and g["updates"].device.type == "cuda"
+        assert int(g["updates"]) == 4 and float(g["lr_factor"]) == 0.5
+        assert all(card_opt.state[p]["step"].device.type == "cuda" for p in g["params"])
+    for g in grads[4:]:
+        cpu_model.a.grad, cpu_model.b.grad = g
+        cpu_opt.step()
+        card_model.a.grad, card_model.b.grad = (x.to(device) for x in g)
+        card_opt.step()
+    for c, d in zip(cpu_model.parameters(), card_model.parameters()):
+        assert float((c.detach() - d.detach().cpu()).abs().max()) <= 1e-6
+
+
+def test_two_runners_in_two_threads_one_capturing_while_the_other_replays(device):
+    """Two trainers in two threads, as a server's /train/* routes run them:
+    A replays while B is inside its capture (B's step waits there until A
+    has replayed three times). B starts once A replays: one capture runs at
+    a time, so A's would wait for B's paused one. Each gives the losses and
+    weights of its eager run alone, and every launch is counted once: A's
+    replays, B's warm-up steps and replays, none of B's capture. Tolerance
+    1e-5: the captured matmuls may take other cuBLAS kernels than eager."""
+    import threading
+
+    from recsys_tpu_torch.train.step_graph import WARMUP_STEPS, StepGraph
+
+    B, steps = 192, 10
+    idx = [np.random.default_rng(s).choice(1024, B, replace=False) for s in range(steps)]
+    ref = {}
+    for seed in (0, 1):
+        model, state, step, data = _k1_trainer(device, seed)
+        run = StepGraph(step, state, data, B, None, capture=False)
+        ref[seed] = ([float(run(i)["loss"]) for i in idx],
+                     [p.detach().clone() for p in model.parameters()])
+
+    a_replaying, b_capturing, a_replayed = threading.Event(), threading.Event(), threading.Event()
+
+    def pause():
+        b_capturing.set()
+        assert a_replayed.wait(120), "A did not replay while B captured"
+
+    trainers = [_k1_trainer(device, 0), _k1_trainer(device, 1, pause)]
+    runs = [StepGraph(step, state, data, B, None) for _, state, step, data in trainers]
+    losses, errors = {0: [], 1: []}, []
+
+    def run_a():
+        try:
+            for n, i in enumerate(idx):
+                if n == steps - 3:          # the last three replays run inside B's capture
+                    assert b_capturing.wait(120), "B did not reach its capture"
+                losses[0].append(float(runs[0](i)["loss"]))
+                if runs[0].replays == 1:    # A's capture is done: B may capture
+                    a_replaying.set()
+            a_replayed.set()
+        except BaseException as e:          # noqa: BLE001 - handed to the test's thread
+            errors.append(e)
+            a_replaying.set()
+            a_replayed.set()
+
+    def run_b():
+        try:
+            assert a_replaying.wait(120), "A did not reach its replays"
+            losses[1].extend(float(runs[1](i)["loss"]) for i in idx)
+        except BaseException as e:          # noqa: BLE001
+            errors.append(e)
+            b_capturing.set()
+
+    K.reset_launch_counts()
+    threads = [threading.Thread(target=run_a), threading.Thread(target=run_b)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    torch.cuda.synchronize()
+    assert not errors, errors
+    assert [r.replays for r in runs] == [steps - WARMUP_STEPS] * 2
+    assert all(n == 2 * 2 * steps for n in K.LAUNCHES.values()), K.LAUNCHES
+    for seed, (model, *_rest) in enumerate(trainers):
+        np.testing.assert_allclose(losses[seed], ref[seed][0], atol=1e-5, rtol=0)
+        for p, r in zip(model.parameters(), ref[seed][1]):
+            assert float((p.detach() - r).abs().max()) <= 1e-5
+
+
 @pytest.mark.parametrize("B", [192, 8192])
 def test_kernel_infonce_matches_plain(device, B):
     rng = np.random.default_rng(B)
