@@ -151,17 +151,26 @@ then (phases 10 and 11 run after 6, while the graph of 4 is still there):
      iterations, the DCN arm), then ``serve --vectors hybrid --model-backed``
      with ``serve.user_backend=hybrid`` and requests in rerank, blend and
      cosine mode for a few users. Gates: the epoch loss finite and falling,
+     every step after the warm-up a graph replay (``graph_replays``),
      ``hybrid_best`` Recall@100 > 0, the served user vector within SERVE_TOL of
      the tower's forward on the same history and GNN vector, the HTTP rerank
      list equal to ``rerank_serve_topk``'s offline list, the HTTP blend (the
      device form on the card) equal to the host blend, and no launch of K1-K4
      across the phase (the path has no hand kernel).
   16. the hybrid step at phase 14's shape (768 users x 50 positions, 47,000
-     items, content 128 + GNN 64, 4 layers), built here from a seed: 20 steps
-     after 2 warm-up steps (median through ``StepTimer``), five under
-     ``torch.profiler`` (device busy and idle share, launches a step, the
-     top device items), the adapted catalog's top-500 for the 768 users, and
-     the device time and host cost of a one-element add (the smallest launch).
+     items, content 128 + GNN 64, 4 layers; four batches of users), built
+     here from a seed, through ``train/hybrid.hybrid_runner`` eager and
+     captured: the captured step against the eager one from one seeded state
+     with ``user_tower.dropout=0``, ``user_train.random_cut_prob=0`` and the
+     GNN keep mask fixed through ``draws`` (the tolerances of phase 2), and
+     the same with the default config (every draw from the registered
+     generator; reported, not gated); then both with the default config, the
+     step medians in turns (StepTimer), a replay under
+     ``set_sync_debug_mode("error")``, five steps of each under
+     ``torch.profiler`` (device busy and idle share, kernels run and host
+     launch calls a step, the top device items), no hand kernel launched, the
+     adapted catalog's top-500 for 768 users, and the device time and host
+     cost of a one-element add (the smallest launch).
 
   17. the device indexes at full size, on bench_retrieval.py's four catalogs
      (47,000 items k = 500 and k = 50, 105,000, 1,000,000; B = 1024 queries,
@@ -230,6 +239,19 @@ then (phases 10 and 11 run after 6, while the graph of 4 is still there):
      scores lowest index first (``np.lexsort``). Then ``topk_scores``'
      top-500 at (768, 105,001): ``torch.topk`` against ``stable_topk`` on
      the same scores, in turns, and the whole call, CUDA events.
+  21. the headline recipe (``scripts/torch_quality_hm.py --recipe hybrid``)
+     on phase 20's world and stage-1 matrix, cut: train-gnn (HM_CUT_GNN_STEPS
+     steps; the graph's size in its JSON) -> gnn-eval -> distill ->
+     train-hybrid (one epoch at full width, captured, no ensemble report) ->
+     rerank-eval --vectors hybrid (HM_CUT_RERANK: a small pool) -> serve
+     --model-backed --vectors hybrid, one recommendation a mode (rerank,
+     blend, cosine) for a user of the GNN artifact. Gates: K2 exactly four
+     times a train-gnn step plus the export's and the check's two each, the
+     GNN check; gnn-eval's and the hybrid's and the rerank's recalls finite
+     and > 0; every train-hybrid step after the warm-up a graph replay, no hand
+     kernel there; the served user vector within SERVE_TOL of the tower's
+     forward on the same history and GNN row; the HTTP rerank list equal to
+     ``rerank_serve_topk``'s offline list.
 
 Phase 2 also holds each K1 kernel to exactly two launches a step.
 
@@ -347,6 +369,11 @@ IVF_QUERIES, IVF_TOP_HIT_FLOOR, IVF_FULL_PROBE = 256, 0.85, 1 << 16
 # from 1,370,000 to 60,000; one epoch of each tower; 546 SimCSE steps (105,000 // 192)
 HM_CUT_ITEMS, HM_CUT_ITEM_STEPS, HM_CUT_REQUESTS = 105_000, 546, 5
 HM_CUT_WORLD_TIMEOUT_S = 300.0   # the wait for gen-data and etl once phase 19 has ended
+# phase 21: the headline recipe on phase 20's world, cut: GNN steps, and rerank-eval's
+# pool (its cosine and popularity arms), inner-split users and boosting iterations
+HM_CUT_GNN_STEPS, HM_CUT_SERVE_PRODUCTS = 300, 256
+HM_CUT_RERANK = ("--pool", "128", "--m-cos", "96", "--m-pop", "32", "--sample", "2000",
+                 "--iterations", "50")
 HM_CUT_WORLD = ("--set", f"data.num_items={HM_CUT_ITEMS}", "--set", "data.num_users=60000",
                 "--set", "data.days=365", "--set", "data.repeat_prob=0.10",
                 "--set", "data.name_style_words=2")
@@ -1930,6 +1957,8 @@ def hybrid_slice_phase(root: str) -> dict:
     check(train["device"].startswith("cuda") and train["steps"] >= 50
           and all(np.isfinite(losses)) and losses[-1] < losses[0],
           f"train-hybrid: {train['steps']} steps, epoch losses {losses}")
+    check(train["graph_replays"] == train["steps"] - WARMUP_STEPS,
+          f"train-hybrid: {train['graph_replays']} graph replays in {train['steps']} steps")
     check(train["hybrid_best"].get("recall@100", 0) > 0, f"hybrid_best {train['hybrid_best']}")
     check({"ensemble", "ensemble_alive", "blend", "significance"} <= set(train),
           f"train-hybrid report: {sorted(train)}")
@@ -2012,8 +2041,8 @@ def hybrid_slice_phase(root: str) -> dict:
     check(served_err <= SERVE_TOL, f"served user vectors vs the hybrid tower: {served_err}")
     after = all_launches()
     check(after == before, f"the hybrid slice launched a hand kernel: {before} -> {after}")
-    return {"train": {k: train[k] for k in ("steps", "seconds", "step_ms_median", "epoch_losses",
-                                            "logit_scale", "report_seconds")},
+    return {"train": {k: train[k] for k in ("steps", "graph_replays", "seconds", "step_ms_median",
+                                            "epoch_losses", "logit_scale", "report_seconds")},
             "stage_seconds": {"train-hybrid": train_s, "ensemble-eval": ens_s,
                               "rerank-eval": rr_s},
             "hybrid_best": train["hybrid_best"], "hybrid_history": train["hybrid_history"],
@@ -2063,64 +2092,114 @@ def profile_steps(fn, n: int) -> dict:
             "top_device_items_ms": {k[:160]: v for k, v in top}}
 
 
-def hybrid_step_phase(device) -> dict:
+def hybrid_world(seed: int = 0) -> dict:
+    """Phase 14's stage-2 data (``reference_stage2_world``) with the hybrid
+    tower's inputs: its unit-row item matrix as the content rows, GNN item
+    and user rows of HYBRID_GNN_DIM, all from the same seed."""
+    world = reference_stage2_world(seed)
+    rng, N = world["rng"], world["items"]
+    gnn_items = rng.normal(0, 0.1, (N + 1, HYBRID_GNN_DIM)).astype(np.float32)
+    gnn_items[0] = 0.0
+    n = world["rows"]["input_ids"].shape[0]
+    return {**world, "gnn_items": gnn_items,
+            "gnn_users": rng.normal(0, 0.1, (n, HYBRID_GNN_DIM)).astype(np.float32)}
+
+
+def hybrid_trainer(world: dict, device, capture: bool, cfg=None, seed: int = 0) -> dict:
+    """A hybrid trainer on ``world`` (the default (full) widths unless
+    ``cfg``: the tower's 4 layers), seeded: its step through
+    ``train/hybrid.hybrid_runner`` (captured or eager), the model, the eval
+    forward, the item matrix and the data on the device."""
     from recsys_tpu_torch.config import Config
     from recsys_tpu_torch.train import hybrid as H
     from recsys_tpu_torch.train.sasrec import tensors_to
-    from recsys_tpu_torch.train.state import StepTimer, TrainState
+    from recsys_tpu_torch.train.state import TrainState
 
-    cfg = Config()
-    utc = cfg.user_tower
-    rng = np.random.default_rng(0)
-    B, L, N = STAGE2_B, STAGE2_L, STAGE2_ITEMS
-    batch_np = {
-        "input_ids": rng.integers(1, N + 1, (B, L)), "target_ids": rng.integers(1, N + 1, (B, L)),
-        "time_buckets": rng.integers(0, utc.num_time_buckets, (B, L)),
-        "seq_mask": np.ones((B, L), np.int64),
-        "user_buckets": rng.integers(0, 10, (B, utc.static_bucket_fields)),
-        "user_cats": rng.integers(0, 2, (B, utc.static_cat_fields)),
-        "user_cont": rng.normal(0, 1, (B, utc.static_cont_fields)).astype(np.float32)}
-    logq = rng.normal(-8.0, 1.0, N + 1).astype(np.float32)
-    content = rng.normal(size=(N + 1, D)).astype(np.float32)
-    content /= np.linalg.norm(content, axis=1, keepdims=True)
-    content[0] = 0.0
-    gnn_items = rng.normal(0, 0.1, (N + 1, HYBRID_GNN_DIM)).astype(np.float32)
-    gnn_items[0] = 0.0
-    model = H.build_hybrid_model(cfg, N + 1, D, HYBRID_GNN_DIM, device, seed=0)
+    cfg = cfg or Config()
+    model = H.build_hybrid_model(cfg, world["items"] + 1, D, HYBRID_GNN_DIM, device, seed=0)
     check(model.encoder.num_layers == 4, "the hybrid tower must have its 4 layers")
     opt, sched = H.make_hybrid_optimizer(cfg.user_train, model, 1000)
     state = TrainState(model, opt, sched)
-    step, uv, im = H.make_hybrid_step(cfg, state, content, gnn_items, logq)
-    batch = tensors_to(batch_np, device)
-    gnn_users = torch.as_tensor(rng.normal(0, 0.1, (B, HYBRID_GNN_DIM)).astype(np.float32),
-                                device=device)
-    gen = torch.Generator(device).manual_seed(0)
-    for _ in range(2):                     # warm-up: allocator, cuBLAS handles
-        step(batch, gnn_users, gen)
+    step, uv, im = H.make_hybrid_step(cfg, state, world["matrix"], world["gnn_items"],
+                                      world["logq"])
+    data = tensors_to(world["rows"], device)
+    gnn = torch.as_tensor(world["gnn_users"], device=device)
+    gen = torch.Generator(device).manual_seed(seed)
+    return {"runner": H.hybrid_runner(step, state, data, gnn, STAGE2_B, gen, capture=capture),
+            "model": model, "user_vectors": uv, "item_matrix": im, "data": data, "gnn": gnn}
+
+
+def hybrid_step_phase(device) -> dict:
+    """Phase 16: the hybrid step at phase 14's shape, eager and captured."""
+    import dataclasses
+
+    from recsys_tpu_torch.config import Config
+
+    world = hybrid_world()
+    B, n = STAGE2_B, STAGE2_B * STAGE2_BATCHES
+    # the captured step against the eager one: dropout and the random cut off, the
+    # GNN keep mask fixed through draws
+    base = Config()
+    quiet = dataclasses.replace(
+        base, user_tower=dataclasses.replace(base.user_tower, dropout=0.0),
+        user_train=dataclasses.replace(base.user_train, random_cut_prob=0.0))
+    krng = np.random.default_rng(1)
+    draws = [{"gnn_keep": torch.as_tensor(krng.random((B, 1)) < 0.7, device=device)}
+             for _ in range(GRAPH_STEPS)]
+
+    def make(cfg):
+        def trainer(capture):
+            t = hybrid_trainer(world, device, capture, cfg=cfg)
+            return t["runner"], t["model"]
+        return trainer
+
     before = all_launches()
-    timer, losses = StepTimer(device), []
-    for _ in range(STAGE2_STEPS):
-        losses.append(step(batch, gnn_users, gen)["loss"])
-        timer.mark()
-    seconds = timer.seconds()
-    losses = [float(x) for x in losses]
-    check(all(np.isfinite(losses)), f"hybrid losses {losses}")
+    held = captured_vs_eager(make(quiet), batch_indices(n, B, GRAPH_STEPS, seed=2),
+                             lambda out: out["loss"], draws)
+    # the default config, every draw from the registered generator: reported
+    (eager, m_eager), (graph, m_graph) = make(base)(False), make(base)(True)
+    gaps = [abs(float(eager(idx)["loss"]) - float(graph(idx)["loss"]))
+            for idx in batch_indices(n, B, GRAPH_STEPS, seed=4)]
+    default_gaps = {"max_loss_gap": max(gaps), "max_param_gap": max(
+        float((a - b).abs().max())
+        for a, b in zip(m_eager.state_dict().values(), m_graph.state_dict().values()))}
+    del eager, graph, m_eager, m_graph
+    trainers = {"eager": hybrid_trainer(world, device, False),
+                "captured": hybrid_trainer(world, device, True)}
+    runners = {name: t["runner"] for name, t in trainers.items()}
+    batches = iter(batch_indices(n, B, 6 + len(TURNS) * TURN_STEPS + 11, seed=3))
+    for _ in range(3):
+        for runner in runners.values():
+            runner(next(batches))
+    turns = steps_in_turns(runners, batches, device)
+    for name, t in turns.items():
+        check(all(np.isfinite(t["step_ms"])), f"hybrid step times ({name}): {t}")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss = runners["captured"](next(batches))["loss"]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(bool(torch.isfinite(loss)), f"hybrid loss {loss}")
+    traced = {name: profile_steps(lambda r=runner: r(next(batches)), 5)
+              for name, runner in runners.items()}
     check(all_launches() == before, "the hybrid step launched a hand kernel")
-    prof = profile_steps(lambda: step(batch, gnn_users, gen), 5)
     # the adapted catalog and the top-500 of hybrid_eval for the 768 users
+    cap = trainers["captured"]
     t0 = time.perf_counter()
-    items = im()
-    _, top = torch.topk(uv(batch, gnn_users) @ items.T, 500, dim=1)
+    items = cap["item_matrix"]()
+    rows = {k: v[:B] for k, v in cap["data"].items()}
+    _, top = torch.topk(cap["user_vectors"](rows, cap["gnn"][:B]) @ items.T, 500, dim=1)
     torch.cuda.synchronize()
     eval_ms = 1e3 * (time.perf_counter() - t0)
     # the smallest launch torch makes: a one-element add, its device time and host cost
     one = torch.zeros(1, device=device)
     launch = profile_steps(lambda: one.add_(1.0), 200)
-    return {"shape": {"users": B, "positions": L, "catalog": N, "content_dim": D,
-                      "gnn_dim": HYBRID_GNN_DIM, "layers": 4},
-            "step_ms_median": 1e3 * float(np.median(seconds)),
-            "step_ms": [1e3 * x for x in seconds], "losses": [losses[0], losses[-1]],
-            "profiled": prof, "eval_top500_ms": eval_ms,
+    return {"shape": {"users": B, "positions": STAGE2_L, "catalog": world["items"],
+                      "content_dim": D, "gnn_dim": HYBRID_GNN_DIM, "layers": 4},
+            "held": held, "default_config_gaps": default_gaps, "turns": turns,
+            "graph_replays": cap["runner"].replays,
+            "replay_under_sync_debug": "error", "traced": traced, "eval_top500_ms": eval_ms,
             "one_element_kernel": {"device_ms": launch["device_busy_ms"],
                                    "host_ms_per_call": launch["wall_ms"]}}
 
@@ -2873,6 +2952,143 @@ def eval_topk_cost(device, matrix: np.ndarray) -> dict:
             "stable_over_torch": float(np.mean(stable) / np.mean(plain))}
 
 
+# -- phase 21: the headline recipe on phase 20's world ------------------------------
+
+def hm_cut_hybrid_phase(root: str, device) -> dict:
+    """train-gnn -> gnn-eval -> distill -> train-hybrid (captured) ->
+    rerank-eval --vectors hybrid -> serve --vectors hybrid on phase 20's world
+    and its stage-1 matrix (the stages of ``scripts/torch_quality_hm.py
+    --recipe hybrid``, cut: HM_CUT_GNN_STEPS GNN steps, one hybrid epoch
+    without the ensemble report, a small rerank pool, one request a mode)."""
+    import pandas as pd
+
+    from recsys_tpu_torch.data.dataset import IdMap
+    from recsys_tpu_torch.pipeline import cli
+    from recsys_tpu_torch.serve import recommend as RC
+    from recsys_tpu_torch.serve.server import make_server, serve_forever_in_thread
+    from recsys_tpu_torch.train import hybrid as H
+    from recsys_tpu_torch.train.sasrec import tensors_to
+
+    data = f"{root}/hm_cut"
+    sets = [*hm_cut_sets(data, device), "--set", "gnn.epochs=1",
+            "--set", f"gnn.steps_per_epoch_min={HM_CUT_GNN_STEPS}",
+            "--set", f"gnn.steps_per_epoch_max={HM_CUT_GNN_STEPS}",
+            "--set", "user_train.hybrid_report=false", "--set", "serve.user_backend=hybrid"]
+    seconds, out = {}, {}
+    for stage, extra in (("train-gnn", ()), ("gnn-eval", ()), ("distill", ()),
+                         ("train-hybrid", ()),
+                         ("rerank-eval", ("--vectors", "hybrid", *HM_CUT_RERANK))):
+        if stage == "train-gnn":
+            S.reset_launch_counts()       # the GNN trainer's run starts here
+        before = all_launches()
+        t0 = time.perf_counter()
+        out[stage] = cli.main([stage, *sets, *extra])
+        seconds[stage] = time.perf_counter() - t0
+        out[stage]["launches"] = {k: v - before[k] for k, v in all_launches().items()
+                                  if v != before[k]}
+    gnn, rows, hyb, rr = (out[k] for k in ("train-gnn", "gnn-eval", "train-hybrid",
+                                            "rerank-eval"))
+    # forward and backward of two layers a step; the export and the check propagate once each
+    check(gnn["steps"] == HM_CUT_GNN_STEPS and gnn["check"]["ok"]
+          and gnn["launches"] == {"spmm_csr": 4 * gnn["steps"] + 2 * 2},
+          f"train-gnn: {gnn['steps']} steps, K2 {gnn['launches']}, check {gnn['check']}")
+    check(all(np.isfinite(gnn["epoch_losses"])), f"train-gnn losses {gnn['epoch_losses']}")
+    for arm in ("gnn_dot", "gnn_cos"):
+        check(all(np.isfinite(v) and v > 0 for k, v in rows[arm].items() if k != "n_eval"),
+              f"gnn-eval {arm}: {rows[arm]}")
+    check(np.isfinite(out["distill"]["fidelity"]["fidelity"]), f"distill {out['distill']}")
+    check(hyb["graph_replays"] == hyb["steps"] - WARMUP_STEPS and hyb["steps"] > WARMUP_STEPS,
+          f"train-hybrid: {hyb['graph_replays']} graph replays in {hyb['steps']} steps")
+    check(all(np.isfinite(hyb["epoch_losses"])) and not hyb["launches"]
+          and all(np.isfinite(v) and v > 0 for k, v in hyb["hybrid_best"].items()
+                  if k != "n_eval"),
+          f"train-hybrid: losses {hyb['epoch_losses']}, best {hyb['hybrid_best']}, "
+          f"hand kernels {hyb['launches']}")
+    check(all(np.isfinite(v) and v > 0 for k, v in rr["reranked"].items() if k != "n_eval")
+          and rr["gbdt_auc"] is not None, f"rerank-eval --vectors hybrid: {rr}")
+
+    # serve: one request a mode over the hybrid matrix and its rerank GBDT
+    t0 = time.perf_counter()
+    args = cli.parse_args(["serve", *sets, "--vectors", "hybrid", "--model-backed"])
+    cfg = cli.config_from_args(args)
+    ctx = cli.build_app(cfg, args)
+    assets = ctx.rec_assets
+    check(ctx.user_backend == "hybrid tower (best checkpoint)" and assets is not None
+          and assets.ranker is not None and assets.vectors == "hybrid",
+          f"serve --vectors hybrid: {ctx.user_backend}")
+    item_map = IdMap(assets.item_ids)
+    stub = {"item_map": item_map, "logq": np.zeros(len(item_map) + 1, np.float32)}
+    content, gnn_items, gu, gu_ids = cli._hybrid_inputs(cfg, stub)
+    _, uv, _ = H.restore_hybrid(cfg, stub, content, gnn_items, f"{data}/ckpt_hybrid", device)
+    gnn_of = {str(u): gu[r] for r, u in enumerate(gu_ids)}
+    tx = pd.read_parquet(f"{data}/transactions.parquet")
+    uid = str(gu_ids[0])
+    rows_u = tx[tx["user_id"].astype(str) == uid].sort_values("day", kind="stable").tail(12)
+    history = [(str(i), 86400.0 * float(d) + j)
+               for j, (i, d) in enumerate(zip(rows_u["item_id"], rows_u["day"]))]
+    server = make_server(ctx, host="127.0.0.1", port=0)
+    thread = serve_forever_in_thread(server)
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    rec_ms, got = {}, {}
+    try:
+        items = pd.read_parquet(f"{data}/items.parquet")
+        # the history's products and more, so that cosine mode has unseen ones to offer
+        pids = sorted({pid for pid, _ in history}
+                      | set(items["item_id"].astype(str)[:HM_CUT_SERVE_PRODUCTS]))
+        http(base, "POST", "/api/controller/products/ingest",
+             {"products": [product_json(r) for r in
+                           items[items["item_id"].astype(str).isin(pids)].to_dict("records")]})
+        while http(base, "POST", "/ai-api/serving/vectors/process-pending", {})["processed_count"]:
+            pass
+        http(base, "POST", "/api/v1/debug/insert-manual-data", {
+            "users": [{"user_id": uid}],
+            "sessions": [{"user_id": uid, "events": [
+                {"product_id": pid, "action_type": 3, "ts": ts} for pid, ts in history]}]})
+        done = http(base, "POST", "/ai-api/serving/users/process-pending", {})
+        check(done["processed_count"] == 1, f"users process-pending: {done}")
+        for mode in ("rerank", "blend", "cosine"):
+            t1 = time.perf_counter()
+            got[mode] = http(base, "GET", f"/api/controller/recommendations/{uid}"
+                                          f"?top_k=20&mode={mode}")
+            rec_ms[mode] = 1e3 * (time.perf_counter() - t1)
+            res = got[mode]["results"]
+            check(0 < len(res) <= 20 and got[mode].get("mode", "cosine") == mode
+                  and all(r["product_id"] not in (None, "<pad>") for r in res),
+                  f"{mode} recommendations for {uid}: {got[mode]}")
+        served = ctx.store.get_user_vector(uid)
+        want = uv(tensors_to(left_padded_batch(cfg, item_map, history), device),
+                  torch.as_tensor(gnn_of[uid][None], device=device))
+        served_err = float(np.abs(served - want.cpu().numpy()[0]).max())
+        iidx, days = RC.store_events_arrays(assets, ctx.store.user_histories([uid])[uid])
+        offline = RC.rerank_serve_topk(assets, served[None], [(iidx, days)],
+                                       int(days.max()) + 1, 20,
+                                       pool_size=cfg.serve.rerank_pool,
+                                       m_cos=cfg.serve.rerank_m_cos,
+                                       m_pop=cfg.serve.rerank_m_pop)
+        check([r["product_id"] for r in got["rerank"]["results"]]
+              == [assets.pid_of(int(r)) for r in offline[0] if int(r) != 0],
+              f"HTTP rerank list for {uid} differs from rerank_serve_topk's")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+    check(served_err <= SERVE_TOL, f"served user vector vs the hybrid tower: {served_err}")
+    seconds["serve"] = time.perf_counter() - t0
+    return {"train_gnn": {k: gnn[k] for k in ("steps", "seconds", "step_ms_median",
+                                              "epoch_losses", "check", "graph", "launches")},
+            "gnn_eval": {k: rows[k] for k in ("n_eval_users", "gnn_dot", "gnn_cos")},
+            "distill": {"shape": out["distill"]["shape"],
+                        "fidelity": out["distill"]["fidelity"]},
+            "train_hybrid": {k: hyb[k] for k in ("steps", "graph_replays", "seconds",
+                                                 "step_ms_median", "epoch_losses",
+                                                 "hybrid_best")},
+            "rerank": {k: rr[k] for k in ("reranked", "pool_ceiling", "gbdt_auc", "dcn_auc",
+                                          "pool_size", "train_users", "gbdt_seconds",
+                                          "seconds")},
+            "serve": {"served_vs_tower_err": served_err, "recommendation_ms": rec_ms},
+            "stage_seconds": seconds}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
@@ -2947,6 +3163,9 @@ def main() -> None:
         hm_cut = hm_cut_phase(root, device, world)
         print(json.dumps({"phase": "hm_cut", **hm_cut}), flush=True)
         seconds["phase_20"] = time.perf_counter() - start - sum(seconds.values())
+        hm_hybrid = hm_cut_hybrid_phase(root, device)
+        print(json.dumps({"phase": "hm_cut_hybrid", **hm_hybrid}), flush=True)
+        seconds["phase_21"] = time.perf_counter() - start - sum(seconds.values())
     finally:
         hm_cut_world_stop(world)
         shutil.rmtree(root, ignore_errors=True)
@@ -2973,11 +3192,15 @@ def main() -> None:
                 **k1_bounds[name], "library_ms": None,
                 "B3072": kstats["B3072"][name], "B8192": kstats["B8192"][name]}
                for name in K.LAUNCHES]
-    # K2's launches are the trainer's at the real size, its times those of the
-    # trainer's mode (bf16) there; the f32 mode and the CLI path's launches and graph
-    # go beside them
+    # K2's launches are the trainer's at the real size and train-gnn's at the H&M
+    # catalog (phase 21), its times those of the trainer's mode (bf16) at the real
+    # size; the f32 mode and the CLI path's launches and graph go beside them
     kernels += [{"name": name, "route": "cuda", "source": SOURCES["spmm"],
-                 "replaces": REPLACES[name], "launches": trainer["launches"][name],
+                 "replaces": REPLACES[name],
+                 "launches": (trainer["launches"][name]
+                              + hm_hybrid["train_gnn"]["launches"][name]),
+                 "launches_trainer": trainer["launches"][name],
+                 "launches_hm_cut_train_gnn": hm_hybrid["train_gnn"]["launches"][name],
                  "launches_cli_path": gnn["launches"][name],
                  **{k: sstats[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                  "bound_by", "library_ms")}}

@@ -33,7 +33,8 @@ from torch import nn
 
 from recsys_tpu_torch.config import UserTowerConfig
 from recsys_tpu_torch.models.layers import (
-    BF16, MLP, Dense, Embed, LayerNorm, TransformerEncoder, gelu, l2_normalize, normal_param)
+    BF16, MLP, BucketEmbed, Dense, Embed, LayerNorm, TransformerEncoder, gelu, l2_normalize,
+    normal_param)
 
 
 class ResidualAdapter(nn.Module):
@@ -93,7 +94,7 @@ class HybridUserTower(nn.Module):
         self.gnn_dropout = gnn_dropout
         self.item_adapter = ParallelAdapter(content_dim, gnn_dim, D)
         self.id_embedding = Embed(num_id_embeddings, D)
-        self.time_embedding = Embed(c.num_time_buckets, D)
+        self.time_embedding = BucketEmbed(c.num_time_buckets, D)
         self.pos_embedding = normal_param(c.max_len, D, std=0.02)
         self.seq_norm = LayerNorm(D)
         self.encoder = TransformerEncoder(D, c.nhead, num_layers, dropout_rate=c.dropout)

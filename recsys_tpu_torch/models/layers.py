@@ -79,6 +79,37 @@ class Embed(nn.Embedding):
         return super().forward(ids).to(self.compute_dtype)
 
 
+class _FewRowsLookup(torch.autograd.Function):
+    """Rows of a table by id, the table's gradient summed in a fixed order:
+    the product of the ids' one-hot matrix with the rows' gradients. On the
+    card, PyTorch's embedding backward adds the gradients of a row that
+    thousands of ids name in an order that changes from run to run, so two
+    runs of one step from one state part at the last bit, and Adam can turn a
+    last-bit sign of a near-zero gradient into a full step."""
+
+    @staticmethod
+    def forward(ctx, weight: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(ids)
+        ctx.rows = weight.shape[0]
+        return F.embedding(ids, weight)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        (ids,) = ctx.saved_tensors
+        rows = torch.arange(ctx.rows, device=ids.device)
+        one_hot = (ids.reshape(-1, 1) == rows).to(grad.dtype)
+        return one_hot.T @ grad.reshape(-1, grad.shape[-1]), None
+
+
+class BucketEmbed(Embed):
+    """``Embed`` for a table of a few rows that every position of a batch
+    looks up (the time buckets): the same rows, the gradient by
+    ``_FewRowsLookup``, the same from run to run."""
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return _FewRowsLookup.apply(self.weight, ids).to(self.compute_dtype)
+
+
 class LayerNorm(nn.LayerNorm):
     """``nn.LayerNorm(dtype=bf16)``: fp32 statistics, bf16 output."""
 

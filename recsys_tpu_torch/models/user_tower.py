@@ -37,6 +37,7 @@ from recsys_tpu_torch.config import UserTowerConfig
 from recsys_tpu_torch.models.layers import (
     BF16,
     MLP,
+    BucketEmbed,
     Dense,
     Embed,
     LayerNorm,
@@ -68,7 +69,7 @@ class SASRecUserTower(nn.Module):
         D = c.d_model
         self.item_proj = Dense(D, D)
         self.id_embedding = Embed(num_id_embeddings, D)
-        self.time_embedding = Embed(c.num_time_buckets, D)
+        self.time_embedding = BucketEmbed(c.num_time_buckets, D)
         # [content, id, time, side0..sideS]; the side gates stay unused
         self.seq_gate = nn.Parameter(torch.zeros(3 + c.num_side_fields))
         self.pos_embedding = normal_param(c.max_len, D, std=0.02)

@@ -390,6 +390,19 @@ def cmd_eval(cfg: Config, args) -> dict:
             "seconds": seconds}
 
 
+def graph_stats(graph) -> dict:
+    """Nodes, directed edges (the nonzero weights), the largest degree and
+    the hub rows of K2's layout (rows of more than ``ops.spmm.MAX_SEGMENT``
+    edges, which several warps share) of a ``BipartiteGraph``."""
+    from recsys_tpu_torch.ops.spmm import MAX_SEGMENT
+
+    degree = np.bincount(np.asarray(graph.dst)[np.asarray(graph.weight) != 0],
+                         minlength=graph.num_nodes)
+    return {"nodes": int(graph.num_nodes), "directed_edges": int(degree.sum()),
+            "max_degree": int(degree.max(initial=0)),
+            "hub_rows": int((degree > MAX_SEGMENT).sum())}
+
+
 def cmd_train_gnn(cfg: Config, args) -> dict:
     from recsys_tpu_torch.data.etl import time_split
     from recsys_tpu_torch.ops.spmm import CsrGraph
@@ -423,8 +436,8 @@ def cmd_train_gnn(cfg: Config, args) -> dict:
                          cfg.gnn.num_layers, device, layout)
     steady = state.step_seconds[1:] or state.step_seconds
     return {"check": gnn_propagation_check(model, graph, device, layout),
-            "device": str(device), "steps": state.step, "seconds": seconds,
-            "epoch_losses": state.losses,
+            "graph": graph_stats(graph), "device": str(device), "steps": state.step,
+            "seconds": seconds, "epoch_losses": state.losses,
             "step_ms_median": 1e3 * statistics.median(steady) if steady else None}
 
 
@@ -735,7 +748,8 @@ def cmd_train_hybrid(cfg: Config, args) -> dict:
     out = {"hybrid_best": _best_epoch(history),
            "hybrid_final": history[-1] if history else {},
            "hybrid_history": history, "device": str(device), "steps": state.step,
-           "seconds": train_seconds, "epoch_losses": state.losses,
+           "graph_replays": state.graph_replays, "seconds": train_seconds,
+           "epoch_losses": state.losses,
            "step_ms_median": _median_ms(state.step_seconds),
            "logit_scale": model.logit_scale.item()}
     if not cfg.user_train.hybrid_report:

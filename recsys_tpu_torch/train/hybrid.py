@@ -12,11 +12,18 @@ weighted / RRF ensembles (``eval/ensemble.py``).
 One step: random-cut augmentation, the tower's train forward (dropout and the
 per-user GNN keep mask), the targets' adapted item vectors, the loss, then
 ``GroupedAdamW`` (global-norm clip, AdamW, the slow modules' lr factor) under
-``state.hybrid_schedule``. Every random draw of a step comes from one
-``torch.Generator``; ``draws`` may fix the cut (``"cut"``: gate, cut) and the
-GNN keep mask (``"gnn_keep"``: (B, 1) bool), so that a test can replay the
-JAX step's. The tower is built without ``num_layers`` (the class default, 4),
-as the JAX trainer builds it.
+``state.hybrid_schedule``, computed on the device (``state.DeviceLR``). Every
+random draw of a step comes from one ``torch.Generator``; ``draws`` may fix
+the cut (``"cut"``: gate, cut) and the GNN keep mask (``"gnn_keep"``: (B, 1)
+bool), so that a test can replay the JAX step's. The tower is built without
+``num_layers`` (the class default, 4), as the JAX trainer builds it.
+
+``train_hybrid`` runs its steps through ``train/step_graph.StepGraph``
+(``hybrid_runner``): the GNN user matrix is one of the device data's keys, so
+its rows are gathered with the batch's, and on the card the step is one CUDA
+graph replayed once a batch, as the JAX step is one jitted program
+(``recsys_tpu/train/hybrid.py:82``); on the CPU the same step runs eagerly.
+The eval forward and the item matrix stay eager.
 """
 
 from __future__ import annotations
@@ -39,7 +46,9 @@ from recsys_tpu_torch.parallel.mesh import Mesh
 from recsys_tpu_torch.train.checkpoint import CheckpointStore, align_rows, snapshot_due
 from recsys_tpu_torch.train.metrics import MetricWriter
 from recsys_tpu_torch.train.sasrec import _slice, tensors_to
-from recsys_tpu_torch.train.state import StepTimer, TrainState, grouped_adamw, hybrid_schedule
+from recsys_tpu_torch.train.state import (
+    DeviceLR, StepTimer, TrainState, grouped_adamw, hybrid_schedule)
+from recsys_tpu_torch.train.step_graph import StepGraph
 
 
 def align_gnn_to_catalog(gnn_vecs: np.ndarray, gnn_ids: list[str], item_map) -> np.ndarray:
@@ -69,14 +78,14 @@ def build_hybrid_model(cfg: Config, num_items_pad: int, content_dim: int, gnn_di
 def make_hybrid_optimizer(ut, model: HybridUserTower, total_steps: int):
     """(optimizer, scheduler): AdamW behind the global-norm clip, the modules
     of ``hybrid_slow_modules`` at ``hybrid_slow_scale`` of the update, the
-    learning rate ``hybrid_schedule`` of ``hybrid_lr or lr``."""
+    learning rate ``hybrid_schedule`` of ``hybrid_lr or lr`` on the device."""
     base_lr = ut.hybrid_lr or ut.lr
     slow = set(ut.hybrid_slow_modules) if ut.hybrid_slow_scale != 1.0 else set()
     opt = grouped_adamw(model, lambda name: "slow" if name.split(".")[0] in slow else "base",
                         {"base": base_lr, "slow": base_lr}, ut.weight_decay,
                         grad_clip=ut.grad_clip, lr_factors={"slow": ut.hybrid_slow_scale})
     sched = hybrid_schedule(base_lr, ut.hybrid_warmup_steps, ut.hybrid_lr_decay, total_steps)
-    return opt, torch.optim.lr_scheduler.LambdaLR(opt, lambda step: sched(step) / base_lr)
+    return opt, DeviceLR(opt, lambda count: sched(count) / base_lr)
 
 
 def make_hybrid_step(cfg: Config, state: TrainState, content: np.ndarray,
@@ -134,6 +143,21 @@ def make_hybrid_step(cfg: Config, state: TrainState, content: np.ndarray,
     return step, user_vectors, item_matrix
 
 
+def hybrid_runner(step_fn, state: TrainState, dev_tensors: dict, gnn_users: torch.Tensor,
+                  batch_size: int, generator: torch.Generator | None,
+                  capture: bool | None = None) -> StepGraph:
+    """``make_hybrid_step``'s step through a ``StepGraph`` over the stage-2
+    tensors and the GNN user rows (aligned to them): ``runner(idx, draws=None)``
+    gathers the rows ``idx`` of both inside the step. Captured on the card
+    unless ``capture`` says otherwise."""
+    def step(batch: dict, generator: torch.Generator | None, draws: dict | None = None):
+        batch = dict(batch)
+        return step_fn(batch, batch.pop("gnn_user"), generator, draws)
+
+    return StepGraph(step, state, {**dev_tensors, "gnn_user": gnn_users}, batch_size,
+                     generator, capture=capture)
+
+
 def _batch_size(cfg: Config, n: int) -> int:
     return min(cfg.user_train.batch_size, max(n - n % 8, 8))
 
@@ -181,7 +205,8 @@ def train_hybrid(cfg: Config, data: dict, content: np.ndarray, gnn_items: np.nda
     """data: ``sasrec.prepare_stage2`` output; content (N+1, Dc); gnn_items
     (N+1, Dg); gnn_users aligned to ``data["tensors"]["user_ids"]``. Returns
     ``(state, history, (model, user_vectors, item_matrix))`` with the best
-    checkpoint (by Recall@100) restored."""
+    checkpoint (by Recall@100) restored; ``state.graph_replays`` counts the
+    steps run as a CUDA graph replay."""
     ut = cfg.user_train
     device = resolve_device(device)
     tensors = data["tensors"]
@@ -199,6 +224,7 @@ def train_hybrid(cfg: Config, data: dict, content: np.ndarray, gnn_items: np.nda
     gnn_dev = torch.as_tensor(np.asarray(gnn_users, np.float32), device=device)
     rng = np.random.default_rng(cfg.data.seed + 2)
     gen = torch.Generator(device).manual_seed(cfg.data.seed)
+    runner = hybrid_runner(step_fn, state, dev_tensors, gnn_dev, bs, gen)
     gstep, history, best_metric = 0, [], -float("inf")
     with contextlib.ExitStack() as stack:
         if writer is None:
@@ -208,8 +234,7 @@ def train_hybrid(cfg: Config, data: dict, content: np.ndarray, gnn_items: np.nda
             timer, losses = StepTimer(device), []
             for _pass in range(passes):
                 for idx in batch_iterator(n, bs, rng):
-                    ix = torch.as_tensor(idx, device=device)
-                    aux = step_fn(_slice(dev_tensors, idx), gnn_dev[ix], gen)
+                    aux = runner(idx)
                     timer.mark()
                     losses.append(aux["loss"])
                     gstep += 1
@@ -237,6 +262,7 @@ def train_hybrid(cfg: Config, data: dict, content: np.ndarray, gnn_items: np.nda
         sched.load_state_dict(payload["scheduler"])
     except FileNotFoundError:
         pass
+    state.graph_replays = runner.replays
     return state, history, (model, uv_fn, im_fn)
 
 

@@ -31,17 +31,18 @@ runs fused (one multi-tensor kernel, its count on the device) and
 (``train/step_graph.py``). ``load_state_dict`` writes a checkpoint's count
 and factor (host numbers or tensors) into the tensors in place.
 
-SimCSE's linear warmup and decay (``warmup_linear_factor``, optax's
-``warmup_linear_schedule``: the learning rate is 0 at the first update) is
-``WarmupLinearLR``: each group's ``lr`` is a tensor that its ``step()``
-recomputes on the device from the group's count.
+A learning-rate schedule is ``DeviceLR``: each group's ``lr`` is a tensor
+that its ``step()`` recomputes on the device from the group's count, so a
+replayed step decides nothing on the host. SimCSE's linear warmup and decay
+(``warmup_linear_factor``, optax's ``warmup_linear_schedule``: the learning
+rate is 0 at the first update) is ``WarmupLinearLR``.
 
 The hybrid trainer's recipe is the chain ``clip_by_global_norm -> adamw(sched)
 -> masked(scale(s))`` over the top-level modules in ``hybrid_slow_modules``:
 the masked scale multiplies the whole AdamW update of those modules, decay
 included, which is a group ``lr_factor`` of ``s``; ``hybrid_schedule`` is
 ``sched`` (optax's constant, linear-warmup or warmup-cosine schedule, counted
-from 0), set as a host float ``lr`` by a ``LambdaLR`` (its step runs eagerly).
+from 0), computed on the device by a ``DeviceLR``.
 
 A parameter that took no part in the loss has no gradient in PyTorch; optax
 sees a zero gradient there and still decays the weight, so the optimizer
@@ -63,7 +64,7 @@ from torch import nn
 class TrainState:
     model: nn.Module
     optimizer: torch.optim.Optimizer
-    scheduler: torch.optim.lr_scheduler.LRScheduler | WarmupLinearLR | None = None
+    scheduler: torch.optim.lr_scheduler.LRScheduler | DeviceLR | None = None
     step: int = 0
     losses: list[float] = field(default_factory=list)         # per step
     step_seconds: list[float] = field(default_factory=list)   # see StepTimer
@@ -114,25 +115,27 @@ def warmup_linear_factor(total_steps: int, warmup_frac: float = 0.1
 
 
 def hybrid_schedule(base_lr: float, warmup_steps: int, decay: str,
-                    total_steps: int) -> Callable[[int], float]:
-    """The hybrid trainer's learning rate at update ``step`` (0-based):
-    constant ``base_lr``; or, with warmup steps or ``decay="cosine"``, optax's
-    ``linear_schedule(0, base_lr, max(w, 1))`` or
+                    total_steps: int) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The hybrid trainer's learning rate at the update count ``step`` (a
+    tensor, 0-based), as a float32 tensor on its device, in optax's order of
+    operations: constant ``base_lr``; or, with warmup steps or
+    ``decay="cosine"``, optax's ``linear_schedule(0, base_lr, max(w, 1))`` or
     ``warmup_cosine_decay_schedule(0, base_lr, w, max(total_steps, w + 1))``
     with ``w = min(warmup_steps, max(total_steps - 1, 1))``."""
     if warmup_steps <= 0 and decay != "cosine":
-        return lambda step: base_lr
+        return lambda step: torch.full_like(step, base_lr, dtype=torch.float32)
     warmup = min(warmup_steps, max(total_steps - 1, 1))
     if decay != "cosine":
         span = max(warmup, 1)
-        return lambda step: base_lr - base_lr * (1.0 - min(step, span) / span)
+        return lambda step: base_lr - base_lr * (1.0 - step.float().clamp(0, span) / span)
     decay_steps = max(total_steps, warmup + 1) - warmup
 
-    def sched(step: int) -> float:
-        if step < warmup:
-            return base_lr - base_lr * (1.0 - step / warmup)
-        count = min(step - warmup, decay_steps)
-        return base_lr * 0.5 * (1.0 + math.cos(math.pi * count / decay_steps))
+    def sched(step: torch.Tensor) -> torch.Tensor:
+        step = step.float()
+        warm = base_lr - base_lr * (1.0 - step / max(warmup, 1))
+        count = (step - warmup).clamp(0, decay_steps)
+        cos = base_lr * (0.5 * (1.0 + torch.cos(math.pi * count / decay_steps)))
+        return torch.where(step < warmup, warm, cos)
 
     return sched
 
@@ -197,31 +200,37 @@ class GroupedAdamW(torch.optim.AdamW):
     def load_state_dict(self, state_dict: dict) -> None:
         """The checkpoint's groups and moments, with this optimizer's
         device choices (fused, capturable; a checkpoint from the CPU has
-        neither) and its count and factor tensors, which a captured step
-        reads, filled in place."""
+        neither) and its count, factor and (under a ``DeviceLR``) lr
+        tensors, which a captured step reads, filled in place (a ``LambdaLR``
+        checkpoint's lr is a host float)."""
         device_keys = ("capturable", "fused", "foreach")
         mine = [{k: g[k] for k in ("updates", "lr_factor", *device_keys)}
                 for g in self.param_groups]
+        for g, m in zip(self.param_groups, mine):
+            if isinstance(g["lr"], torch.Tensor):   # a DeviceLR's, which a captured step reads
+                m["lr"] = g["lr"]
         super().load_state_dict({**state_dict, "param_groups": [
             {**g, **{k: m[k] for k in device_keys}}
             for g, m in zip(state_dict["param_groups"], mine)]})
         for g, m in zip(self.param_groups, mine):
-            m["updates"].fill_(float(g["updates"]))
-            m["lr_factor"].fill_(float(g["lr_factor"]))
+            for key in ("updates", "lr_factor", "lr"):
+                if key in m:
+                    m[key].fill_(float(g[key]))
             g.update(m)
 
 
-class WarmupLinearLR:
-    """``warmup_linear_factor`` as a device program: every group's ``lr``
+class DeviceLR:
+    """A learning-rate schedule as a device program: every group's ``lr``
     becomes a tensor on its device, and ``step()``, called after each
     optimizer step as ``LambdaLR.step`` is, sets it to ``initial_lr *
-    factor(updates)`` from the group's update count, on the device. The
-    schedule's position is the optimizer's count, so its own state is
-    empty."""
+    factor(updates)`` from the group's update count, on the device
+    (``factor`` takes the count tensor). The schedule's position is the
+    optimizer's count, so its own state is empty, and ``load_state_dict``
+    takes any scheduler's state, ``LambdaLR``'s included: the optimizer's
+    checkpoint holds the count."""
 
-    def __init__(self, optimizer: GroupedAdamW, total_steps: int, warmup_frac: float = 0.1):
-        self.optimizer = optimizer
-        self.factor = warmup_linear_factor(total_steps, warmup_frac)
+    def __init__(self, optimizer: GroupedAdamW, factor: Callable):
+        self.optimizer, self.factor = optimizer, factor
         for g in optimizer.param_groups:
             g.setdefault("initial_lr", float(g["lr"]))
             g["lr"] = torch.zeros((), device=g["updates"].device)
@@ -236,6 +245,13 @@ class WarmupLinearLR:
 
     def load_state_dict(self, state_dict: dict) -> None:
         self.step()
+
+
+class WarmupLinearLR(DeviceLR):
+    """``warmup_linear_factor`` as a ``DeviceLR``."""
+
+    def __init__(self, optimizer: GroupedAdamW, total_steps: int, warmup_frac: float = 0.1):
+        super().__init__(optimizer, warmup_linear_factor(total_steps, warmup_frac))
 
 
 def grouped_adamw(model: nn.Module, label_fn: Callable[[str], str],

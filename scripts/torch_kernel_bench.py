@@ -3,6 +3,7 @@ the card: build, check against the plain forms, time at the main path's
 shapes.
 
     python3 scripts/torch_kernel_bench.py [--quick] [--baseline DIR] [--kernels K3,K1]
+        [--hm-root DIR]
 
 Needs one NVIDIA GPU and nvcc. ``--quick`` builds the kernels, prints what
 ptxas reports, checks each once at its real widths and stops. ``--baseline
@@ -17,7 +18,15 @@ K2 is timed at the reference-scale graph of ``chip_smoke.py`` (200,000 users,
 in each mode it has: the wrapper's call (CUDA events), the plain form, the
 segment kernel's time on the device (``torch.profiler``) and, for a checkout
 that still finishes the hub rows in a second kernel, that kernel's (0 where
-the segment kernel finishes them itself), and the launches a call. K1 is timed through the
+the segment kernel finishes them itself), and the launches a call. With
+``--hm-root DIR`` (the ``data.root`` of a generated world, such as the H&M
+world of ``scripts/torch_quality_hm.py``) K2 is timed instead at that world's
+graph, built as ``train-gnn`` builds it (``graph_from_transactions`` over the
+training transactions), D = 64, in both modes: the segment kernel's device
+time, the wrapper's call, the plain form and ``torch.sparse.mm`` on the same
+CSR (CUDA events), beside the byte bound (x in 2 bytes in "bf16", out in 4,
+the CSR's column indices and weights and its row pointers in 4 each, at 3.35
+TB/s), and the graph's nodes, edges, hub rows and largest degree. K1 is timed through the
 loss wrappers the trainers call (forward and backward) at B = 192, 768 and
 8192, D = 128, and per kernel there, in a loop (CUDA events: at small B this
 is what the Python wrapper costs), on the device, and on the host clock
@@ -154,6 +163,57 @@ def k2(tag: str, quick: bool) -> None:
                     row["hub_kernel_device_ms"] = device_ms(
                         lambda: call(layout, x, mode), 20, "spmm_hub_reduce_kernel")
             emit(**row)
+
+
+def k2_hm(tag: str, quick: bool, root: str) -> None:
+    """K2 at the graph ``train-gnn`` builds from the world at ``root``."""
+    import numpy as np
+    import torch
+
+    from recsys_tpu_torch.data.etl import time_split
+    from recsys_tpu_torch.ops import spmm as S
+    from recsys_tpu_torch.pipeline import cli
+    from recsys_tpu_torch.train.gnn import graph_from_transactions
+
+    S.load_library()
+    t0 = time.perf_counter()
+    cfg = cli.config_from_args(cli.parse_args(["train-gnn", "--set", f"data.root={root}"]))
+    items, _, tx = cli._load_world(cfg)
+    train_tx, _, _ = time_split(tx, cfg.data.valid_days)
+    user_map = {u: r for r, u in enumerate(sorted(train_tx["user_id"].unique()))}
+    item_map = {i: r for r, i in enumerate(sorted(items["item_id"].astype(str)))}
+    graph = graph_from_transactions(train_tx, user_map, item_map, cfg.gnn, cfg.data.seed)
+    del items, tx, train_tx
+    layout = S.csr_graph(graph.src, graph.dst, graph.weight, graph.num_nodes, device="cuda")
+    n, dim, E = graph.num_nodes, cfg.gnn.emb_dim, layout.num_edges
+    emit(tag=tag, kernel="K2", graph="hm", root=root, build_graph_seconds=time.perf_counter() - t0,
+         **cli.graph_stats(graph), layout_edges=E, layout_hub_rows=layout.num_hubs,
+         layout_segments=layout.num_segments)
+    x = torch.as_tensor(np.random.default_rng(1).normal(size=(n, dim)).astype(np.float32),
+                        device="cuda")
+    csr = torch.sparse_csr_tensor(layout.rowptr.long(), layout.col.long(), layout.val, (n, n))
+    library_ms = None if quick else cuda_ms(lambda: torch.sparse.mm(csr, x), 10)
+    for mode in S.PRECISIONS:
+        out = S.spmm_cuda(layout, x, mode)
+        ref = S.spmm_plain(layout, x, mode)
+        x_bytes = 2 if mode == "bf16" else 4
+        n_bytes = n * dim * (x_bytes + 4) + 4 * (2 * E + n + 1)
+        row = {"tag": tag, "kernel": "K2", "graph": "hm", "mode": mode, "dim": dim,
+               "max_abs_err": float((out - ref).abs().max()),
+               "bit_equal": bool(torch.equal(S.spmm_cuda(layout, x, mode), out)),
+               "bound_ms": max(n_bytes / 3.35e12, 2.0 * E * dim / 67e12) * 1e3,
+               "bound_by": "bytes" if n_bytes / 3.35e12 >= 2.0 * E * dim / 67e12 else "operations",
+               "library_ms": library_ms}
+        del out, ref
+        S.reset_launch_counts()
+        S.spmm_cuda(layout, x, mode)
+        row["launches_per_call"] = sum(S.LAUNCHES.values())
+        if not quick:
+            row["segments_kernel_device_ms"] = device_ms(
+                lambda: S.spmm_cuda(layout, x, mode), 20, "spmm_segments_kernel")
+            row["wrapper_ms"] = cuda_ms(lambda: S.spmm_cuda(layout, x, mode), 20)
+            row["plain_ms"] = cuda_ms(lambda: S.spmm_plain(layout, x, mode), 3)
+        emit(**row)
 
 
 def k1(tag: str, quick: bool) -> None:
@@ -313,7 +373,7 @@ def k3(tag: str, quick: bool) -> None:
 KERNELS = {"K2": k2, "K1": k1, "K3": k3}
 
 
-def run_here(tag: str, quick: bool, kernels: list[str]) -> None:
+def run_here(tag: str, quick: bool, kernels: list[str], hm_root: str | None = None) -> None:
     import torch
 
     if not torch.cuda.is_available():
@@ -321,7 +381,10 @@ def run_here(tag: str, quick: bool, kernels: list[str]) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     for name in kernels:
-        KERNELS[name](tag, quick)
+        if name == "K2" and hm_root:
+            k2_hm(tag, quick, hm_root)
+        else:
+            KERNELS[name](tag, quick)
 
 
 def main() -> None:
@@ -329,6 +392,8 @@ def main() -> None:
     ap.add_argument("--quick", action="store_true")
     ap.add_argument("--baseline", help="a second checkout whose kernels are timed in turns")
     ap.add_argument("--kernels", default="K2,K1,K3", help="which kernels, in order")
+    ap.add_argument("--hm-root", dest="hm_root",
+                    help="time K2 at the graph of the world in this data root")
     ap.add_argument("--root", default=ROOT, help=argparse.SUPPRESS)
     ap.add_argument("--tag", default="this", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -338,7 +403,7 @@ def main() -> None:
         sys.path.insert(0, args.root)
         if args.tag == "this":
             emit(card=smi.stdout.strip())
-        run_here(args.tag, args.quick, args.kernels.split(","))
+        run_here(args.tag, args.quick, args.kernels.split(","), args.hm_root)
         return
     emit(card=smi.stdout.strip())
     for tag, root in (("baseline_1", args.baseline), ("this_1", ROOT), ("this_2", ROOT),
@@ -346,7 +411,8 @@ def main() -> None:
         t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--root",
                                os.path.abspath(root), "--tag", tag, "--kernels", args.kernels]
-                              + (["--quick"] if args.quick else []), cwd=root)
+                              + (["--quick"] if args.quick else [])
+                              + (["--hm-root", args.hm_root] if args.hm_root else []), cwd=root)
         emit(tag=tag, exit_code=proc.returncode, seconds=time.perf_counter() - t0)
         if proc.returncode != 0:
             sys.exit(proc.returncode)

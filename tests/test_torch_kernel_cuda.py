@@ -18,7 +18,9 @@ size ~1e-2; it sums a row in a fixed order, ``index_add_`` in the order its
 atomics land. K3 is held to rtol 1e-4 / atol 1e-3, the JAX suite's
 bound for the Pallas FM kernel (tests/test_pallas.py), forward and gradient.
 K4 moves bytes between virtual ranks laid over the one card: it is held bit
-for bit against its plain hop loop and against ``torch.cat``.
+for bit against its plain hop loop and against ``torch.cat``. Last, the
+stage-2 and hybrid towers' time-bucket table (``models/layers.BucketEmbed``)
+gives the same gradient bits in every run on the card.
 """
 
 import numpy as np
@@ -781,3 +783,26 @@ def test_ring_kernel_rejects_bad_inputs(device):
     # more ranks than the card holds blocks for, or than the parameter tables hold
     with pytest.raises((RuntimeError, ValueError)):
         R.ring_all_gather([x] * 300)
+
+
+def test_bucket_embed_gradient_is_the_same_every_run(device):
+    """The time buckets' table of the stage-2 and hybrid towers (10 rows,
+    every position of a 768 x 50 batch): ``BucketEmbed``'s gradient is the
+    same bits in five runs, and within 1e-3 of the float64 sum (sums of
+    ~3,840 unit terms in float32, as tests/test_torch_bucket_embed.py)."""
+    from recsys_tpu_torch.models.layers import BF16, BucketEmbed
+
+    torch.manual_seed(0)
+    emb = BucketEmbed(10, 128).to(device)
+    gen = torch.Generator(device).manual_seed(1)
+    ids = torch.randint(0, 10, (768, 50), device=device, generator=gen)
+    g = torch.randn(768, 50, 128, device=device, generator=gen)
+    grads = []
+    for _ in range(5):
+        emb.weight.grad = None
+        emb(ids).float().backward(g)
+        grads.append(emb.weight.grad.clone())
+    assert all(torch.equal(grads[0], x) for x in grads[1:])
+    want = torch.zeros(10, 128, dtype=torch.float64, device=device).index_add_(
+        0, ids.reshape(-1), g.to(BF16).double().reshape(-1, 128))
+    torch.testing.assert_close(grads[0].double(), want, atol=1e-3, rtol=0)
