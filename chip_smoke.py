@@ -252,6 +252,19 @@ then (phases 10 and 11 run after 6, while the graph of 4 is still there):
      kernel there; the served user vector within SERVE_TOL of the tower's
      forward on the same history and GNN row; the HTTP rerank list equal to
      ``rerank_serve_topk``'s offline list.
+  22. the stage-1 A/B of the text encoders (``scripts/torch_quality_hm.py
+     --recipe stage1``, arm B) on phase 20's world, cut as there: in a data
+     root that links phase 20's world, ``pretrain-text`` -> ``train-item``
+     with ``item_tower.text_encoder=pretrained`` (full width, 546 steps) ->
+     ``vectorize``, then the kNN purity (k = 10, 8,192 queries) of both arms,
+     arm A phase 20's matrix. Gates: the table's shape and nonzero rows and
+     its input (the PPMI matrix's CSR arrays) bit for bit equal to
+     HM_CUT_REF's, the JAX package's (the table's own bits follow the LAPACK
+     build its SVD runs on: its sha256 and abs-sum are printed beside the
+     JAX ones); the frozen table in train-item's best and latest checkpoints
+     equal to the artifact; each K1 kernel exactly twice a step, every step
+     after the warm-up a graph replay; the losses finite and falling; the
+     matrix's shape; both purities > 0.
 
 Phase 2 also holds each K1 kernel to exactly two launches a step.
 
@@ -394,7 +407,11 @@ HM_CUT_REF = {
                                  "recall@500": 0.07681937963546562},
                   "repurchase": {"recall@20": 0.15698900180424677,
                                  "recall@100": 0.183654829922859,
-                                 "recall@500": 0.20733779677879127}}}
+                                 "recall@500": 0.20733779677879127}},
+    "pretrain_text": {"shape": [8192, 128], "nonzero_rows": 223, "abs_sum": 1536.597757333248,
+                      "sha256": "6e4679f44ff6933cbb39f0af28d00db8aa9f884b3efb2f677c708688ba23a595",
+                      "ppmi": {"nnz": 21758, "sha256": "5adf47e0a1cf00d4c6bd5569623a8b77"
+                                                     "f8e4b99c1cb799f539f5305196918d1d"}}}
 
 
 def card_line() -> str:
@@ -3089,6 +3106,66 @@ def hm_cut_hybrid_phase(root: str, device) -> dict:
             "stage_seconds": seconds}
 
 
+# -- phase 22: the stage-1 A/B of the text encoders at the H&M catalog, users cut --
+
+def hm_cut_pretrained_phase(root: str, device) -> dict:
+    """pretrain-text -> train-item (pretrained encoder) -> vectorize in a data
+    root over phase 20's world, then the kNN purity of both arms (arm A:
+    phase 20's matrix), with ``scripts/torch_quality_hm.py``'s statistic."""
+    import importlib.util
+
+    from recsys_tpu_torch.pipeline import cli
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_quality_hm", os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                         "scripts", "torch_quality_hm.py"))
+    quality = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(quality)
+    data, data_pt = f"{root}/hm_cut", f"{root}/hm_cut_pt"
+    quality.link_world(data, data_pt, quality.WORLD_FILES)
+    sets = [*hm_cut_sets(data_pt, device), "--set", "item_tower.text_encoder=pretrained"]
+    seconds, out = {}, {}
+    for stage in ("pretrain-text", "train-item", "vectorize"):
+        if stage == "train-item":
+            K.reset_launch_counts()       # the pretrained trainer's run starts here
+        t0 = time.perf_counter()
+        out[stage] = cli.main([stage, *sets])
+        seconds[stage] = time.perf_counter() - t0
+        if stage == "train-item":
+            out[stage]["launches"] = dict(K.LAUNCHES)
+    item = out["train-item"]
+    table, want = quality.frozen_table_check(data_pt, sets), HM_CUT_REF["pretrain_text"]
+    check(all(table[k] == want[k] for k in ("shape", "nonzero_rows", "ppmi")),
+          f"pretrain-text {table} against the JAX package's {want}")
+    check(table["max_change_after_train_item"] == 0.0,
+          f"the frozen table moved in train-item: {table}")
+    check(item["text_encoder"] == "pretrained" and item["steps"] == HM_CUT_ITEM_STEPS
+          and all(n == 2 * item["steps"] for n in item["launches"].values()),
+          f"train-item (pretrained): K1 {item['launches']} in {item['steps']} steps")
+    check(item["graph_replays"] == item["steps"] - WARMUP_STEPS,
+          f"train-item (pretrained): {item['graph_replays']} graph replays in {item['steps']}")
+    losses = np.asarray(item["losses"])
+    check(bool(np.isfinite(losses).all()) and losses[-50:].mean() < losses[:50].mean(),
+          f"train-item (pretrained) losses: first {losses[:50].mean()}, "
+          f"last {losses[-50:].mean()}")
+    check(out["vectorize"]["shape"] == [HM_CUT_ITEMS + 1, 128], f"vectorize {out['vectorize']}")
+    t0 = time.perf_counter()
+    purity = {arm: quality.purity_stage(path, str(device))
+              for arm, path in (("hash", data), ("pretrained", data_pt))}
+    seconds["purity"] = time.perf_counter() - t0
+    check(all(p["knn_purity"] > 0 and p["query_sample"] == 8192 for p in purity.values()),
+          f"kNN purity {purity}")
+    return {"pretrain_text": {**table, "jax_sha256": want["sha256"],
+                              "bits_equal": table["sha256"] == want["sha256"],
+                              "abs_sum_rel_gap": table["abs_sum"] / want["abs_sum"] - 1},
+            "train_item": {k: item[k] for k in ("steps", "graph_replays", "seconds",
+                                                "step_ms_median", "first_step_ms",
+                                                "launches")},
+            "item_loss_first_last": [float(losses[:50].mean()), float(losses[-50:].mean())],
+            "vectorize": {k: out["vectorize"][k] for k in ("shape", "seconds", "items_per_s")},
+            "purity": purity, "stage_seconds": seconds}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
@@ -3166,27 +3243,33 @@ def main() -> None:
         hm_hybrid = hm_cut_hybrid_phase(root, device)
         print(json.dumps({"phase": "hm_cut_hybrid", **hm_hybrid}), flush=True)
         seconds["phase_21"] = time.perf_counter() - start - sum(seconds.values())
+        hm_pt = hm_cut_pretrained_phase(root, device)
+        print(json.dumps({"phase": "hm_cut_pretrained", **hm_pt}), flush=True)
+        seconds["phase_22"] = time.perf_counter() - start - sum(seconds.values())
     finally:
         hm_cut_world_stop(world)
         shutil.rmtree(root, ignore_errors=True)
     print(json.dumps({"seconds": {**seconds, "total": time.perf_counter() - start}}), flush=True)
 
     # K1's launches are the main path's: train-item (phase 2), train-user (phase 13),
-    # train-item with the pretrained encoder (phase 19), and train-item and
-    # train-user at the H&M catalog (phase 20); its times are at the SimCSE
-    # shape, stage 2's B = 3072 and 8192 beside them
+    # train-item with the pretrained encoder (phase 19), train-item and train-user
+    # at the H&M catalog (phase 20) and train-item there with the pretrained encoder
+    # (phase 22); its times are at the SimCSE shape, stage 2's B = 3072 and 8192
+    # beside them
     k1_bounds = diag_ce_bounds(MAIN_B, D)
     kernels = [{"name": name, "route": "cuda", "source": SOURCES["diag_ce"],
                 "replaces": REPLACES[name],
                 "launches": (result["launches"][name] + user["launches"][name]
                              + pretrained["launches"][name]
                              + hm_cut["train_item"]["launches"][name]
-                             + hm_cut["train_user"]["launches"][name]),
+                             + hm_cut["train_user"]["launches"][name]
+                             + hm_pt["train_item"]["launches"][name]),
                 "launches_train_item": result["launches"][name],
                 "launches_train_user": user["launches"][name],
                 "launches_train_item_pretrained": pretrained["launches"][name],
                 "launches_hm_cut_train_item": hm_cut["train_item"]["launches"][name],
                 "launches_hm_cut_train_user": hm_cut["train_user"]["launches"][name],
+                "launches_hm_cut_train_item_pretrained": hm_pt["train_item"]["launches"][name],
                 "max_abs_err": kstats["errs"][name],
                 "ms": kstats["ms"][name][0], "plain_ms": kstats["ms"][name][1],
                 **k1_bounds[name], "library_ms": None,

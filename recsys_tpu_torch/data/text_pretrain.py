@@ -17,6 +17,8 @@ is the JAX package's format: either package reads the other's.
 
 from __future__ import annotations
 
+import hashlib
+
 import numpy as np
 
 from recsys_tpu_torch.ops.graph import _randomized_svd
@@ -59,13 +61,9 @@ def ppmi(cooc: "scipy.sparse.csr_matrix", shift: float = 0.0):
     return c.tocsr()
 
 
-def pretrain_embeddings(tensors: dict, vocab_size: int, dim: int = 128,
-                        seed: int = 0, svd_iters: int = 4) -> np.ndarray:
-    """Item tensors -> (vocab_size, dim) float32 embedding matrix.
-
-    Co-occurrence = incidenceᵀ @ incidence over within-item bags, diagonal
-    removed, PPMI, randomized SVD, U * sqrt(S) scaling, L2-normalized rows.
-    Row 0 (PAD) and never-seen buckets stay zero."""
+def ppmi_matrix(tensors: dict, vocab_size: int) -> "scipy.sparse.csr_matrix":
+    """The SVD's input: co-occurrence = incidenceᵀ @ incidence over the
+    within-item bags, diagonal removed, PPMI; (vocab_size, vocab_size)."""
     from scipy import sparse
 
     inc = item_token_bags(tensors)
@@ -75,7 +73,22 @@ def pretrain_embeddings(tensors: dict, vocab_size: int, dim: int = 128,
     cooc = (inc.T @ inc).tocsr()
     cooc.setdiag(0)
     cooc.eliminate_zeros()
-    m = ppmi(cooc)
+    return ppmi(cooc)
+
+
+def pretrain_embeddings(tensors: dict, vocab_size: int, dim: int = 128,
+                        seed: int = 0, svd_iters: int = 4) -> np.ndarray:
+    """Item tensors -> (vocab_size, dim) float32 embedding matrix.
+
+    ``ppmi_matrix``, randomized SVD, U * sqrt(S) scaling, L2-normalized rows.
+    Row 0 (PAD) and never-seen buckets stay zero.
+
+    The SVD's QR runs on the subspace iteration's output, whose condition
+    number is about (s_1 / s_q)^(2 * svd_iters + 1) (~1e13 for the 5,000-item
+    A/B world's table), so the weaker columns, and the rows that lie mostly
+    in them, follow the rounding of the LAPACK build: two builds give
+    different tables from the same bits of ``ppmi_matrix``."""
+    m = ppmi_matrix(tensors, vocab_size)
     rng = np.random.default_rng(seed)
     u, s, _ = _randomized_svd(lambda x: m @ x, lambda x: m.T @ x,
                               vocab_size, vocab_size, dim, svd_iters, rng)
@@ -96,3 +109,25 @@ def load_text_pretrain(path: str) -> np.ndarray:
     p = path if path.endswith(".npz") else path + ".npz"
     with np.load(p) as z:
         return z["embeddings"].astype(np.float32)
+
+
+def ppmi_checksum(m: "scipy.sparse.csr_matrix") -> dict:
+    """The SVD's input as a run prints it to hold it against another
+    package's or machine's: its nonzeros and the sha256 of its CSR arrays
+    (int64 indices, float32 values)."""
+    m = m.tocsr()
+    h = hashlib.sha256()
+    for a in (m.indptr.astype(np.int64), m.indices.astype(np.int64), m.data.astype(np.float32)):
+        h.update(np.ascontiguousarray(a).tobytes())
+    return {"nnz": int(m.nnz), "sha256": h.hexdigest()}
+
+
+def table_checksum(emb: np.ndarray) -> dict:
+    """What a run prints of a table: its shape, nonzero rows, the sha256 of
+    its float32 bytes and the float64 sum of its absolute values (the last
+    two follow the LAPACK build; see ``pretrain_embeddings``)."""
+    emb = np.ascontiguousarray(emb, np.float32)
+    return {"shape": list(emb.shape),
+            "nonzero_rows": int((np.abs(emb).sum(axis=1) > 0).sum()),
+            "sha256": hashlib.sha256(emb.tobytes()).hexdigest(),
+            "abs_sum": float(np.abs(emb.astype(np.float64)).sum())}

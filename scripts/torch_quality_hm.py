@@ -1,7 +1,8 @@
-"""The port's main path, or its headline recipe, at the H&M scale on one GPU,
-held against the JAX package's committed run of the same world.
+"""The port's main path, its headline recipe, or the stage-1 A/B of the text
+encoders, at the H&M scale on one GPU, held against the JAX package's
+committed runs of the same worlds.
 
-    python3 scripts/torch_quality_hm.py [--recipe main|hybrid] [--out DIR]
+    python3 scripts/torch_quality_hm.py [--recipe main|hybrid|stage1] [--out DIR]
         [--device cuda] [--budget-s 3350]
         [--reserve-s 1200] [--user-epochs 25] [--item-epochs 3] [--requests 20]
         [--set key=value ...]
@@ -48,6 +49,39 @@ matrix, the GNN check, the distilled shape, n_eval, the rerank pools' sizes and
 split, the GNN arm; bands (``HYBRID_BANDS``, ``"ok": false`` in the summary)
 for the recalls, the GNN check's delta and the AUCs.
 
+``--recipe stage1`` runs both arms of the stage-1 A/B (arm A the hash text
+encoder, arm B the frozen corpus-pretrained one, ``item_tower.text_encoder=
+pretrained``, each with ``simcse.epochs=3``) in two worlds, each held against
+its committed JAX run:
+
+  (a) the 5,000-item world of ``scripts/quality_text_pretrain_ab.sh`` with
+      ``data.name_style_words=2`` (``artifacts/text_pretrain_ab_v4/``): gen-data,
+      then for each arm in its own data root over the same world (linked):
+      etl -> [pretrain-text] -> train-item -> vectorize -> kNN purity over
+      every item; JSONs under ``--out``/ab;
+  (b) the world of ``--recipe main`` (``scripts/quality_hm_v4_stage1.sh``,
+      ``artifacts/quality_hm_v4/``): gen-data -> etl -> train-item ->
+      vectorize -> kNN purity (8,192 queries), then arm B in ``world_pt``, a
+      data root that links arm A's world and ETL outputs: pretrain-text ->
+      train-item -> vectorize -> kNN purity -> serve --model-backed with arm
+      B's item encoder: the catalog ingested, a few products through
+      ``process-pending``, the whole catalog through ``refresh-item-vectors``
+      (every served vector within SERVE_TOL of vectorize's row), then
+      ``--requests`` similarity requests (the scores within SERVE_TOL of the
+      matrix's; where the exact best hit leads the next by more than
+      SERVE_TOL, the answer's first hit is it).
+
+Gates: exact (exit 1) for the worlds, the ETLs, the tables' shape and
+nonzero rows, their input (the PPMI matrix) bit for bit against the JAX
+package's (TABLE_REF; the table's own bits follow the LAPACK build its SVD
+runs on, so its sha256 and abs-sum are reported beside the JAX ones), the
+frozen table unchanged by train-item, the item
+steps, the matrices' shape, the served vectors and answers, and on the card
+each train-item step after the warm-up a graph replay with K1 twice a step;
+bands (``"ok": false`` in the summary) for each purity (BANDS["knn_purity"])
+and arm B's within / cross cosine at 105,000 items, and for the sign of
+each A/B (pretrained above hash at 5,000 items, below it at 105,000).
+
 ``train-user`` gets ``--deadline``: no epoch starts that would end later than
 ``--budget-s`` less ``--reserve-s`` (for eval and serve) after this script
 started; the curve is compared over the epochs that ran. Every stage runs on
@@ -59,7 +93,8 @@ trainer's ``metrics.jsonl`` as it lands, each stage's seconds, peak host RSS,
 peak device memory of the trainers, K1's and K2's launches in each stage,
 the GNN graph's size, step medians and graph replays, recommendation
 latencies, the card's name and power limit, and last one JSON summary that
-sets every number beside the committed one in ``artifacts/quality_hm_v4/``. The stage
+sets every number beside the committed one in ``artifacts/quality_hm_v4/`` (and
+``artifacts/text_pretrain_ab_v4/``). The stage
 JSONs go to ``--out`` under the committed files' names. Exit code 1 when an
 exact gate fails (the world, the ETL, the item steps, the matrix shape, the
 training-free baselines, n_eval, the served vectors, and the hybrid recipe's
@@ -90,6 +125,7 @@ from recsys_tpu_torch.ops import contrastive_kernel as K  # noqa: E402
 from recsys_tpu_torch.ops import spmm as S  # noqa: E402
 from recsys_tpu_torch.ops.topk import stable_topk  # noqa: E402
 from recsys_tpu_torch.pipeline import cli  # noqa: E402
+from recsys_tpu_torch.train.step_graph import WARMUP_STEPS  # noqa: E402
 
 WORLD = ["--set", "data.num_items=105000", "--set", "data.num_users=1370000",
          "--set", "data.days=365", "--set", "data.repeat_prob=0.10",
@@ -101,6 +137,8 @@ CURVE_FROM_EPOCH = 3
 BASELINE_TOL = 1e-12      # the training-free baselines depend on the world only
 SERVE_TOL = 2e-2          # served vs the tower's forward, as tests/test_serve.py
 KS = (20, 100, 500)
+GEN_KEYS = ("items", "users", "transactions", "oracle.oracle_recall", "oracle.popularity_recall",
+            "oracle.k", "oracle.target_rows")
 MAIN_REFERENCE = ("gen", "etl", "item", "vectorize", "knn_purity", "user", "user_curve", "eval")
 HYBRID_REFERENCE = ("gen", "etl", "item", "vectorize", "gnn", "gnn_eval", "distill",
                     "gnn_eval_distilled", "hybrid", "rerank_hybrid")
@@ -108,6 +146,33 @@ HYBRID_REFERENCE = ("gen", "etl", "item", "vectorize", "gnn", "gnn_eval", "disti
 # the AUCs' absolute. BPR sampling, initialisation and dropout draw from other streams.
 HYBRID_BANDS = {"gnn_recall@100": 0.15, "mean_abs_delta": 0.15, "hybrid_recall@100": 0.10,
                 "rerank_recall": 0.05, "auc_abs": 0.02}
+# --recipe stage1: the 5,000-item A/B world (scripts/quality_text_pretrain_ab.sh, v4 names)
+AB_WORLD = ["--set", "data.num_items=5000", "--set", "data.num_users=3000",
+            "--set", "data.days=240", "--set", "data.name_style_words=2"]
+AB_REFERENCE = os.path.join(REPO, "artifacts", "text_pretrain_ab_v4")
+AB_NAMES = ("gen", "etl_hash", "etl_pretrained", "pretrain", "item_hash", "item_pretrained",
+            "purity_hash", "purity_pretrained")
+STAGE1_REFERENCE = ("gen", "etl", "item", "vectorize", "knn_purity", "pretrain", "item_pt",
+                    "vectorize_pt", "knn_purity_pt")
+ARMS = ("hash", "pretrained")
+WORLD_FILES = ("items.parquet", "users.parquet", "transactions.parquet")
+ETL_FILES = ("features_item.parquet", "features_sequence.parquet", "features_user.parquet",
+             "targets_val.json")
+TABLE_KEY = "encoder.text_encoder.pretrained_embedding"
+# the JAX package's pretrain-text tables and their input, printed by
+# scripts/jax_hm_cut_reference.py (--world ab: the 5,000-item world, two BLAS threads;
+# the cut world: the H&M catalog, four; the items do not depend on the users). The input
+# (``ppmi``) is held bit for bit; the table's bits follow the LAPACK build its SVD runs on
+# (data/text_pretrain.pretrain_embeddings), so they are reported beside the JAX ones
+TABLE_REF = {
+    "ab": {"shape": [8192, 128], "nonzero_rows": 220, "abs_sum": 1583.742240030337,
+           "sha256": "e900c6851256dae46aecb02ac93b3eef41197e8ad9bc685880d847229e4bb4a2",
+           "ppmi": {"nnz": 16214, "sha256":
+                    "22b9e1a2fb60c404bb8219b11d102337195d9863c04fff51503dd9e2834d56bd"}},
+    "hm": {"shape": [8192, 128], "nonzero_rows": 223, "abs_sum": 1536.597757333248,
+           "sha256": "6e4679f44ff6933cbb39f0af28d00db8aa9f884b3efb2f677c708688ba23a595",
+           "ppmi": {"nnz": 21758, "sha256":
+                    "5adf47e0a1cf00d4c6bd5569623a8b77f8e4b99c1cb799f539f5305196918d1d"}}}
 
 
 def card_line() -> str:
@@ -160,7 +225,9 @@ def knn_purity(vecs: np.ndarray, labels: np.ndarray, k: int = 10, sample: int = 
             "n_items": int(n), "n_clusters": int(len(np.unique(labels)))}
 
 
-def purity_stage(root: str, device: str) -> dict:
+def purity_stage(root: str, device: str, sample: int = 8192) -> dict:
+    """``knn_purity`` of ``root``'s item matrix at k = 10 over ``sample``
+    queries (0: every item), as ``scripts/knn_purity.py`` runs it."""
     import pandas as pd
 
     from recsys_tpu_torch.train.checkpoint import load_array_with_ids
@@ -170,7 +237,7 @@ def purity_stage(root: str, device: str) -> dict:
     items = pd.read_parquet(f"{root}/items.parquet")
     lab = items.set_index(items["item_id"].astype(str))["latent_cluster"]
     labels = lab.reindex([str(i) for i in ids]).to_numpy()
-    return knn_purity(mat[1:], labels, 10, sample=8192, device=device)
+    return knn_purity(mat[1:], labels, 10, sample=sample, device=device)
 
 
 # -- the comparison with the committed run (host code) ------------------------
@@ -238,10 +305,8 @@ def verdict(rows: list[dict]) -> dict:
 def world_rows(got: dict, ref: dict) -> list[dict]:
     """The exact rows both recipes share: the world, the ETL, the item
     steps, the matrix."""
-    rows = []
-    for key in ("items", "users", "transactions", "oracle.oracle_recall",
-                "oracle.popularity_recall", "oracle.k", "oracle.target_rows"):
-        rows.append(exact_row(f"gen.{key}", _get(got.get("gen"), key), _get(ref["gen"], key)))
+    rows = [exact_row(f"gen.{key}", _get(got.get("gen"), key), _get(ref["gen"], key))
+            for key in GEN_KEYS]
     for key in _leaves(ref["etl"]):
         if key != "command":
             rows.append(exact_row(f"etl.{key}", _get(got.get("etl"), key),
@@ -373,6 +438,93 @@ def compare_hybrid(got: dict, ref: dict) -> dict:
     for key in ("reranked.recall@20", "reranked.recall@500", "significance.reranked.mean",
                 "significance.reranked_vs_repurchase.delta"):
         rows.append(_row(f"rerank_hybrid.{key}", *pair("rerank_hybrid", key), "info", None))
+    return verdict(rows)
+
+
+def table_rows(name: str, got: dict | None, ref: dict) -> list[dict]:
+    """The frozen table of one world against the JAX package's (TABLE_REF):
+    its input bit for bit, its bits and abs-sum reported, its largest change
+    in train-item."""
+    got = got or {}
+    abs_sum = got.get("abs_sum")
+    return [exact_row(f"{name}.ppmi", got.get("ppmi"), ref["ppmi"]),
+            _row(f"{name}.abs_sum", abs_sum, ref["abs_sum"], "info", None,
+                 rel_gap=None if abs_sum is None else abs_sum / ref["abs_sum"] - 1),
+            _row(f"{name}.sha256", got.get("sha256"), ref["sha256"], "info", None,
+                 bits_equal=got.get("sha256") == ref["sha256"]),
+            exact_row(f"{name}.max_change_after_train_item",
+                      got.get("max_change_after_train_item"), 0.0)]
+
+
+def sign_row(name: str, got, ref) -> dict:
+    """An A/B's difference beside the JAX run's: ok when both have one sign."""
+    ok = got is not None and ref is not None and got * ref > 0
+    return _row(name, got, ref, "band", bool(ok))
+
+
+def compare_stage1(got_ab: dict, ref_ab: dict, got: dict, ref: dict) -> dict:
+    """Both worlds of ``--recipe stage1`` beside the committed runs. ``got_ab``
+    and ``ref_ab`` hold the 5,000-item world's stage JSONs under AB_NAMES,
+    ``got`` and ``ref`` the H&M world's under STAGE1_REFERENCE; ``got_ab`` and
+    ``got`` also hold ``table`` (``frozen_table_check``) and, on the card,
+    ``train_item`` (each arm's steps, graph replays and K1 launches)."""
+    rows = [exact_row(f"ab.gen.{key}", _get(got_ab.get("gen"), key), _get(ref_ab["gen"], key))
+            for key in GEN_KEYS]
+    for arm in ARMS:
+        etl = f"etl_{arm}"
+        rows += [exact_row(f"ab.{etl}.{key}", _get(got_ab.get(etl), key), _get(ref_ab[etl], key))
+                 for key in _leaves(ref_ab[etl]) if key != "command"]
+    rows += [exact_row(f"ab.pretrain.{key}", _get(got_ab.get("pretrain"), key),
+                       ref_ab["pretrain"][key]) for key in ("shape", "nonzero_rows")]
+    rows += table_rows("ab.table", got_ab.get("table"), TABLE_REF["ab"])
+    for arm in ARMS:
+        rows.append(exact_row(f"ab.item_{arm}.steps", _get(got_ab.get(f"item_{arm}"), "steps"),
+                              ref_ab[f"item_{arm}"]["steps"]))
+    purity = {}
+    for arm in ARMS:
+        name = f"purity_{arm}"
+        purity[arm] = (_get(got_ab.get(name), "knn_purity"), ref_ab[name]["knn_purity"])
+        rows.append(band_row(f"ab.{name}", *purity[arm], BANDS["knn_purity"]))
+        for key in ("within_cos", "cross_cos", "n_clusters"):
+            rows.append(_row(f"ab.{name}.{key}", _get(got_ab.get(name), key), ref_ab[name][key],
+                             "info", None))
+
+    def diff(a, b):
+        return None if a is None or b is None else a - b
+
+    rows.append(sign_row("ab.purity_pretrained_minus_hash",
+                         diff(purity["pretrained"][0], purity["hash"][0]),
+                         diff(purity["pretrained"][1], purity["hash"][1])))
+
+    rows += world_rows(got, ref)
+    rows += [exact_row(f"pretrain.{key}", _get(got.get("pretrain"), key), ref["pretrain"][key])
+             for key in ("shape", "nonzero_rows")]
+    rows += table_rows("table", got.get("table"), TABLE_REF["hm"])
+    rows.append(exact_row("item_pt.steps", _get(got.get("item_pt"), "steps"),
+                          ref["item_pt"]["steps"]))
+    rows.append(exact_row("vectorize_pt.shape", _get(got.get("vectorize_pt"), "shape"),
+                          ref["vectorize_pt"]["shape"]))
+    for name in ("knn_purity", "knn_purity_pt"):
+        rows.append(band_row(name, _get(got.get(name), "knn_purity"), ref[name]["knn_purity"],
+                             BANDS["knn_purity"]))
+        for key in ("within_cos", "cross_cos"):
+            pair = (_get(got.get(name), key), ref[name][key])
+            rows.append(band_row(f"{name}.{key}", *pair, BANDS["knn_purity"])
+                        if name == "knn_purity_pt" else
+                        _row(f"{name}.{key}", *pair, "info", None))
+        rows.append(_row(f"{name}.n_clusters", _get(got.get(name), "n_clusters"),
+                         ref[name]["n_clusters"], "info", None))
+    rows.append(sign_row("purity_pretrained_minus_hash",
+                         diff(_get(got.get("knn_purity_pt"), "knn_purity"),
+                              _get(got.get("knn_purity"), "knn_purity")),
+                         ref["knn_purity_pt"]["knn_purity"] - ref["knn_purity"]["knn_purity"]))
+    # on the card: every step after the warm-up a replay, each K1 kernel twice a step
+    for world, runs in (("ab", got_ab.get("train_item") or {}), ("hm", got.get("train_item") or {})):
+        for arm, run in runs.items():
+            rows.append(exact_row(f"{world}.train_item_{arm}.graph_replays",
+                                  run["graph_replays"], run["steps"] - WARMUP_STEPS))
+            rows.append(exact_row(f"{world}.train_item_{arm}.k1_launches", run["k1_launches"],
+                                  {k: 2 * run["steps"] for k in run["k1_launches"]}))
     return verdict(rows)
 
 
@@ -680,9 +832,89 @@ def serve_hybrid_stage(sets: list[str], root: str, n_users: int, device: str) ->
     return out
 
 
+def link_world(src: str, dst: str, names: tuple) -> None:
+    """A second data root over the same world: ``names`` of ``src`` linked
+    into ``dst`` (``scripts/quality_hm_v4_stage1.sh:46-51``)."""
+    os.makedirs(dst, exist_ok=True)
+    for name in names:
+        if not os.path.lexists(f"{dst}/{name}"):
+            os.symlink(os.path.abspath(f"{src}/{name}"), f"{dst}/{name}")
+
+
+def frozen_table_check(root: str, sets: list[str]) -> dict:
+    """The pretrain-text table of ``root`` (``sets``: its stage's overrides):
+    its checksums and its input's, and its largest change in train-item's
+    best and latest checkpoints (0.0: frozen)."""
+    from recsys_tpu_torch.data.text_pretrain import (load_text_pretrain, ppmi_checksum,
+                                                     ppmi_matrix, table_checksum)
+    from recsys_tpu_torch.train.checkpoint import CheckpointStore
+
+    cfg = cli.config_from_args(cli.parse_args(["pretrain-text", *sets]))
+    m = ppmi_matrix(cli._item_tensors(cfg), cfg.vocab.text_vocab_size)
+    art = load_text_pretrain(f"{root}/text_pretrain.npz")
+    store = CheckpointStore(f"{root}/ckpt_item", maximize=False)
+    change = max(float(np.abs(payload["model"][TABLE_KEY].float().numpy() - art).max())
+                 for payload, _ in (store.restore_best("cpu"), store.restore_latest("cpu")))
+    return {**table_checksum(art), "ppmi": ppmi_checksum(m),
+            "max_change_after_train_item": change}
+
+
+def serve_items_stage(sets: list[str], root: str, n_requests: int, device: str) -> dict:
+    """``serve --model-backed`` with ``root``'s item encoder behind the HTTP
+    server: the catalog in (``ingest_catalog``), every served vector against
+    vectorize's matrix, then ``n_requests`` similarity requests against the
+    exact top hits of that matrix."""
+    from recsys_tpu_torch.serve.server import make_server, serve_forever_in_thread
+    from recsys_tpu_torch.train.checkpoint import load_array_with_ids
+
+    t_start = time.perf_counter()
+    args = cli.parse_args(["serve", *sets, "--model-backed"])
+    ctx = cli.build_app(cli.config_from_args(args), args)
+    build_s = time.perf_counter() - t_start
+    mat, ids, _ = load_array_with_ids(f"{root}/item_matrix")
+    row_of = {str(p): r for r, p in enumerate(ids)}
+    queries = [str(p) for p in np.random.default_rng(0).choice(
+        np.asarray(ids[1:], dtype=object), min(n_requests, len(ids) - 1), replace=False)]
+    server = make_server(ctx, host="127.0.0.1", port=0)
+    thread = serve_forever_in_thread(server)
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    out: dict = {"build_s": build_s}
+    try:
+        out.update(ingest_catalog(base, root))
+        served_ids, served = ctx.store.all_vectors()
+        served_err = float(np.abs(served - mat[[row_of[p] for p in served_ids]]).max())
+        ms, score_err, leading, best_hit = [], 0.0, 0, 0
+        for pid in queries:
+            t0 = time.perf_counter()
+            res = http(base, "GET", f"/api/controller/similarity/{pid}?top_k=10")["results"]
+            ms.append(1e3 * (time.perf_counter() - t0))
+            if not (0 < len(res) <= 10) or any(r["product_id"] == pid for r in res):
+                raise RuntimeError(f"serve: similarity for {pid}: {res}")
+            row = row_of[pid]
+            for r in res:
+                score_err = max(score_err, abs(r["score"] - float(mat[row] @ mat[row_of[
+                    r["product_id"]]])))
+            scores = mat[1:] @ mat[row]
+            scores[row - 1] = -np.inf
+            top2 = np.argsort(-scores, kind="stable")[:2]
+            if scores[top2[0]] - scores[top2[1]] > SERVE_TOL:
+                leading += 1
+                best_hit += res[0]["product_id"] == str(ids[top2[0] + 1])
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+    out.update({"catalog_rows": int(mat.shape[0]), "served_vs_vectorize_err": served_err,
+                "similarity_requests": len(queries), "similarity_score_err": score_err,
+                "similarity_leading_best": leading, "similarity_best_hit_first": best_hit,
+                "latency": {"similarity": latency_row(ms)},
+                "seconds": time.perf_counter() - t_start})
+    return out
+
+
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--recipe", choices=("main", "hybrid"), default="main")
+    parser.add_argument("--recipe", choices=("main", "hybrid", "stage1"), default="main")
     parser.add_argument("--out", default=os.path.join(REPO, "chiprun_out", "torch_quality_hm"))
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--root", default=None, help="data root (default: a fresh temp dir)")
@@ -721,16 +953,21 @@ def main(argv=None) -> int:
         out = cli.main(argv_)
         seconds = time.perf_counter() - t0
         rec = {"seconds": seconds, "peak_rss_gib": peak_rss_gib(),
-               "k1_launches": dict(K.LAUNCHES), "k2_launches": dict(S.LAUNCHES)}
+               "k1_launches": dict(K.LAUNCHES), "k2_launches": dict(S.LAUNCHES),
+               **{k: out[k] for k in ("steps", "graph_replays", "step_ms_median") if k in out}}
         if on_card and device_memory:
             rec["peak_device_gib"] = torch.cuda.max_memory_allocated() / 2**30
         stages[name] = rec
         print(json.dumps({"stage": name, **rec}), flush=True)
         got[name] = {k: v for k, v in out.items() if k != "losses"} | {"command": argv_[0]}
-        with open(os.path.join(args.out, f"{name}.json"), "w") as f:
+        path = os.path.join(args.out, f"{name}.json")     # "ab/gen": a subdirectory
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as f:
             json.dump({"command": argv_[0], **out}, f, default=str)
         return out
 
+    if args.recipe == "stage1":
+        return stage1_recipe(args, stage, stages, got, root, extra, card, start)
     stage("gen", ["gen-data", *sets])
     stage("etl", ["etl", *sets])
     item = stage("item", ["train-item", *sets, "--set", f"simcse.epochs={args.item_epochs}"],
@@ -867,6 +1104,110 @@ def hybrid_recipe(args, stage, stages: dict, got: dict, root: str, world_extra: 
                          "peak_device_gib": stages["hybrid"].get("peak_device_gib")},
         "serve_latency": serve["latency"], "peak_rss_gib": peak_rss_gib(),
         "seconds": time.time() - start, **result}
+    with open(os.path.join(args.out, "summary.json"), "w") as f:
+        json.dump(summary, f, indent=1)
+    print(card, flush=True)
+    print(json.dumps(summary), flush=True)
+    return 0 if result["exact_ok"] else 1
+
+
+def stage1_recipe(args, stage, stages: dict, got: dict, root: str, extra: list[str],
+                  card: str, start: float) -> int:
+    """Both arms of the stage-1 A/B at 5,000 items, then at the H&M world (see
+    the module docstring); the summary against the committed runs, the exit
+    code. ``extra``: the caller's overrides (``--set``, ``--device``)."""
+    on_card = args.device.startswith("cuda")
+    epochs = ["--set", f"simcse.epochs={args.item_epochs}"]
+
+    def purity(name: str, data_root: str, sample: int) -> None:
+        t0 = time.perf_counter()
+        got[name] = purity_stage(data_root, args.device, sample)
+        stages[name] = {"seconds": time.perf_counter() - t0}
+        print(json.dumps({"stage": name, **got[name]}), flush=True)
+        with open(os.path.join(args.out, f"{name}.json"), "w") as f:
+            json.dump(got[name], f)
+
+    def trained(name: str, data_root: str, sets_: list[str] | None = None) -> dict:
+        run = {k: stages[name][k] for k in ("steps", "graph_replays", "step_ms_median",
+                                             "k1_launches")}
+        if sets_ is not None:         # the pretrained arm
+            run["table"] = frozen_table_check(data_root, sets_)
+            print(json.dumps({"stage": name, "frozen_table": run["table"]}), flush=True)
+        return run
+
+    # (a) the 5,000-item world, each arm in its own data root over one world
+    roots = {arm: f"{root}/ab/world_{arm}" for arm in ARMS}
+    ab_runs = {}
+
+    def ab_sets(arm: str) -> list[str]:
+        return ["--set", f"data.root={roots[arm]}", *AB_WORLD,
+                "--set", f"item_tower.text_encoder={arm}", *extra]
+
+    stage("ab/gen", ["gen-data", *ab_sets("hash")])
+    link_world(roots["hash"], roots["pretrained"], WORLD_FILES)
+    for arm in ARMS:
+        stage(f"ab/etl_{arm}", ["etl", *ab_sets(arm)])
+        if arm == "pretrained":
+            stage("ab/pretrain", ["pretrain-text", *ab_sets(arm)])
+        stage(f"ab/item_{arm}", ["train-item", *ab_sets(arm), *epochs], device_memory=True)
+        ab_runs[arm] = trained(f"ab/item_{arm}", roots[arm],
+                               ab_sets(arm) if arm == "pretrained" else None)
+        stage(f"ab/vectorize_{arm}", ["vectorize", *ab_sets(arm)])
+        purity(f"ab/purity_{arm}", roots[arm], 0)
+
+    # (b) the H&M world: arm A in ``root``, arm B in ``root``/world_pt over its files
+    root_pt = f"{root}/world_pt"
+    sets = ["--set", f"data.root={root}", *WORLD, *extra]
+    sets_pt = ["--set", f"data.root={root_pt}", *WORLD,
+               "--set", "item_tower.text_encoder=pretrained", *extra]
+    stage("gen", ["gen-data", *sets])
+    stage("etl", ["etl", *sets])
+    stage("item", ["train-item", *sets, *epochs], device_memory=True)
+    hm_runs = {"hash": trained("item", root)}
+    stage("vectorize", ["vectorize", *sets])
+    purity("knn_purity", root, 8192)
+    link_world(root, root_pt, WORLD_FILES + ETL_FILES)
+    stage("pretrain", ["pretrain-text", *sets_pt])
+    stage("item_pt", ["train-item", *sets_pt, *epochs], device_memory=True)
+    hm_runs["pretrained"] = trained("item_pt", root_pt, sets_pt)
+    stage("vectorize_pt", ["vectorize", *sets_pt])
+    purity("knn_purity_pt", root_pt, 8192)
+    serve = serve_items_stage([*sets_pt, "--set", "serve.db_path=:memory:",
+                               "--set", "serve.user_backend=history"], root_pt,
+                              args.requests, args.device)
+    stages["serve"] = {"seconds": serve["seconds"], "peak_rss_gib": peak_rss_gib()}
+    print(json.dumps({"stage": "serve", **serve}), flush=True)
+    with open(os.path.join(args.out, "serve.json"), "w") as f:
+        json.dump(serve, f)
+
+    got_ab = {name[3:]: value for name, value in got.items() if name.startswith("ab/")}
+    got_ab["table"] = ab_runs["pretrained"]["table"]
+    got["table"] = hm_runs["pretrained"]["table"]
+    if on_card:
+        got_ab["train_item"], got["train_item"] = ab_runs, hm_runs
+    result = compare_stage1(got_ab, load_reference(AB_REFERENCE, AB_NAMES), got,
+                            load_reference(names=STAGE1_REFERENCE))
+    for name, value, ok in (
+            ("serve.served_vs_vectorize_err", serve["served_vs_vectorize_err"],
+             serve["served_vs_vectorize_err"] <= SERVE_TOL),
+            ("serve.similarity_score_err", serve["similarity_score_err"],
+             serve["similarity_score_err"] <= SERVE_TOL),
+            ("serve.similarity_best_hit_first", serve["similarity_best_hit_first"],
+             serve["similarity_best_hit_first"] == serve["similarity_leading_best"])):
+        result["comparisons"].append(_row(name, value, None, "exact", ok, tol=SERVE_TOL))
+        result["exact_ok"] = result["exact_ok"] and ok
+        if not ok:
+            result["misses"].append(name)
+    summary = {
+        "card": card, "device": args.device, "recipe": "stage1", "stages": stages,
+        "train_item": {"ab": ab_runs, "hm": hm_runs},
+        "purity": {"ab": {arm: got_ab[f"purity_{arm}"]["knn_purity"] for arm in ARMS},
+                   "hm": {"hash": got["knn_purity"]["knn_purity"],
+                          "pretrained": got["knn_purity_pt"]["knn_purity"]}},
+        "serve": {k: serve[k] for k in ("served_vs_vectorize_err", "similarity_score_err",
+                                        "similarity_leading_best", "similarity_best_hit_first",
+                                        "latency")},
+        "peak_rss_gib": peak_rss_gib(), "seconds": time.time() - start, **result}
     with open(os.path.join(args.out, "summary.json"), "w") as f:
         json.dump(summary, f, indent=1)
     print(card, flush=True)
