@@ -23,7 +23,8 @@ auto-names (``CrossNet_0/cross_{i}``, ``MLP_0/Dense_{i}``, ``score``) and
 same way in both directions: ``models/user_tower.Stage2Model`` is the JAX
 package's ``{"user": SASRecUserTower params, "item": {"item_matrix"}}`` tree,
 with ``seq_gate``, ``static_gate``, ``pos_embedding`` and ``item_matrix`` as
-raw parameters and no ``side_embedding_*`` (Flax never creates them). The
+raw parameters. ``side_embedding_{i}`` (Embeds) exist only in a tower with
+``enable_side_gates``, in both packages, and map as Embeds do. The
 hybrid tower (``models/hybrid_tower.HybridUserTower``) maps the same way too:
 its shape-() scalars (``logit_scale``, ``fusion/gate_gnn``, ``fusion/gate_meta``,
 ``ResidualAdapter``'s ``gate``) and ``pos_embedding`` as raw parameters,

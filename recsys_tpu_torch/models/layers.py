@@ -33,14 +33,21 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
+def dropout_keep(shape: Sequence[int], p: float, generator: torch.Generator | None,
+                 device: torch.device) -> torch.Tensor:
+    """The keep mask of one dropout call (True where kept), drawn from
+    ``generator``. ``dropout`` looks it up here at every call, so a test can
+    put a function in its place that hands out given masks."""
+    return torch.rand(tuple(shape), generator=generator, device=device) >= p
+
+
 def dropout(x: torch.Tensor, p: float, training: bool,
             generator: torch.Generator | None = None,
             shape: Sequence[int] | None = None) -> torch.Tensor:
     """Inverted dropout; ``shape`` broadcasts one mask over some dims."""
     if not training or p <= 0.0:
         return x
-    keep = torch.rand(tuple(shape or x.shape), generator=generator,
-                      device=x.device) >= p
+    keep = dropout_keep(shape or x.shape, p, generator, x.device)
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype,
                                                          device=x.device))
 

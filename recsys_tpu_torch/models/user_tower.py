@@ -3,13 +3,14 @@
 Counterpart of ``recsys_tpu/models/user_tower.py``:
 
   * sequence branch - per-position sum of the projected content item vector
-    (from the stage-1 matrix), a learnable id embedding and a time-bucket
-    embedding, each scaled by a sigmoid feature gate (``seq_gate``), plus a
-    learned positional embedding, LayerNorm, dropout, then a causal pre-norm
-    transformer with a key-padding mask. The side-info gates are off
-    (``enable_side_gates=False``, as in the JAX tower): their embeddings are
-    never called, so the JAX tree has no ``side_embedding_*`` parameter and
-    this module has none either;
+    (from the stage-1 matrix), a learnable id embedding, a time-bucket
+    embedding and, with ``enable_side_gates``, one embedding of each hashed
+    side-info field (``side_embedding_{i}``, 1001 rows), each scaled by a
+    sigmoid feature gate (``seq_gate``), plus a learned positional embedding,
+    LayerNorm, dropout, then a causal pre-norm transformer with a key-padding
+    mask. The side gates are off by default, as in the JAX tower, which then
+    never calls its side embeddings, so its tree has no ``side_embedding_*``
+    parameter; this module creates them only when the flag is on;
   * static branch - bucket embeddings (16-d), low-cardinality categorical
     embeddings (4-d) and a continuous projection, each gated
     (``static_gate``), concatenated -> MLP -> d_model;
@@ -63,14 +64,20 @@ class SASRecItemTower(nn.Module):
 
 
 class SASRecUserTower(nn.Module):
-    def __init__(self, cfg: UserTowerConfig = UserTowerConfig(), num_id_embeddings: int = 1):
+    def __init__(self, cfg: UserTowerConfig = UserTowerConfig(), num_id_embeddings: int = 1,
+                 enable_side_gates: bool = False):
         super().__init__()
         c = self.cfg = cfg
         D = c.d_model
+        self.enable_side_gates = enable_side_gates
         self.item_proj = Dense(D, D)
         self.id_embedding = Embed(num_id_embeddings, D)
         self.time_embedding = BucketEmbed(c.num_time_buckets, D)
-        # [content, id, time, side0..sideS]; the side gates stay unused
+        if enable_side_gates:
+            for i in range(c.num_side_fields):
+                setattr(self, f"side_embedding_{i}", Embed(1001, D))
+        # [content, id, time, side0..sideS]; the side gates are read only
+        # with enable_side_gates
         self.seq_gate = nn.Parameter(torch.zeros(3 + c.num_side_fields))
         self.pos_embedding = normal_param(c.max_len, D, std=0.02)
         self.seq_norm = LayerNorm(D)
@@ -89,16 +96,23 @@ class SASRecUserTower(nn.Module):
 
     def forward(self, item_vecs, input_ids, time_buckets, seq_mask, user_buckets,
                 user_cats, user_cont, *, all_timesteps: bool = True,
-                generator: torch.Generator | None = None) -> torch.Tensor:
-        """item_vecs (B, L, D) content vectors of the input items; returns
-        (B, L, D) if ``all_timesteps`` else (B, D), L2-normalized. Dropout
-        runs in train mode, drawn from ``generator``."""
+                generator: torch.Generator | None = None,
+                side_ids: torch.Tensor | None = None) -> torch.Tensor:
+        """item_vecs (B, L, D) content vectors of the input items; side_ids
+        (B, L, S), read only with ``enable_side_gates``; returns (B, L, D) if
+        ``all_timesteps`` else (B, D), L2-normalized. Dropout runs in train
+        mode, drawn from ``generator``."""
         c = self.cfg
         L = input_ids.shape[1]
         gates = torch.sigmoid(self.seq_gate.float()).to(BF16)
         x = self.item_proj(item_vecs) * gates[0]
         x = x + self.id_embedding(input_ids) * gates[1]
         x = x + self.time_embedding(time_buckets) * gates[2]
+        if self.enable_side_gates:
+            if side_ids is None:
+                raise ValueError("enable_side_gates needs side_ids (B, L, S)")
+            for i in range(c.num_side_fields):
+                x = x + getattr(self, f"side_embedding_{i}")(side_ids[..., i]) * gates[3 + i]
         x = x + self.pos_embedding[None, :L].to(BF16)
         x = dropout(self.seq_norm(x), c.dropout, self.training, generator)
         seq_out = self.encoder(x, pad_mask=seq_mask, causal=True, generator=generator)

@@ -12,10 +12,11 @@ the reference's dict corruption is pure masking:
 Only the masks change. The random bits differ from ``jax.random``'s; the
 contract and the rates are the same.
 
-``random_cut`` is the stage-2 sequence augmentation. Its random draws (the
-gate and the cut position, ``random_cut_draws``) are kept apart from its
-arithmetic (``apply_random_cut``), so that a test can feed it the JAX
-package's draws and hold the arithmetic exactly.
+``random_cut`` is the stage-2 sequence augmentation. The random draws of
+both augmentations (``corrupt_view_draws``; the gate and the cut position,
+``random_cut_draws``) are kept apart from their arithmetic
+(``apply_corrupt_view``, ``apply_random_cut``), so that a test can feed them
+the JAX package's draws and hold the arithmetic exactly.
 """
 
 from __future__ import annotations
@@ -29,36 +30,53 @@ def _bernoulli(p: float, shape, generator, device) -> torch.Tensor:
     return torch.rand(shape, generator=generator, device=device) < p
 
 
-def corrupt_view(batch: dict, generator: torch.Generator | None,
-                 dropout_prob: float) -> dict:
-    """Return a corrupted copy of the item batch (only masks change)."""
-    re_mask, re_value = batch["re_mask"], batch["re_value"]   # (B, F, T)
+def corrupt_view_draws(batch: dict, generator: torch.Generator | None,
+                       dropout_prob: float) -> dict:
+    """The random draws of one view, in the generator's order: ``value_drop``
+    (B, F, MAX_VALUES) and ``key_drop`` (B, F), the drop coins of the RE
+    values and fields; ``name_gate`` (B,), whether a name word is deleted;
+    ``victim`` (B,), which word, uniform over the name's real tokens."""
+    re_mask, txt_mask = batch["re_mask"], batch["txt_mask"]
     B, F, _ = re_mask.shape
     dev = re_mask.device
-
-    # value-level dropout: one coin per (item, field, value)
     value_drop = _bernoulli(dropout_prob, (B, F, MAX_VALUES), generator, dev)
-    token_dropped = torch.gather(value_drop, 2,
-                                 (re_value.long() - 1).clamp(0, MAX_VALUES - 1))
-    # key-level dropout: one coin per (item, field)
     key_drop = _bernoulli(max(dropout_prob - 0.1, 0.0), (B, F), generator, dev)
-    keep = ~token_dropped & ~key_drop[..., None]
-    new_re_mask = re_mask * keep.to(re_mask.dtype)
-
-    # name-word deletion: with prob 0.5 zero one uniformly chosen real token
-    txt_mask = batch["txt_mask"]                              # (B, Tn)
-    gate = _bernoulli(0.5, (B,), generator, dev)
+    name_gate = _bernoulli(0.5, (B,), generator, dev)
     scores = torch.rand(txt_mask.shape, generator=generator, device=dev)
     victim = torch.where(txt_mask > 0, scores, torch.full_like(scores, -1.0)).argmax(-1)
-    one_hot = torch.nn.functional.one_hot(victim, txt_mask.shape[1]).to(txt_mask.dtype)
+    return {"value_drop": value_drop, "key_drop": key_drop, "name_gate": name_gate,
+            "victim": victim}
+
+
+def apply_corrupt_view(batch: dict, draws: dict) -> dict:
+    """The view that ``draws`` (``corrupt_view_draws``) make of the batch:
+    only the masks change."""
+    re_mask, re_value = batch["re_mask"], batch["re_value"]   # (B, F, T)
+    # value-level dropout: one coin per (item, field, value)
+    token_dropped = torch.gather(draws["value_drop"], 2,
+                                 (re_value.long() - 1).clamp(0, MAX_VALUES - 1))
+    # key-level dropout: one coin per (item, field)
+    keep = ~token_dropped & ~draws["key_drop"][..., None]
+    new_re_mask = re_mask * keep.to(re_mask.dtype)
+
+    # name-word deletion: zero the victim token of the gated names
+    txt_mask = batch["txt_mask"]                              # (B, Tn)
+    one_hot = torch.nn.functional.one_hot(draws["victim"].long(), txt_mask.shape[1])
+    one_hot = one_hot.to(txt_mask.dtype)
     # a name of one token keeps it (an empty name would zero the mean pool)
-    delete = gate & (txt_mask.sum(-1) > 1)
+    delete = draws["name_gate"] & (txt_mask.sum(-1) > 1)
     new_txt_mask = torch.where(delete[:, None], txt_mask * (1 - one_hot), txt_mask)
 
     out = dict(batch)
     out["re_mask"] = new_re_mask
     out["txt_mask"] = new_txt_mask
     return out
+
+
+def corrupt_view(batch: dict, generator: torch.Generator | None,
+                 dropout_prob: float) -> dict:
+    """Return a corrupted copy of the item batch (only masks change)."""
+    return apply_corrupt_view(batch, corrupt_view_draws(batch, generator, dropout_prob))
 
 
 def two_views(batch: dict, generator: torch.Generator | None,

@@ -93,10 +93,12 @@ def loss_on_views(model: SimCSEModel, cfg: Config, v1: dict, v2: dict,
     return infonce(emb1, emb2, cfg.simcse.temperature), emb1, emb2
 
 
-def make_train_step(state: TrainState, cfg: Config):
+def make_train_step(state: TrainState, cfg: Config, views=two_views):
+    """The training step; ``views(batch, generator, feature_dropout)`` makes
+    its two corrupted views (a test may pass given draws in)."""
     def step(batch: dict, generator: torch.Generator):
         state.model.train()
-        v1, v2 = two_views(batch, generator, cfg.simcse.feature_dropout)
+        v1, v2 = views(batch, generator, cfg.simcse.feature_dropout)
         loss, e1, e2 = loss_on_views(state.model, cfg, v1, v2, generator)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()

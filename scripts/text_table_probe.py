@@ -1,9 +1,10 @@
 """Where one machine's pretrain-text table parts from another's.
 
-    python3 scripts/text_table_probe.py [--world ab|hm] [--table T.npz]
+    python3 scripts/text_table_probe.py [--world ab|hm] [--table T.npz] [--root DIR]
 
 Builds the world of ``scripts/text_ab_seeds.py --world`` (gen-data through
-the port's CLI on the CPU) and runs the steps of
+the port's CLI on the CPU; ``--root``: a data root that holds it already,
+and then the table is its ``pretrain-text`` artifact when it has one) and runs the steps of
 ``recsys_tpu_torch/data/text_pretrain.pretrain_embeddings`` one by one,
 printing one ``probe`` JSON line a step with a checksum of its output (dtype,
 shape, the first 16 hex digits of its sha256, float64 sums): the PPMI input,
@@ -49,14 +50,17 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--world", choices=sorted(WORLDS), default="ab")
     parser.add_argument("--table", default=None)
+    parser.add_argument("--root", default=None,
+                        help="a data root where gen-data already made this world")
     args = parser.parse_args(argv)
     import scipy
 
     print(json.dumps({"numpy": np.__version__, "scipy": scipy.__version__}), flush=True)
-    root = tempfile.mkdtemp(prefix="text_table_probe_")
+    root = args.root or tempfile.mkdtemp(prefix="text_table_probe_")
     sets = [a for kv in [*WORLDS[args.world], "data.name_style_words=2", f"data.root={root}"]
             for a in ("--set", kv)]
-    cli.main(["gen-data", *sets, "--device", "cpu"])
+    if not args.root:
+        cli.main(["gen-data", *sets, "--device", "cpu"])
     cfg = cli.config_from_args(cli.parse_args(["pretrain-text", *sets]))
     tensors = cli._item_tensors(cfg)
     V, dim, iters = cfg.vocab.text_vocab_size, cfg.item_tower.pretrained_dim, 4
@@ -78,7 +82,9 @@ def main(argv=None) -> int:
     steps["b"] = checksum(b)
     ub, s, _ = np.linalg.svd(b, full_matrices=False)
     steps["svd_s"] = {**checksum(s), "top": s[:4].tolist(), "last": s[dim - 4:k].tolist()}
-    emb = T.pretrain_embeddings(tensors, V, dim=dim, seed=cfg.data.seed)
+    made = f"{root}/text_pretrain.npz"
+    emb = (T.load_text_pretrain(made) if args.root and os.path.exists(made)
+           else T.pretrain_embeddings(tensors, V, dim=dim, seed=cfg.data.seed))
     steps["table"] = T.table_checksum(emb)
     for name, value in steps.items():
         print(json.dumps({"probe": name, **value}), flush=True)

@@ -12,7 +12,8 @@ import pytest
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("recsys_tpu", "jax", "jaxlib", "flax", "optax")
 PORT_FILES = sorted((REPO / "recsys_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "scripts" / "torch_quality_hm.py"]
+    REPO / "chip_smoke.py", REPO / "scripts" / "torch_quality_hm.py",
+    REPO / "scripts" / "torch_init_spread.py"]
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -40,7 +41,7 @@ def test_port_file_list_is_complete():
                      "recsys_tpu_torch/data/ingest.py", "recsys_tpu_torch/data/hm_adapter.py",
                      "recsys_tpu_torch/data/analysis.py", "recsys_tpu_torch/eval/viz.py",
                      "recsys_tpu_torch/entry.py", "chip_smoke.py",
-                     "scripts/torch_quality_hm.py"):
+                     "scripts/torch_quality_hm.py", "scripts/torch_init_spread.py"):
         assert expected in names
 
 

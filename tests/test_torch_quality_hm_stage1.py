@@ -37,7 +37,8 @@ from recsys_tpu_torch.train.step_graph import StepGraph
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOY = ["data.num_items=120", "data.num_users=60", "data.days=40", "vocab.max_field_tokens=8",
        "vocab.max_name_tokens=8", "item_tower.head_hidden=[128]", "item_tower.fusion_layers=1",
-       "item_tower.text_layers=1", "simcse.batch_size=16", "simcse.steps_per_epoch_min=1"]
+       "item_tower.text_layers=1", "simcse.batch_size=16", "simcse.steps_per_epoch_min=1",
+       "vocab.text_vocab_size=512"]
 K1 = ("diag_ce_fwd", "diag_ce_bwd_dq", "diag_ce_bwd_dk")
 
 
@@ -141,15 +142,24 @@ def test_compare_stage1_flags_each_miss(script, case):
     assert out["exact_ok"] == exact_ok
 
 
-def test_5k_world_through_the_cli_equals_the_jax_run(script, tmp_path):
+@pytest.fixture(scope="module")
+def ab_world(script, tmp_path_factory):
+    """gen-data -> etl -> pretrain-text of the 5,000-item A/B world through
+    the port's CLI: (the stages' JSONs, the CLI arguments, the data root)."""
+    root = tmp_path_factory.mktemp("ab_world")
+    sets = ["--set", f"data.root={root}", *script.AB_WORLD,
+            "--set", "item_tower.text_encoder=pretrained", "--device", "cpu"]
+    got = {name: cli.main([stage, *sets]) for name, stage in
+           (("gen", "gen-data"), ("etl_pretrained", "etl"), ("pretrain", "pretrain-text"))}
+    return got, sets, str(root)
+
+
+def test_5k_world_through_the_cli_equals_the_jax_run(script, ab_world):
     """gen-data -> etl -> pretrain-text of the 5,000-item A/B world: every
     field of the committed JSONs, and the JAX package's table input bit for
     bit."""
     ref = script.load_reference(script.AB_REFERENCE, ("gen", "etl_pretrained", "pretrain"))
-    sets = ["--set", f"data.root={tmp_path}", *script.AB_WORLD,
-            "--set", "item_tower.text_encoder=pretrained", "--device", "cpu"]
-    got = {name: cli.main([stage, *sets]) for name, stage in
-           (("gen", "gen-data"), ("etl_pretrained", "etl"), ("pretrain", "pretrain-text"))}
+    got, sets, _ = ab_world
     for name in ("gen", "etl_pretrained"):
         assert {k: v for k, v in ref[name].items() if k != "command"} == got[name], name
     assert got["pretrain"]["shape"] == ref["pretrain"]["shape"]
@@ -247,7 +257,7 @@ def test_seed_spread_script_at_a_toy_world(tmp_path, capsys):
         "text_ab_seeds", os.path.join(REPO, "scripts", "text_ab_seeds.py"))
     seeds = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(seeds)
-    table = np.random.default_rng(0).normal(size=(8192, 128)).astype(np.float32)
+    table = np.random.default_rng(0).normal(size=(512, 128)).astype(np.float32)
     TT.save_text_pretrain(str(tmp_path / "table"), table)
     assert seeds.main(["--device", "cpu", "--seeds", "42,1", "--table",
                        str(tmp_path / "table.npz"),
@@ -263,10 +273,11 @@ def test_seed_spread_script_at_a_toy_world(tmp_path, capsys):
     assert lines[-1]["table"].endswith("table.npz")
 
 
-def test_table_probe_prints_each_step(script, tmp_path, capsys):
-    """``scripts/text_table_probe.py`` on the 5,000-item world: a line a step
-    of ``pretrain_embeddings``, the PPMI input the JAX package's, and the
-    table's live rows beside a given table's."""
+def test_table_probe_prints_each_step(script, ab_world, tmp_path, capsys):
+    """``scripts/text_table_probe.py`` on the 5,000-item world (the one
+    ``gen-data`` made for the test above): a line a step of
+    ``pretrain_embeddings``, the PPMI input the JAX package's, and the table's
+    live rows beside a given table's."""
     spec = importlib.util.spec_from_file_location(
         "text_table_probe", os.path.join(REPO, "scripts", "text_table_probe.py"))
     probe = importlib.util.module_from_spec(spec)
@@ -274,7 +285,7 @@ def test_table_probe_prints_each_step(script, tmp_path, capsys):
     table = np.zeros((8192, 128), np.float32)
     table[1:3, 0] = 1.0
     TT.save_text_pretrain(str(tmp_path / "t"), table)
-    assert probe.main(["--table", str(tmp_path / "t.npz")]) == 0
+    assert probe.main(["--table", str(tmp_path / "t.npz"), "--root", ab_world[2]]) == 0
     lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()
              if ln.startswith(('{"probe"', '{"table_rows"'))]
     steps = {ln.pop("probe"): ln for ln in lines[:-1]}
