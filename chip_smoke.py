@@ -53,16 +53,30 @@ then (phases 10 and 11 run after 6, while the graph of 4 is still there):
      (rows of more than 256 edges) are finished inside it, and must equal
      ``hub_finish_plain`` of the partial rows it wrote bit for bit; 200 calls
      and three replays of a CUDA-graph capture must equal the eager call bit
-     for bit, and the arrival counters must be zero after them. CUDA-event
+     for bit, one launch counted a replay and none at the capture, and the
+     arrival counters must be zero after them. CUDA-event
      times of kernel, plain form and ``torch.sparse.mm`` on a CSR tensor,
      beside each mode's byte bound (x counted in 2 bytes in "bf16").
   5. GNN slice: etl -> train-gnn -> distill -> gnn-eval through the CLI on
      the world of phase 2, default widths, two epochs, the trainer in the
      mode ``select_propagation`` picks on the card ("bf16"); K2's counts are
-     zeroed before and read after. Then K2's time at that graph.
+     zeroed before and read after. ``train-gnn`` and ``distill`` run each
+     step as one CUDA graph: every step after the WARMUP_STEPS eager ones a
+     replay, exactly; K2 four times a step (a replay counts its four) plus
+     the export's and the check's two each, exactly; none in distill. Then
+     K2's time at that graph.
   6. the trainer at a real size: ``train_lightgcl`` on the graph of 4, batch
-     8192, ten steps, in that mode; K2 must launch four times a step; then
-     ``final_embeddings`` through K2 ("f32").
+     8192, ten steps (eight replays), in that mode; K2 must launch four times
+     a step; peak device memory; then ``final_embeddings`` through K2
+     ("f32"). Then the LightGCL step (``train/gnn.gnn_runner``) eager and
+     captured from one seeded state on the same GRAPH_STEPS batches (losses
+     within GRAPH_LOSS_TOL every step, parameters within GRAPH_PARAM_TOL at
+     the end); the step medians in turns with the host's batch sampling
+     included, as the trainer runs it; K2 four times a step; a replay under
+     ``set_sync_debug_mode("error")``; K2's arrival counters on the runner's
+     stream at zero after the replays; five steps of each under
+     ``torch.profiler`` (busy and idle share, kernels run and host launch
+     calls a step, K2's device time).
 
   7. kernel vs plain: K3's forward and backward kernels against the plain FM
      form and its autograd gradient on the card, at (200, 12, 16), a ragged
@@ -74,14 +88,20 @@ then (phases 10 and 11 run after 6, while the graph of 4 is still there):
      byte bound, at the training and the scoring shape.
   8. reranker slice: train-reranker through the CLI on the world of phase 2
      with the default reranker config and 200 boosting iterations; both AUCs
-     above 0.5; reranker_gbdt.pkl loads again and reproduces the stage's AUC.
+     above 0.5; reranker_gbdt.pkl loads again and reproduces the stage's AUC;
+     every DCN step after the warm-up a graph replay, no hand kernel. Then
+     the DCN step (``train/reranker.neural_runner``) at batch 2048 eager and
+     captured on the stage's rows, as phase 6 holds LightGCL's (the
+     tolerances, turns, sync-debug replay and profile; no hand kernel).
   9. DeepFM at full width: the stage's rows with 19 sparse fields (item and
      user index, the items' and users' categorical columns) and the 10 dense
      features, ``train_deepfm`` for a few epochs at the default widths, the
      scorer over 131,072 candidate rows in one call, ``ReRankingSystem`` for a
      few users. K3's counts are zeroed before and read after: the forward
      kernel must have launched once a step and once a scoring call, the
-     backward once a step, exactly.
+     backward once a step, exactly; every step after the warm-up a graph
+     replay. Then the DeepFM step eager and captured as phase 8's DCN step,
+     K3's forward and backward each once a step and once a replay, exactly.
 
   10. kernel vs plain: K4, the ring all-gather, over S virtual ranks laid over
      the one card, each with its own buffers: one way and both ways at S = 2,
@@ -234,9 +254,11 @@ then (phases 10 and 11 run after 6, while the graph of 4 is still there):
      losses finite and falling (the mean of the last 50 steps below the
      first 50's), train-user's finite (one epoch); Recall@{20,100,500} > 0;
      the served user vector within SERVE_TOL of the tower's; tie order:
-     ``topk_scores``, the device blend and the blend sweep on a 105,001-row
-     matrix of repeated rows equal to a numpy reference that puts equal
-     scores lowest index first (``np.lexsort``). Then ``topk_scores``'
+     ``topk_scores``, the device blend, the blend sweep, distill's mining,
+     ``simcse.topk_items`` and ``ring_sharded_topk`` (8 virtual shards, both
+     directions) on a 105,001-row matrix of repeated rows equal to a numpy
+     reference that puts equal scores lowest index first (``np.lexsort``).
+     Then ``topk_scores``'
      top-500 at (768, 105,001): ``torch.topk`` against ``stable_topk`` on
      the same scores, in turns, and the whole call, CUDA events.
   21. the headline recipe (``scripts/torch_quality_hm.py --recipe hybrid``)
@@ -247,11 +269,12 @@ then (phases 10 and 11 run after 6, while the graph of 4 is still there):
      --model-backed --vectors hybrid, one recommendation a mode (rerank,
      blend, cosine) for a user of the GNN artifact. Gates: K2 exactly four
      times a train-gnn step plus the export's and the check's two each, the
-     GNN check; gnn-eval's and the hybrid's and the rerank's recalls finite
-     and > 0; every train-hybrid step after the warm-up a graph replay, no hand
-     kernel there; the served user vector within SERVE_TOL of the tower's
-     forward on the same history and GNN row; the HTTP rerank list equal to
-     ``rerank_serve_topk``'s offline list.
+     GNN check; every train-gnn, distill and rerank-eval DCN step after the
+     warm-up a graph replay; gnn-eval's and the hybrid's and the rerank's
+     recalls finite and > 0; every train-hybrid step after the warm-up a
+     graph replay, no hand kernel there; the served user vector within
+     SERVE_TOL of the tower's forward on the same history and GNN row; the
+     HTTP rerank list equal to ``rerank_serve_topk``'s offline list.
   22. the stage-1 A/B of the text encoders (``scripts/torch_quality_hm.py
      --recipe stage1``, arm B) on phase 20's world, cut as there: in a data
      root that links phase 20's world, ``pretrain-text`` -> ``train-item``
@@ -306,6 +329,7 @@ try:
     from recsys_tpu_torch.ops import spmm as S
     from recsys_tpu_torch.ops.contrastive import bidirectional_infonce, inbatch_logq_loss
     from recsys_tpu_torch.ops.fm import fm_interaction
+    from recsys_tpu_torch.ops._build import captured_launches, count_replay
     from recsys_tpu_torch.parallel import ring as R
     from recsys_tpu_torch.train.step_graph import WARMUP_STEPS
 except ImportError as e:  # run outside the repository
@@ -906,15 +930,19 @@ def hub_finish_checks(layout, x, out, partial, segments_only) -> dict:
         S.spmm_cuda(layout, x, "bf16")
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, stream=side):
+    S.reset_launch_counts()
+    with captured_launches() as log, torch.cuda.graph(graph, stream=side):
         captured = S.spmm_cuda(layout, x, "bf16")
     replays_equal = True
     for _ in range(3):
         captured.zero_()
         graph.replay()
+        count_replay(log)
         torch.cuda.synchronize()
         replays_equal &= torch.equal(captured, first)
     check(replays_equal, "K2: a CUDA-graph replay differs from the eager call")
+    check(S.LAUNCHES == {"spmm_csr": 3},
+          f"K2: one launch a replay, none at capture: {S.LAUNCHES}")
     stream = torch.cuda.current_stream().cuda_stream
     zero = all(int(S.hub_counters(layout, s).abs().sum()) == 0
                for s in (stream, side.cuda_stream))
@@ -979,34 +1007,100 @@ def gnn_slice_phase(root: str) -> dict:
     check(etl["sanity"]["target_users"] > 0, f"etl: {etl}")
     train = cli.main(["train-gnn", *sets])
     launches = dict(S.LAUNCHES)   # read here: the timing below is not the path
-    # forward and backward of two layers a step; the export and the check propagate once each
-    expected = 4 * train["steps"] + 2 * 2
+    # every step after the warm-up one graph replay; forward and backward of two
+    # layers a step, four launches a replay; the export and the check propagate once each
+    check(train["graph_replays"] == train["steps"] - WARMUP_STEPS > 0,
+          f"train-gnn: {train['graph_replays']} graph replays in {train['steps']} steps")
+    expected = 4 * (train["graph_replays"] + WARMUP_STEPS) + 2 * 2
     check(train["device"].startswith("cuda") and train["steps"] > 0
-          and launches == {"spmm_csr": expected},
-          f"train-gnn on {train['device']}: {train['steps']} steps, K2 launches {launches}")
+          and launches == {"spmm_csr": expected}
+          and train["launches"] == {"spmm_csr": expected - 2 * 2},
+          f"train-gnn on {train['device']}: {train['steps']} steps, K2 launches {launches}, "
+          f"in the trainer {train['launches']}")
     check(train["check"]["ok"], f"propagation check: {train['check']}")
     losses = train["epoch_losses"]
     check(len(losses) == 2 and all(np.isfinite(losses)), f"train-gnn losses: {losses}")
     check(losses[1] < losses[0], f"train-gnn loss did not fall: {losses}")
     distill = cli.main(["distill", *sets])
+    check(distill["graph_replays"] == distill["steps"] - WARMUP_STEPS > 0
+          and not distill["launches"],
+          f"distill: {distill['graph_replays']} graph replays in {distill['steps']} steps, "
+          f"hand kernels {distill['launches']}")
     check(all(np.isfinite(distill["epoch_losses"])), f"distill: {distill['epoch_losses']}")
     check(distill["epoch_losses"][-1] < distill["epoch_losses"][0],
           f"distill loss did not fall: {distill['epoch_losses']}")
+    distill_step = distill_step_phase(root)
     rows = cli.main(["gnn-eval", *sets])
     with open(f"{root}/gnn_eval.json") as f:
         check(json.load(f) == json.loads(json.dumps(rows)), "gnn_eval.json differs")
     check(rows["n_eval_users"] > 0, f"gnn-eval: {rows}")
     check(rows["gnn_dot"]["recall@100"] > 0, f"gnn_dot recall: {rows['gnn_dot']}")
-    return {"train": {k: train[k] for k in ("steps", "seconds", "step_ms_median",
-                                            "epoch_losses", "check")},
+    return {"train": {k: train[k] for k in ("steps", "graph_replays", "seconds",
+                                            "step_ms_median", "epoch_losses", "check")},
             "spmm_at_this_graph": cli_graph_spmm_times(cli.config_from_args(
                 cli.parse_args(["train-gnn", *sets]))),
             "distill": {"epoch_losses": [distill["epoch_losses"][0],
                                          distill["epoch_losses"][-1]],
-                        "fidelity": distill["fidelity"]},
+                        "fidelity": distill["fidelity"],
+                        **{k: distill[k] for k in ("steps", "graph_replays", "seconds",
+                                                   "step_ms_median")},
+                        "step": distill_step},
             "gnn_eval": {k: rows[k] for k in ("n_eval_users", "gnn_dot", "gnn_cos",
                                               "distill_cos", "fidelity") if k in rows},
             "launches": launches}
+
+
+def distill_step_phase(root: str) -> dict:
+    """Phase 5's distill trainer on the GNN artifacts ``train-gnn`` wrote,
+    eager and captured (``train_distill(capture=...)``): whole runs in turns
+    (eager, captured, captured, eager), each run's CUDA-event step median;
+    the first eager and captured runs, from one seed on the same draws, hold
+    their epoch losses within GRAPH_LOSS_TOL and their parameters within
+    GRAPH_PARAM_TOL. Then a short and a long run of each under the profiler:
+    their difference over the extra steps is a steady step's device time,
+    kernels and host launch calls (the mining, its wait for the host and the
+    loss read included, as the trainer runs them)."""
+    import dataclasses
+
+    from recsys_tpu_torch.pipeline import cli
+    from recsys_tpu_torch.train.checkpoint import load_array_with_ids
+    from recsys_tpu_torch.train.gnn import train_distill
+
+    cfg = cli.config_from_args(cli.parse_args(["distill", "--set", f"data.root={root}"]))
+    prefix = cli._paths(cfg)["gnn_prefix"]
+    tu, ti = (load_array_with_ids(prefix + side)[0] for side in ("_users", "_items"))
+    workdir = f"{root}/distill_turns"
+    runs = {name: [] for name in ("eager", "captured")}
+    for name in TURNS:
+        runs[name].append(train_distill(cfg, tu, ti, workdir, "cuda",
+                                        capture=name == "captured"))
+    (eager, m_eager), (graph, m_graph) = runs["eager"][0], runs["captured"][0]
+    loss_gap = max(abs(a - b) for a, b in zip(eager.losses, graph.losses))
+    param_gap = max(float((a - b).abs().max()) for a, b in
+                    zip(m_eager.state_dict().values(), m_graph.state_dict().values()))
+    check(graph.graph_replays == graph.step - WARMUP_STEPS and eager.graph_replays == 0,
+          f"distill: {graph.graph_replays} replays in {graph.step} steps")
+    check(loss_gap <= GRAPH_LOSS_TOL and param_gap <= GRAPH_PARAM_TOL,
+          f"distill captured vs eager: losses {loss_gap}, parameters {param_gap}")
+    turns = {name: [1e3 * float(np.median(state.step_seconds[1:])) for state, _ in done]
+             for name, done in runs.items()}
+
+    def profiled(capture: bool, steps: int) -> dict:
+        short = dataclasses.replace(cfg, distill=dataclasses.replace(
+            cfg.distill, epochs=1, steps_per_epoch=steps))
+        return profile_steps(lambda: train_distill(short, tu, ti, workdir, "cuda",
+                                                   capture=capture), 1)
+
+    traced = {}
+    for name in ("eager", "captured"):
+        few, many = (profiled(name == "captured", n) for n in (10, 60))
+        traced[name] = {k: (many[k] - few[k]) / 50 for k in (
+            "wall_ms", "device_busy_ms", "launches_per_call", "host_launch_calls_per_call")}
+        traced[name]["device_idle_share"] = max(
+            0.0, 1.0 - traced[name]["device_busy_ms"] / traced[name]["wall_ms"])
+    return {"steps": graph.step, "batch": min(cfg.distill.batch_size, len(tu), len(ti)),
+            "max_loss_gap": loss_gap, "max_param_gap": param_gap,
+            "turns_step_ms_median": turns, "traced_per_step": traced}
 
 
 # -- phase 6: the trainer at a real size -----------------------------------
@@ -1029,13 +1123,16 @@ def trainer_phase(root: str, graph, edges_u, edges_i) -> dict:
     check(isinstance(propagation[1], S.CsrGraph) and propagation[0] is spmm_bf16,
           "auto did not pick K2 in the trainer's bf16 mode on the card")
     layout_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
     state, model = train_lightgcl(cfg, graph, edges_u, edges_i, f"{root}/ckpt_gnn_ref",
                                   "cuda", propagation=propagation)
     seconds = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
     launches = dict(S.LAUNCHES)
     per_step = 2 * cfg.gnn.num_layers  # forward and backward of every layer
-    check(state.step == steps and launches == {"spmm_csr": per_step * steps},
-          f"trainer: {state.step} steps, launches {launches}")
+    check(state.step == steps and state.graph_replays == steps - WARMUP_STEPS
+          and launches == {"spmm_csr": per_step * (state.graph_replays + WARMUP_STEPS)},
+          f"trainer: {state.step} steps, {state.graph_replays} replays, launches {launches}")
     check(len(state.losses) == 1 and np.isfinite(state.losses[0]),
           f"trainer loss: {state.losses}")
     t0 = time.perf_counter()
@@ -1048,10 +1145,92 @@ def trainer_phase(root: str, graph, edges_u, edges_i) -> dict:
           and bool(np.isfinite(users).all() and np.isfinite(items).all()),
           "final embeddings: wrong shape or non-finite")
     step_ms = [1e3 * t for t in state.step_seconds]
-    return {"steps": steps, "batch": cfg.gnn.batch_size, "epoch_loss": state.losses[0],
-            "seconds": seconds, "layout_seconds": layout_s, "step_ms_median": statistics.median(step_ms[1:]),
-            "first_step_ms": step_ms[0], "final_embeddings_s": export_s,
-            "launches": dict(S.LAUNCHES), "launches_per_step": per_step}
+    out = {"steps": steps, "batch": cfg.gnn.batch_size, "epoch_loss": state.losses[0],
+           "seconds": seconds, "layout_seconds": layout_s,
+           "step_ms_median": statistics.median(step_ms[1:]), "first_step_ms": step_ms[0],
+           "graph_replays": state.graph_replays, "peak_device_gib": peak_gib,
+           "final_embeddings_s": export_s, "launches": dict(S.LAUNCHES),
+           "launches_per_step": per_step}
+    del state, model
+    out["step"] = gnn_step_phase(cfg, graph, edges_u, edges_i, propagation)
+    return out
+
+
+def gnn_runner_of(cfg, graph, edges_u, edges_i, propagation, capture: bool):
+    """A LightGCL model from the trainer's seed and its step through
+    ``gnn_runner`` (captured or eager), as ``train_lightgcl`` builds them."""
+    from recsys_tpu_torch.models.lightgcl import LightGCL
+    from recsys_tpu_torch.train import gnn as G
+    from recsys_tpu_torch.train.state import TrainState, device_adam
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(cfg.data.seed)
+        model = LightGCL(graph.num_users, graph.num_items, cfg.gnn, prop_fn=propagation[0])
+    model = model.to("cuda").train()
+    state = TrainState(model, device_adam(model, cfg.gnn.lr))
+    runner = G.gnn_runner(G.make_gnn_step(state, graph, cfg.gnn, propagation[1]), state,
+                          edges_u, edges_i, G.bpr_batch_rows(len(edges_u), cfg.gnn.batch_size),
+                          torch.device("cuda"), capture=capture)
+    return runner, model
+
+
+def sampled_steps(runner, sampler):
+    """One trainer step as ``train_lightgcl`` runs it: draw the batch (the
+    host's rejection sampling), then the runner."""
+    def one():
+        edge, neg = next(sampler)
+        return runner({"edge": edge, "neg": neg})
+    return one
+
+
+def gnn_step_phase(cfg, graph, edges_u, edges_i, propagation) -> dict:
+    """Phase 6's step at batch 8192, eager and captured: from one seeded state
+    on the same GRAPH_STEPS batches (losses within GRAPH_LOSS_TOL every step,
+    parameters within GRAPH_PARAM_TOL at the end); the step medians in turns
+    with the sampling included; K2 four times a step; a replay under
+    ``set_sync_debug_mode("error")``; the runner's hub counters at zero; five
+    steps of each under ``torch.profiler``."""
+    from recsys_tpu_torch.train.gnn import edge_key_index, sample_bpr_positions
+
+    keys = edge_key_index(edges_u, edges_i, graph.num_items)
+
+    def sampler(seed):
+        rng = np.random.default_rng(seed)
+        while True:
+            yield from sample_bpr_positions(edges_u, edges_i, graph.num_items,
+                                            cfg.gnn.batch_size, rng, keys)
+
+    fixed = sampler(2)
+    batches = [dict(zip(("edge", "neg"), next(fixed))) for _ in range(GRAPH_STEPS)]
+    held = captured_vs_eager(
+        lambda capture: gnn_runner_of(cfg, graph, edges_u, edges_i, propagation, capture),
+        batches, lambda out: out["loss"])
+    del batches
+    runners = {name: gnn_runner_of(cfg, graph, edges_u, edges_i, propagation,
+                                   name == "captured")[0] for name in ("eager", "captured")}
+    steps = {name: sampled_steps(runner, sampler(3 + k))
+             for k, (name, runner) in enumerate(runners.items())}
+    for _ in range(3):   # warm-up and capture; each sampler's first permutation
+        for step in steps.values():
+            step()
+    S.reset_launch_counts()
+    turns = calls_in_turns(steps, torch.device("cuda"))
+    n_steps = len(TURNS) * TURN_STEPS
+    check(S.LAUNCHES == {"spmm_csr": 4 * n_steps},
+          f"K2 on the LightGCL step: {S.LAUNCHES} in {n_steps} steps")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        steps["captured"]()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    counters = int(S.hub_counters(propagation[1], runners["captured"].stream.cuda_stream)
+                   .abs().sum())
+    check(counters == 0, f"K2's counters on the runner's stream after the replays: {counters}")
+    traced = {name: profile_steps(step, 5) for name, step in steps.items()}
+    return {"batch": cfg.gnn.batch_size, "held": held, "turns": turns, "traced": traced,
+            "replays": runners["captured"].replays, "hub_counters_zero": True}
 
 
 # -- phase 7: K3 against its plain form -----------------------------------------
@@ -1161,7 +1340,75 @@ def reranker_slice_phase(root: str) -> tuple[dict, dict]:
           "reranker_gbdt.pkl does not reproduce the stage's AUC")
     check(np.array_equal(GBDTRanker.load(f"{root}/reranker_gbdt.pkl").predict_proba(X[split:]),
                          proba), "two loads of reranker_gbdt.pkl differ")
+    check(out["dcn_graph_replays"] == out["dcn_steps"] - WARMUP_STEPS > 0
+          and not out["dcn_launches"],
+          f"train-reranker's DCN: {out['dcn_graph_replays']} graph replays in "
+          f"{out['dcn_steps']} steps, hand kernels {out['dcn_launches']}")
+    # the DCN step, eager against captured, on the stage's rows standardized as
+    # train_dcn does
+    from recsys_tpu_torch.models.reranker import DCNRanker
+
+    train_rows = X[:split]
+    Xs = ((train_rows - train_rows.mean(axis=0, keepdims=True))
+          / (train_rows.std(axis=0, keepdims=True) + 1e-6)).astype(np.float32)
+    out["step"] = neural_step_phase(lambda: DCNRanker(X.shape[1], rc), (Xs,), y[:split], rc.lr,
+                                    kernels=())
     return out, rows
+
+
+def neural_runner_of(build, parts, y, batch: int, lr: float, capture: bool):
+    """A neural reranker from seed 0 (eval mode, as ``train/reranker``
+    trains it) and its BCE step through ``neural_runner`` (captured or
+    eager), the parts and labels on the card."""
+    from recsys_tpu_torch.train import reranker as TR
+
+    model = TR._new_model(build, torch.device("cuda"), 0, None)
+    data = {**TR._parts(parts, "cuda"),
+            "label": torch.as_tensor(np.asarray(y, np.float32), device="cuda")}
+    runner = TR.neural_runner(model, data, {"rows": batch}, dict.fromkeys(data, "rows"), lr,
+                              TR.bce_loss(lambda b: model(*b), len(parts)), capture)
+    return runner, model
+
+
+def neural_step_phase(build, parts, y, lr: float, kernels: tuple) -> dict:
+    """A neural reranker's step at the training batch, eager and captured
+    (phases 8 and 9): from one seeded state on the same GRAPH_STEPS batches
+    (GRAPH_LOSS_TOL, GRAPH_PARAM_TOL), the step medians in turns, each hand
+    kernel of ``kernels`` once a step and once a replay, a replay under
+    ``set_sync_debug_mode("error")``, five steps of each under the profiler."""
+    n = len(y)
+    bs = min(FM_TRAIN_B, n)
+
+    def rows(count: int, seed: int) -> list:
+        return [{"rows": r} for r in batch_indices(n, bs, count, seed)]
+
+    held = captured_vs_eager(lambda capture: neural_runner_of(build, parts, y, bs, lr, capture),
+                             rows(GRAPH_STEPS, 2), lambda out: out)
+    runners = {name: neural_runner_of(build, parts, y, bs, lr, name == "captured")[0]
+               for name in ("eager", "captured")}
+    batches = iter(rows(6 + len(TURNS) * TURN_STEPS + 11, 3))
+    for _ in range(3):
+        for runner in runners.values():
+            runner(next(batches))
+    FM.reset_launch_counts()
+    turns = steps_in_turns(runners, batches, torch.device("cuda"))
+    n_steps = len(TURNS) * TURN_STEPS
+    launches = dict(FM.LAUNCHES)
+    per_replay = sorted(name for _, name in runners["captured"].launches)
+    check(launches == {k: (n_steps if k in kernels else 0) for k in FM.LAUNCHES}
+          and per_replay == sorted(kernels),
+          f"hand kernels on the reranker step: {launches} in {n_steps} steps, "
+          f"{per_replay} a replay")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        runners["captured"](next(batches))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    traced = {name: profile_steps(lambda r=runner: r(next(batches)), 5)
+              for name, runner in runners.items()}
+    return {"batch": bs, "held": held, "turns": turns, "traced": traced,
+            "launches": launches, "launches_per_replay": per_replay}
 
 
 # -- phase 9: DeepFM at full width -------------------------------------------------
@@ -1174,6 +1421,7 @@ def deepfm_phase(root: str, rows: dict) -> dict:
     from recsys_tpu_torch.config import load_config
     from recsys_tpu_torch.data.ranker_features import build_rank_features
     from recsys_tpu_torch.eval.recall import topk_scores
+    from recsys_tpu_torch.models.reranker import DeepFM
     from recsys_tpu_torch.train.reranker import ReRankingSystem, auc_score, train_deepfm
 
     cfg = load_config(None, {"reranker": {"epochs": DEEPFM_EPOCHS}})
@@ -1232,6 +1480,8 @@ def deepfm_phase(root: str, rows: dict) -> dict:
     check(device.type == "cuda", "train_deepfm did not take the card")
     check(state.step == DEEPFM_EPOCHS * (split // min(FM_TRAIN_B, split)) and state.step > 0,
           f"train_deepfm took {state.step} steps on {split} rows")
+    check(state.graph_replays == state.step - WARMUP_STEPS,
+          f"train_deepfm: {state.graph_replays} graph replays in {state.step} steps")
     check(all(np.isfinite(state.losses)) and state.losses[-1] < state.losses[0],
           f"DeepFM loss did not fall: {state.losses}")
     scoring_calls = 0
@@ -1289,12 +1539,17 @@ def deepfm_phase(root: str, rows: dict) -> dict:
     check(launches == {"fm_fwd": state.step + scoring_calls, "fm_bwd": state.step},
           f"K3 launches {launches}: {state.step} steps, {scoring_calls} scoring calls")
     step_ms = [1e3 * t for t in state.step_seconds]
+    # the step, eager against captured (its K3 counts are its own: read above)
+    step = neural_step_phase(
+        lambda: DeepFM(field_sizes, cfg.reranker, num_dense=dense.shape[1]),
+        (ids[:split], dense[:split]), y[:split], cfg.reranker.lr, kernels=("fm_fwd", "fm_bwd"))
     return {"rows": int(split), "fields": FM_FIELDS, "field_sizes": list(field_sizes),
-            "steps": state.step, "epoch_losses": state.losses, "train_seconds": train_s,
+            "steps": state.step, "graph_replays": state.graph_replays,
+            "epoch_losses": state.losses, "train_seconds": train_s,
             "step_ms_median": statistics.median(step_ms[1:]), "first_step_ms": step_ms[0],
             "held_out_auc": auc, "scoring_calls": scoring_calls,
             "score_131072_seconds": score_s, "scorer_vs_plain_fm_err": plain_err,
-            "recommended": recommended, "launches": launches}
+            "recommended": recommended, "launches": launches, "step": step}
 
 
 # -- phase 10: K4 against its plain form ------------------------------------------
@@ -1802,21 +2057,28 @@ def captured_vs_eager(make, batches, loss_of, draws=None) -> dict:
             "max_param_gap": param_gap}
 
 
-def steps_in_turns(runners: dict, batches, device) -> dict:
-    """Each runner's CUDA-event step times (``StepTimer``) in TURNS of
-    TURN_STEPS steps; the median by runner."""
+def calls_in_turns(calls: dict, device) -> dict:
+    """Each call's CUDA-event times (``StepTimer``) in TURNS of TURN_STEPS
+    calls; the median by name."""
     from recsys_tpu_torch.train.state import StepTimer
 
-    times = {name: [] for name in runners}
-    it = iter(batches)
+    times = {name: [] for name in calls}
     for name in TURNS:
         timer = StepTimer(device)
         for _ in range(TURN_STEPS):
-            runners[name](next(it))
+            calls[name]()
             timer.mark()
         times[name] += timer.seconds()
     return {name: {"step_ms_median": 1e3 * float(np.median(t)), "step_ms": [1e3 * x for x in t]}
             for name, t in times.items()}
+
+
+def steps_in_turns(runners: dict, batches, device) -> dict:
+    """Each runner's step times in turns (``calls_in_turns``), the batches
+    taken in order from ``batches``."""
+    it = iter(batches)
+    calls = {name: (lambda r=runner: r(next(it))) for name, runner in runners.items()}
+    return calls_in_turns(calls, device)
 
 
 def stage2_step_phase(device) -> dict:
@@ -2081,8 +2343,8 @@ HOST_LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch", "cuGraphLaunch
 
 def profile_steps(fn, n: int) -> dict:
     """``n`` calls of ``fn`` under ``torch.profiler``: wall and device time a
-    call, device launches (kernels run) and host launch calls a call, K1's
-    device time a call and the top device items by self time."""
+    call, device launches (kernels run) and host launch calls a call, K1's,
+    K2's and K3's device time a call and the top device items by self time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2106,6 +2368,8 @@ def profile_steps(fn, n: int) -> dict:
             "device_idle_share": max(0.0, 1.0 - busy / wall_ms) if wall_ms else None,
             "launches_per_call": count / n, "host_launch_calls_per_call": host / n,
             "k1_device_ms": sum(v for k, v in dev.items() if "diag_ce" in k),
+            "k2_device_ms": sum(v for k, v in dev.items() if "spmm_segments" in k),
+            "k3_device_ms": sum(v for k, v in dev.items() if "fm_fwd" in k or "fm_bwd" in k),
             "top_device_items_ms": {k[:160]: v for k, v in top}}
 
 
@@ -2886,10 +3150,12 @@ def lexsort_topk(scores: np.ndarray, k: int) -> np.ndarray:
 
 
 def tie_order_checks(device) -> dict:
-    """The three dense top-k sites on the card against a numpy reference
-    that puts equal values lowest index first: an H&M-sized matrix whose rows
-    are 128 basis directions, each repeated ~820 times (the products are
-    exact, the distinct scores 0.01 apart, every top-k cuts a tie group)."""
+    """The dense top-k sites on the card against a numpy reference that puts
+    equal values lowest index first: an H&M-sized matrix whose rows are 128
+    basis directions, each repeated ~820 times (the products are exact, the
+    distinct scores 0.01 apart, every top-k cuts a tie group). The sites:
+    ``topk_scores``, the device blend, the blend sweep, distill's mining,
+    ``simcse.topk_items`` and ``ring_sharded_topk`` (8 virtual shards)."""
     from recsys_tpu_torch.eval import baselines as B
     from recsys_tpu_torch.eval.recall import topk_scores
     from recsys_tpu_torch.serve import recommend as RC
@@ -2940,8 +3206,28 @@ def tie_order_checks(device) -> dict:
     for (alpha, beta), got in zip(combos, lists):
         check(np.array_equal(got, lexsort_topk(blend_ref(alpha, beta, np.arange(q)), 500)),
               f"blend sweep a{alpha} b{beta}: equal scores not lowest index first")
+    # the sites repaired to stable_topk: distill's mining, simcse.topk_items and the
+    # ring's sharded top-k over 8 virtual shards of the card (the catalog without PAD)
+    from recsys_tpu_torch.train.gnn import mine_hard_items
+    from recsys_tpu_torch.train.simcse import topk_items
+
+    mined = mine_hard_items(torch.as_tensor(users, device=device),
+                            torch.as_tensor(items[1:], device=device), 500)
+    check(np.array_equal(mined.cpu().numpy(), lexsort_topk(scores[:, 1:], 500)),
+          "distill mining: equal scores not lowest index first")
+    _, top = topk_items(items, users, 500, device=device)
+    check(np.array_equal(top, lexsort_topk(scores, 500)),
+          "simcse.topk_items: equal scores not lowest index first")
+    shards = torch.as_tensor(scores[:, 1:], device=device).chunk(8, dim=1)
+    for both in (False, True):
+        for _, idx in R.ring_sharded_topk([sh.contiguous() for sh in shards], 500, both):
+            check(np.array_equal(idx.cpu().numpy(), lexsort_topk(scores[:, 1:], 500)),
+                  f"ring_sharded_topk (both ways {both}): equal scores not lowest index first")
+    R.check_errors()
     return {"topk_scores": "lowest index first", "blend_device": "lowest index first",
             "blend_sweep": f"lowest index first, {len(combos)} combinations",
+            "distill_mining": "lowest index first", "topk_items": "lowest index first",
+            "ring_sharded_topk": "lowest index first, 8 virtual shards, both directions",
             "shape": [q, n + 1]}
 
 
@@ -3007,8 +3293,15 @@ def hm_cut_hybrid_phase(root: str, device) -> dict:
                                             "rerank-eval"))
     # forward and backward of two layers a step; the export and the check propagate once each
     check(gnn["steps"] == HM_CUT_GNN_STEPS and gnn["check"]["ok"]
-          and gnn["launches"] == {"spmm_csr": 4 * gnn["steps"] + 2 * 2},
-          f"train-gnn: {gnn['steps']} steps, K2 {gnn['launches']}, check {gnn['check']}")
+          and gnn["graph_replays"] == gnn["steps"] - WARMUP_STEPS
+          and gnn["launches"] == {"spmm_csr": 4 * (gnn["graph_replays"] + WARMUP_STEPS)
+                                  + 2 * 2},
+          f"train-gnn: {gnn['steps']} steps, {gnn['graph_replays']} replays, "
+          f"K2 {gnn['launches']}, check {gnn['check']}")
+    dst = out["distill"]
+    check(dst["graph_replays"] == dst["steps"] - WARMUP_STEPS and not dst["launches"],
+          f"distill: {dst['graph_replays']} graph replays in {dst['steps']} steps, "
+          f"hand kernels {dst['launches']}")
     check(all(np.isfinite(gnn["epoch_losses"])), f"train-gnn losses {gnn['epoch_losses']}")
     for arm in ("gnn_dot", "gnn_cos"):
         check(all(np.isfinite(v) and v > 0 for k, v in rows[arm].items() if k != "n_eval"),
@@ -3023,6 +3316,8 @@ def hm_cut_hybrid_phase(root: str, device) -> dict:
           f"hand kernels {hyb['launches']}")
     check(all(np.isfinite(v) and v > 0 for k, v in rr["reranked"].items() if k != "n_eval")
           and rr["gbdt_auc"] is not None, f"rerank-eval --vectors hybrid: {rr}")
+    check(rr["dcn_graph_replays"] == rr["dcn_steps"] - WARMUP_STEPS > 0,
+          f"rerank-eval's DCN: {rr['dcn_graph_replays']} graph replays in {rr['dcn_steps']}")
 
     # serve: one request a mode over the hybrid matrix and its rerank GBDT
     t0 = time.perf_counter()
@@ -3091,17 +3386,19 @@ def hm_cut_hybrid_phase(root: str, device) -> dict:
         thread.join(timeout=10)
     check(served_err <= SERVE_TOL, f"served user vector vs the hybrid tower: {served_err}")
     seconds["serve"] = time.perf_counter() - t0
-    return {"train_gnn": {k: gnn[k] for k in ("steps", "seconds", "step_ms_median",
-                                              "epoch_losses", "check", "graph", "launches")},
+    return {"train_gnn": {k: gnn[k] for k in ("steps", "graph_replays", "seconds",
+                                              "step_ms_median", "epoch_losses", "check",
+                                              "graph", "launches")},
             "gnn_eval": {k: rows[k] for k in ("n_eval_users", "gnn_dot", "gnn_cos")},
-            "distill": {"shape": out["distill"]["shape"],
-                        "fidelity": out["distill"]["fidelity"]},
+            "distill": {k: dst[k] for k in ("shape", "fidelity", "steps", "graph_replays",
+                                            "seconds", "step_ms_median")},
             "train_hybrid": {k: hyb[k] for k in ("steps", "graph_replays", "seconds",
                                                  "step_ms_median", "epoch_losses",
                                                  "hybrid_best")},
             "rerank": {k: rr[k] for k in ("reranked", "pool_ceiling", "gbdt_auc", "dcn_auc",
                                           "pool_size", "train_users", "gbdt_seconds",
-                                          "seconds")},
+                                          "dcn_steps", "dcn_graph_replays", "dcn_seconds",
+                                          "dcn_step_ms_median", "seconds")},
             "serve": {"served_vs_tower_err": served_err, "recommendation_ms": rec_ms},
             "stage_seconds": seconds}
 

@@ -24,7 +24,7 @@ import ctypes
 
 import torch
 
-from recsys_tpu_torch.ops._build import KernelLibrary, raise_on_error
+from recsys_tpu_torch.ops._build import KernelLibrary, count_launch, raise_on_error
 from recsys_tpu_torch.ops.fm import fm_interaction
 
 # launches per kernel; each wrapper adds one where it launches, nowhere else
@@ -104,7 +104,7 @@ def fm_fwd_cuda(v: torch.Tensor) -> torch.Tensor:
         return out
     raise_on_error(_launch(_kernels()[0], v, v.data_ptr(), out.data_ptr(), B, F, K, code),
                    "fm_fwd")
-    LAUNCHES["fm_fwd"] += 1
+    count_launch(LAUNCHES, "fm_fwd")
     return out
 
 
@@ -120,7 +120,7 @@ def fm_bwd_cuda(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         return dv
     raise_on_error(_launch(_kernels()[1], v, v.data_ptr(), g.data_ptr(), dv.data_ptr(),
                            B, F, K, code), "fm_bwd")
-    LAUNCHES["fm_bwd"] += 1
+    count_launch(LAUNCHES, "fm_bwd")
     return dv
 
 

@@ -43,7 +43,7 @@ import numpy as np
 import torch
 
 from recsys_tpu_torch.device import resolve_device
-from recsys_tpu_torch.ops._build import KernelLibrary, raise_on_error
+from recsys_tpu_torch.ops._build import KernelLibrary, count_launch, raise_on_error
 
 # launches per kernel; each wrapper adds one where it launches, nowhere else
 LAUNCHES = {"spmm_csr": 0}
@@ -293,7 +293,7 @@ def spmm_cuda(layout: CsrGraph, x: torch.Tensor, precision: str = "f32") -> torc
         stream = torch.cuda.current_stream(x.device).cuda_stream
         src = x.to(torch.bfloat16) if precision == "bf16" else x
         launch_csr(layout, src, out, partial, stream)
-        LAUNCHES["spmm_csr"] += 1
+        count_launch(LAUNCHES, "spmm_csr")
     return out
 
 

@@ -33,6 +33,7 @@ from typing import Sequence
 import torch
 
 from recsys_tpu_torch.ops._build import KernelLibrary, raise_on_error
+from recsys_tpu_torch.ops.topk import stable_topk
 from recsys_tpu_torch.parallel.collectives import local_index_offset
 
 # launches per kernel; the wrapper adds one where it launches, nowhere else
@@ -236,13 +237,16 @@ def ring_sharded_topk(scores_shards: Sequence[torch.Tensor], k: int,
     ``collectives.sharded_topk``: ``(values, global indices)``, each (B, k),
     for every shard. Per-shard top-k first; then the candidate sets, values
     and int32 indices packed into one fp32 buffer by a bit cast so that one
-    gather moves both, ride the ring and merge."""
+    gather moves both, ride the ring and merge. Both top-ks are
+    ``stable_topk``: equal scores come back lowest global index first, as
+    ``jax.lax.top_k`` gives them (a shard's candidates are in that order, and
+    the shards' blocks follow one another in the order of their indices)."""
     S = len(scores_shards)
     packed = []
     for i, scores in enumerate(scores_shards):
         n_local = scores.shape[-1]
         k_local = min(k, n_local)
-        vals, idx = torch.topk(scores, k_local, dim=-1)
+        vals, idx = stable_topk(scores, k_local)
         idx = (idx + local_index_offset(i, n_local)).to(torch.int32)
         buf = torch.empty((vals.shape[0], 2 * k_local), dtype=torch.float32,
                           device=scores.device)
@@ -255,6 +259,6 @@ def ring_sharded_topk(scores_shards: Sequence[torch.Tensor], k: int,
         gathered = gathered.view(S, B, 2 * k_local)
         all_vals = gathered[..., :k_local].movedim(0, 1).reshape(B, -1)
         all_idx = gathered[..., k_local:].view(torch.int32).movedim(0, 1).reshape(B, -1)
-        top_vals, pos = torch.topk(all_vals, min(k, all_vals.shape[-1]), dim=-1)
+        top_vals, pos = stable_topk(all_vals, min(k, all_vals.shape[-1]))
         out.append((top_vals, torch.gather(all_idx, -1, pos).long()))
     return out

@@ -272,6 +272,22 @@ def _median_ms(seconds: list[float]):
     return 1e3 * statistics.median(steady) if steady else None
 
 
+def _launch_counts() -> dict:
+    """Every hand kernel's launch count so far in this process."""
+    from recsys_tpu_torch.ops import contrastive_kernel, fm_kernel, spmm
+    from recsys_tpu_torch.parallel import ring
+
+    return {**contrastive_kernel.LAUNCHES, **spmm.LAUNCHES, **fm_kernel.LAUNCHES,
+            **ring.LAUNCHES}
+
+
+def _launches_since(before: dict) -> dict:
+    """The hand kernels launched since ``before`` (a ``_launch_counts()``), by
+    name; a graph replay counts each launch it holds."""
+    now = _launch_counts()
+    return {k: now[k] - before[k] for k in now if now[k] != before[k]}
+
+
 def cmd_train_user(cfg: Config, args) -> dict:
     from recsys_tpu_torch.train.sasrec import prepare_stage2, train_user_tower
 
@@ -427,16 +443,19 @@ def cmd_train_gnn(cfg: Config, args) -> dict:
                                      _mesh(cfg, args))
     layout = propagation[1] if isinstance(propagation[1], CsrGraph) else None
     t0 = time.perf_counter()
+    before = _launch_counts()
     state, model = train_lightgcl(cfg, graph, eu, ei, p["gnn_ckpts"], device,
                                   resume=getattr(args, "resume", False),
                                   fine_tune=getattr(args, "fine_tune", False),
                                   propagation=propagation)
     seconds = time.perf_counter() - t0
+    launches = _launches_since(before)
     export_gnn_artifacts(model, graph, user_ids, item_ids, p["gnn_prefix"],
                          cfg.gnn.num_layers, device, layout)
     steady = state.step_seconds[1:] or state.step_seconds
     return {"check": gnn_propagation_check(model, graph, device, layout),
             "graph": graph_stats(graph), "device": str(device), "steps": state.step,
+            "graph_replays": state.graph_replays, "launches": launches,
             "seconds": seconds, "epoch_losses": state.losses,
             "step_ms_median": 1e3 * statistics.median(steady) if steady else None}
 
@@ -450,7 +469,11 @@ def cmd_distill(cfg: Config, args) -> dict:
     p = _paths(cfg)
     tu, uids, _ = load_array_with_ids(p["gnn_prefix"] + "_users")
     ti, ids, _ = load_array_with_ids(p["gnn_prefix"] + "_items")
+    t0 = time.perf_counter()
+    before = _launch_counts()
     state, model = train_distill(cfg, tu, ti, p["gnn_ckpts"], device)
+    seconds = time.perf_counter() - t0
+    launches = _launches_since(before)
     out = distilled_vectors(model, ti)
     save_array_with_ids(p["distilled"], out, ids,
                         meta={"space": "gnn_cosine_distilled"})
@@ -462,7 +485,9 @@ def cmd_distill(cfg: Config, args) -> dict:
                         meta={"space": "gnn_cosine_distilled"})
     fid = distill_fidelity(tu, ti, out, su, device=device)
     return {"distilled": p["distilled"], "shape": list(out.shape),
-            "fidelity": fid, "device": str(device), "epoch_losses": state.losses}
+            "fidelity": fid, "device": str(device), "epoch_losses": state.losses,
+            "steps": state.step, "graph_replays": state.graph_replays, "launches": launches,
+            "seconds": seconds, "step_ms_median": _median_ms(state.step_seconds)}
 
 
 def cmd_gnn_eval(cfg: Config, args) -> dict:
@@ -561,9 +586,11 @@ def cmd_train_reranker(cfg: Config, args) -> dict:
     gbdt_seconds = time.perf_counter() - t0
     gbdt_auc = gbdt.auc(X[split:], y[split:])
     t0 = time.perf_counter()
+    before = _launch_counts()
     state, _, predict = train_dcn(cfg, X[:split], y[:split], groups=groups[:split],
                                   device=device)
     dcn_seconds = time.perf_counter() - t0
+    dcn_launches = _launches_since(before)
     dcn_auc = auc_score(y[split:], predict(X[split:]))
     gbdt.save(f"{p['root']}/reranker_gbdt.pkl")
     steady = state.step_seconds[1:] or state.step_seconds
@@ -573,6 +600,7 @@ def cmd_train_reranker(cfg: Config, args) -> dict:
             "examples": int(len(y)), "device": str(device),
             "gbdt_iterations": gbdt.n_iter_, "gbdt_seconds": gbdt_seconds,
             "dcn_steps": state.step, "dcn_seconds": dcn_seconds,
+            "dcn_graph_replays": state.graph_replays, "dcn_launches": dcn_launches,
             "dcn_step_ms_median": 1e3 * statistics.median(steady) if steady else None}
 
 
@@ -977,6 +1005,7 @@ def cmd_rerank_eval(cfg: Config, args) -> dict:
     gbdt_seconds = time.perf_counter() - t0
     ranker.save(p["root"] + f"/rerank_gbdt_{vectors}.pkl")
     gbdt_auc = importances = dcn_auc = dcn_scorer = None
+    dcn_fit: dict = {}
     if len(X_val) and 0 < y_val.sum() < len(y_val):
         if len(X_val) > 200_000:      # cap the held-out slice for the permutation passes
             sel = np.random.default_rng(0).choice(len(X_val), 200_000, replace=False)
@@ -996,7 +1025,12 @@ def cmd_rerank_eval(cfg: Config, args) -> dict:
         sel = (np.random.default_rng(2).choice(len(X), 2_000_000, replace=False)
                if len(X) > 2_000_000 else np.arange(len(X)))
         cfg_dcn = _replace_tree(cfg, {"reranker": {"epochs": 3, "loss": "bce"}})
-        _, _, dcn_scorer = train_dcn(cfg_dcn, X[sel], y[sel], device=device)
+        t0, before = time.perf_counter(), _launch_counts()
+        dcn_state, _, dcn_scorer = train_dcn(cfg_dcn, X[sel], y[sel], device=device)
+        dcn_fit = {"dcn_steps": dcn_state.step, "dcn_graph_replays": dcn_state.graph_replays,
+                   "dcn_seconds": time.perf_counter() - t0,
+                   "dcn_launches": _launches_since(before),
+                   "dcn_step_ms_median": _median_ms(dcn_state.step_seconds)}
         dcn_auc = round(auc_score(y_val, dcn_scorer(X_val)), 4)
 
     # ---- the real validation week, deployment regime
@@ -1028,7 +1062,7 @@ def cmd_rerank_eval(cfg: Config, args) -> dict:
     with open(p["root"] + f"/rerank_eval_{vectors}.json", "w") as f:
         json.dump(out, f, indent=1)
     return {**out, "device": str(device), "gbdt_iterations": ranker.n_iter_,
-            "gbdt_seconds": gbdt_seconds, "seconds": time.perf_counter() - t_start}
+            "gbdt_seconds": gbdt_seconds, **dcn_fit, "seconds": time.perf_counter() - t_start}
 
 
 def attach_user_backend(cfg: Config, ctx, device) -> str:

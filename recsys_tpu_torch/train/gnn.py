@@ -6,7 +6,9 @@ Counterpart of ``recsys_tpu/train/gnn.py``:
     clamped SSL InfoNCE + L2 reg. On a CUDA device the propagation is the
     hand-written CSR sparse product (``ops/spmm.py``) in its "bf16" mode, as
     the JAX trainer's, forward and backward: four launches a step at two
-    layers;
+    layers. There the step (forward, backward, Adam) is one CUDA graph
+    replay (``gnn_runner``), as the JAX step is one jitted program; so is
+    the distillation step;
   * vectorized host-side rejection sampling for BPR negatives (the JAX
     package's numpy code unchanged, so both packages draw the same batches
     from the same seed);
@@ -51,9 +53,11 @@ from recsys_tpu_torch.ops.graph import (
     propagate_chunked,
 )
 from recsys_tpu_torch.ops.spmm import CsrGraph, csr_graph, spmm
+from recsys_tpu_torch.ops.topk import stable_topk
 from recsys_tpu_torch.train.checkpoint import CheckpointStore, save_array_with_ids
 from recsys_tpu_torch.train.metrics import MetricWriter
-from recsys_tpu_torch.train.state import StepTimer, TrainState
+from recsys_tpu_torch.train.state import DeviceLR, StepTimer, TrainState, device_adam
+from recsys_tpu_torch.train.step_graph import StepGraph
 
 
 def graph_from_transactions(tx_df, user_map, item_map, cfg: GNNConfig,
@@ -84,10 +88,19 @@ def _in_edges(sorted_keys: np.ndarray, users: np.ndarray, neg: np.ndarray,
     return out
 
 
-def sample_bpr_batches(graph_u: np.ndarray, graph_i: np.ndarray, num_items: int,
-                       batch_size: int, rng: np.random.Generator,
-                       sorted_keys: np.ndarray | None = None):
-    """Shuffled (users, pos, rejection-sampled neg) batches over all edges.
+def bpr_batch_rows(num_edges: int, batch_size: int) -> int:
+    """The one batch length ``sample_bpr_batches`` yields: ``batch_size``, or
+    every edge on a graph of fewer edges (its single short batch)."""
+    return min(batch_size, num_edges)
+
+
+def sample_bpr_positions(graph_u: np.ndarray, graph_i: np.ndarray, num_items: int,
+                         batch_size: int, rng: np.random.Generator,
+                         sorted_keys: np.ndarray | None = None):
+    """Shuffled (edge positions, rejection-sampled neg) batches over all
+    edges: the batch's users and positives are ``graph_u`` and ``graph_i`` at
+    those positions. The ragged tail is dropped, except on a graph of fewer
+    edges than one batch, whose single short batch is all of them.
 
     Negative rejection is a searchsorted probe against the sorted edge-key
     array — pure numpy, no Python set membership. Pass ``sorted_keys``
@@ -100,14 +113,25 @@ def sample_bpr_batches(graph_u: np.ndarray, graph_i: np.ndarray, num_items: int,
         end = len(order)  # single short batch for tiny graphs
     for s in range(0, end, batch_size):
         idx = order[s:s + batch_size]
-        users, pos = graph_u[idx], graph_i[idx]
+        users = graph_u[idx]
         neg = rng.integers(0, num_items, size=len(idx))
         for _ in range(10):  # vectorized rejection rounds
             bad = _in_edges(sorted_keys, users, neg, num_items)
             if not bad.any():
                 break
             neg[bad] = rng.integers(0, num_items, size=int(bad.sum()))
-        yield users.astype(np.int32), pos.astype(np.int32), neg.astype(np.int32)
+        yield idx, neg
+
+
+def sample_bpr_batches(graph_u: np.ndarray, graph_i: np.ndarray, num_items: int,
+                       batch_size: int, rng: np.random.Generator,
+                       sorted_keys: np.ndarray | None = None):
+    """Shuffled (users, pos, rejection-sampled neg) int32 batches over all
+    edges: ``sample_bpr_positions``' batches, the same draws, with the edges'
+    users and positives read out."""
+    for idx, neg in sample_bpr_positions(graph_u, graph_i, num_items, batch_size, rng,
+                                         sorted_keys):
+        yield graph_u[idx].astype(np.int32), graph_i[idx].astype(np.int32), neg.astype(np.int32)
 
 
 def spmm_bf16(layout: CsrGraph, x: torch.Tensor) -> torch.Tensor:
@@ -178,8 +202,13 @@ def make_gnn_step(state: TrainState, graph: BipartiteGraph, cfg: GNNConfig,
 
 def _cosine_factor(total_steps: int, alpha: float):
     """Multiplier of the base lr: 1 -> ``alpha`` over ``total_steps`` on a
-    half cosine, then flat (optax ``cosine_decay_schedule``)."""
-    def factor(step: int) -> float:
+    half cosine, then flat (optax ``cosine_decay_schedule``). Takes an int,
+    or a count tensor (the factor is then a tensor on its device, as a
+    ``DeviceLR`` wants it)."""
+    def factor(step):
+        if isinstance(step, torch.Tensor):
+            t = step.float().clamp(max=total_steps) / max(total_steps, 1)
+            return (1.0 - alpha) * 0.5 * (1.0 + torch.cos(math.pi * t)) + alpha
         t = min(step, total_steps) / max(total_steps, 1)
         return (1.0 - alpha) * 0.5 * (1.0 + math.cos(math.pi * t)) + alpha
 
@@ -187,7 +216,26 @@ def _cosine_factor(total_steps: int, alpha: float):
 
 
 def _adam(model: torch.nn.Module, lr: float) -> torch.optim.Adam:
+    """optax ``adam(lr)`` as a host-driven ``torch.optim.Adam``: the step
+    functions' eager reference (the trainers take ``device_adam``)."""
     return torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8)
+
+
+def gnn_runner(step_fn, state: TrainState, edges_u: np.ndarray, edges_i: np.ndarray,
+               rows: int, device: torch.device, *, capture: bool | None = None) -> StepGraph:
+    """``make_gnn_step``'s step through a ``StepGraph``: the edge lists live on
+    ``device`` and ``runner({"edge": positions, "neg": negatives})`` gathers
+    the batch's users and positives from them inside the step; the negatives
+    go through the runner's index ring. Both vectors have ``rows`` entries.
+    Captured on the card unless ``capture`` says otherwise."""
+    data = {"users": torch.as_tensor(np.asarray(edges_u, np.int32), device=device),
+            "pos": torch.as_tensor(np.asarray(edges_i, np.int32), device=device)}
+
+    def step(batch: dict, generator):
+        return step_fn(batch["users"], batch["pos"], batch["neg"])
+
+    return StepGraph(step, state, data, {"edge": rows, "neg": rows}, None,
+                     gather={"users": "edge", "pos": "edge"}, capture=capture)
 
 
 def train_lightgcl(cfg: Config, graph: BipartiteGraph, edges_u: np.ndarray,
@@ -195,15 +243,24 @@ def train_lightgcl(cfg: Config, graph: BipartiteGraph, edges_u: np.ndarray,
                    device: torch.device | str = "cuda", *,
                    resume: bool = False, fine_tune: bool = False,
                    writer: MetricWriter | None = None, propagation=None,
-                   step_hook: Callable[[int], None] | None = None, mesh=None):
+                   step_hook: Callable[[int], None] | None = None, mesh=None,
+                   capture: bool | None = None):
     """Train (or resume / cosine-fine-tune) LightGCL over the whole edge set.
 
-    Returns ``(state, model)``; ``state.losses`` holds each epoch's mean loss
-    and ``state.step_seconds`` each step's time (CUDA events on the card, so
-    no step waits for the host). ``propagation`` is a ``select_propagation``
-    result to reuse; by default one is built here (``mesh`` goes to it, for
+    Returns ``(state, model)``; ``state.losses`` holds each epoch's mean loss,
+    ``state.step_seconds`` each step's time (CUDA events on the card, so
+    no step waits for the host) and ``state.graph_replays`` the steps run as
+    a CUDA graph replay. ``propagation`` is a ``select_propagation`` result
+    to reuse; by default one is built here (``mesh`` goes to it, for
     ``segment_sum_sharded``). ``step_hook(step)`` is called after every step
-    (a profiler's switch; it may wait for the card)."""
+    (a profiler's switch; it may wait for the card).
+
+    On the card each step is a replay of one CUDA graph (``gnn_runner``,
+    after ``step_graph.WARMUP_STEPS`` eager steps), as the JAX step is one
+    jitted program: forward, the four sparse products, backward and the Adam
+    update (``device_adam``; the fine-tune's cosine schedule a ``DeviceLR``).
+    ``capture=False`` runs the same step eagerly; the CPU and the
+    edge-sharded propagation always do."""
     g = cfg.gnn
     device = resolve_device(device)
     prop_fn, prop_args = propagation or select_propagation(g, graph, graph.num_nodes,
@@ -220,10 +277,10 @@ def train_lightgcl(cfg: Config, graph: BipartiteGraph, edges_u: np.ndarray,
 
     def fresh_state() -> TrainState:
         if not fine_tune:
-            return TrainState(model, _adam(model, g.lr))
-        opt = _adam(model, g.lr * 0.4)
-        sched = torch.optim.lr_scheduler.LambdaLR(
-            opt, _cosine_factor(steps_per_epoch * g.epochs, 1e-5 / (g.lr * 0.4)))
+            return TrainState(model, device_adam(model, g.lr))
+        opt = device_adam(model, g.lr * 0.4)
+        sched = DeviceLR(opt, _cosine_factor(steps_per_epoch * g.epochs,
+                                             1e-5 / (g.lr * 0.4)))
         return TrainState(model, opt, sched)
 
     store = CheckpointStore(workdir, maximize=False)
@@ -239,7 +296,10 @@ def train_lightgcl(cfg: Config, graph: BipartiteGraph, edges_u: np.ndarray,
             state.scheduler.load_state_dict(payload["scheduler"])
         state.step = _updates_done(state.optimizer)
         start_epoch = entry["extra"].get("epoch", 0) + 1
-    step_fn = make_gnn_step(state, graph, g, prop_args)
+    if capture is None:
+        capture = device.type == "cuda" and g.propagation != "segment_sum_sharded"
+    runner = gnn_runner(make_gnn_step(state, graph, g, prop_args), state, edges_u, edges_i,
+                        bpr_batch_rows(len(edges_u), g.batch_size), device, capture=capture)
     rng = np.random.default_rng(cfg.data.seed)
     sorted_keys = edge_key_index(edges_u, edges_i, graph.num_items)
 
@@ -254,13 +314,9 @@ def train_lightgcl(cfg: Config, graph: BipartiteGraph, edges_u: np.ndarray,
             timer = StepTimer(device)   # make every step wait for the host
             ep_steps = 0
             for _pass in range(passes):   # steps floor: shuffled re-passes
-                for users, pos, neg in sample_bpr_batches(edges_u, edges_i,
-                                                          graph.num_items,
-                                                          g.batch_size, rng,
-                                                          sorted_keys):
-                    aux = step_fn(torch.as_tensor(users, device=device),
-                                  torch.as_tensor(pos, device=device),
-                                  torch.as_tensor(neg, device=device))
+                for edge, neg in sample_bpr_positions(edges_u, edges_i, graph.num_items,
+                                                      g.batch_size, rng, sorted_keys):
+                    aux = runner({"edge": edge, "neg": neg})
                     losses.append(aux["loss"])
                     timer.mark()
                     ep_steps += 1
@@ -284,6 +340,7 @@ def train_lightgcl(cfg: Config, graph: BipartiteGraph, edges_u: np.ndarray,
                 payload["scheduler"] = state.scheduler.state_dict()
             store.save(f"ep{epoch:03d}", payload, step=gstep, metric=mean,
                        extra={"epoch": epoch})
+    state.graph_replays = runner.replays
     return state, model
 
 
@@ -364,22 +421,41 @@ def gnn_propagation_check(params, graph: BipartiteGraph,
 
 # -- magnitude -> cosine distillation --------------------------------------
 
+@torch.no_grad()
+def mine_hard_items(uu: torch.Tensor, teacher_items: torch.Tensor, k: int) -> torch.Tensor:
+    """Distill's hard-pair mining: each user row's top-``k`` teacher items by
+    dot score, (B, k) indices, equal scores lowest index first (the JAX
+    package's ``mine``, ``jax.lax.top_k``)."""
+    return stable_topk(uu @ teacher_items.T, k)[1]
+
+
 def train_distill(cfg: Config, teacher_users: np.ndarray, teacher_items: np.ndarray,
                   workdir: str, device: torch.device | str = "cuda",
-                  writer: MetricWriter | None = None):
+                  writer: MetricWriter | None = None, *, capture: bool | None = None):
     """Distill the teacher's dot-product geometry into a cosine-only space.
-    Returns ``(state, model)``; ``state.losses`` holds each epoch's mean."""
+    Returns ``(state, model)``; ``state.losses`` holds each epoch's mean,
+    ``state.step_seconds`` each step's time and ``state.graph_replays`` the
+    steps run as a CUDA graph replay.
+
+    The step gathers its user and item rows from the teacher tables on the
+    device (a ``StepGraph`` of two index vectors), so on the card it is one
+    CUDA graph replay (``capture=False``: eagerly), as the JAX step is one
+    jitted program. The mining is a program of its own, as the JAX package's
+    ``mine``: one product and ``mine_hard_items`` on the card, then the host's
+    ``np.unique`` of the indices. The loss is read every step, as the JAX
+    loop's ``float(loss)``."""
     d = cfg.distill
     device = resolve_device(device)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)
         model = MagnitudeEncoder(teacher_items.shape[1], d.hidden_dim, d.out_dim)
     model = model.to(device).train()
-    state = TrainState(model, _adam(model, d.lr))
+    state = TrainState(model, device_adam(model, d.lr))
     tu = torch.as_tensor(teacher_users, dtype=torch.float32, device=device)
     ti = torch.as_tensor(teacher_items, dtype=torch.float32, device=device)
 
-    def step(uu, ii):
+    def step(batch: dict, generator):
+        uu, ii = batch["uu"], batch["ii"]
         su, scale = model(uu)
         si, _ = model(ii)
         loss = distill_loss(su, si, scale, uu, ii)
@@ -389,17 +465,19 @@ def train_distill(cfg: Config, teacher_users: np.ndarray, teacher_items: np.ndar
         state.step += 1
         return loss.detach()
 
-    def rows_of(table, idx):
-        return table[torch.as_tensor(idx, device=device)]
-
     rng = np.random.default_rng(0)
     bs = min(d.batch_size, len(teacher_users), len(teacher_items))
+    if capture is None:
+        capture = device.type == "cuda"
+    runner = StepGraph(step, state, {"uu": tu, "ii": ti}, {"user": bs, "item": bs}, None,
+                       gather={"uu": "user", "ii": "item"}, capture=capture)
     # teacher-top-k hard-pair mining (cfg.distill.hard_frac): without it
     # the item batch is uniform over the catalog, so the pairs that decide
     # top-100 ordering are a sliver of the MSE mass and the student never
     # learns the tail
     n_hard = int(bs * min(max(d.hard_frac, 0.0), 1.0))
     mine_k = min(d.hard_k, ti.shape[0])
+    timer = StepTimer(device)
     with contextlib.ExitStack() as stack:
         if writer is None:
             writer = stack.enter_context(contextlib.closing(
@@ -407,19 +485,22 @@ def train_distill(cfg: Config, teacher_users: np.ndarray, teacher_items: np.ndar
         for epoch in range(1, d.epochs + 1):
             tot = 0.0
             for _ in range(max(d.steps_per_epoch, 1)):
-                uu = rows_of(tu, rng.integers(0, len(teacher_users), bs))
+                users = rng.integers(0, len(teacher_users), bs)
                 if n_hard:
-                    mined = torch.topk(uu @ ti.T, mine_k, dim=1).indices
+                    mined = mine_hard_items(tu[torch.as_tensor(users, device=device)], ti,
+                                            mine_k)
                     pool = np.unique(mined.cpu().numpy())
-                    rows = np.concatenate([
+                    items = np.concatenate([
                         pool[rng.integers(0, len(pool), n_hard)],
                         rng.integers(0, len(teacher_items), bs - n_hard)])
-                    ii = rows_of(ti, rows)
                 else:
-                    ii = rows_of(ti, rng.integers(0, len(teacher_items), bs))
-                tot += float(step(uu, ii))
+                    items = rng.integers(0, len(teacher_items), bs)
+                tot += float(runner({"user": users, "item": items}))
+                timer.mark()
             state.losses.append(tot / max(d.steps_per_epoch, 1))
             writer.write("epoch", epoch, loss=state.losses[-1])
+    state.step_seconds = timer.seconds()
+    state.graph_replays = runner.replays
     return state, model
 
 

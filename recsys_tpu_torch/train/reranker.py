@@ -9,8 +9,10 @@ Counterpart of ``recsys_tpu/train/reranker.py``:
     constants below);
   * ``train_dcn`` / ``train_deepfm`` — BCE (or group-wise pairwise) training
     of the neural rerankers, each returning ``(state, model, scorer)``. On a
-    CUDA device ``DeepFM``'s FM term is the hand-written kernel
-    (``ops/fm_kernel.py``), forward and backward, in training and in scoring;
+    CUDA device each step is one CUDA graph replay (``neural_runner``, the
+    rows gathered on the device), as the JAX steps are jitted, and
+    ``DeepFM``'s FM term is the hand-written kernel (``ops/fm_kernel.py``),
+    forward and backward, in training and in scoring;
   * ``ReRankingSystem`` — dot-product top-K candidates -> feature build ->
     reranker proba -> final top-k, sharing the retrieval top-k path with eval.
 """
@@ -30,7 +32,8 @@ from recsys_tpu_torch.data.ranker_features import build_rank_features
 from recsys_tpu_torch.device import resolve_device
 from recsys_tpu_torch.eval.recall import topk_scores
 from recsys_tpu_torch.models.reranker import DCNRanker, DeepFM
-from recsys_tpu_torch.train.state import StepTimer, TrainState
+from recsys_tpu_torch.train.state import StepTimer, TrainState, device_adam
+from recsys_tpu_torch.train.step_graph import StepGraph
 
 
 def auc_score(labels: np.ndarray, scores: np.ndarray) -> float:
@@ -373,17 +376,13 @@ class GBDTRanker:
 
 # -- neural rerankers ----------------------------------------------------------------
 
-def _adam(model: torch.nn.Module, lr: float) -> torch.optim.Adam:
-    # optax.adam(lr): betas 0.9 / 0.999, eps 1e-8, no weight decay
-    return torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8)
-
-
 def _new_model(build: Callable[[], torch.nn.Module], device: torch.device, seed: int,
                init_state: Mapping[str, torch.Tensor] | None) -> torch.nn.Module:
     """A model with seeded random weights, or with ``init_state`` loaded. It
     stays in eval mode: the JAX trainers call ``model.apply`` without
     ``deterministic``, whose default is True, so dropout is never on in
-    training either, and the port trains the same function."""
+    training either, and the port trains the same function (and its step
+    draws no random numbers)."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         model = build()
@@ -392,57 +391,89 @@ def _new_model(build: Callable[[], torch.nn.Module], device: torch.device, seed:
     return model.to(device).eval()
 
 
-def _fit_batches(model, parts, cfg: Config, batches, loss_fn, device) -> TrainState:
-    """One Adam step per ``(rows, target)`` of ``batches()`` for every epoch;
-    ``state.losses`` holds each epoch's mean loss."""
-    state = TrainState(model, _adam(model, cfg.reranker.lr))
-    parts = tuple(torch.as_tensor(x, device=device) for x in parts)
+def _parts(parts, device) -> dict:
+    """The feature parts as device data: ``x0``, ``x1``, ... in order."""
+    return {f"x{j}": torch.as_tensor(x, device=device) for j, x in enumerate(parts)}
+
+
+def neural_runner(model, data: dict, sizes: dict, gather: dict, lr: float, loss_fn,
+                  capture: bool | None = None) -> StepGraph:
+    """The neural rerankers' step through a ``StepGraph``: ``loss_fn(batch)``
+    of the batch that the index vectors (a dict of the lengths ``sizes``;
+    ``gather`` names each data key's vector) gather from ``data`` (device
+    tensors), its backward and one Adam update (``device_adam``). On the card
+    one CUDA graph replay a step after the warm-up, as the JAX step is one
+    jitted program (``capture=False``: eagerly). The state is ``.state``."""
+    state = TrainState(model, device_adam(model, lr))
+
+    def step(batch: dict, generator):
+        loss = loss_fn(batch)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        state.optimizer.step()
+        state.step += 1
+        return loss.detach()
+
+    return StepGraph(step, state, data, sizes, None, gather=gather, capture=capture)
+
+
+def bce_loss(apply_fn, n_parts: int):
+    """Mean BCE-with-logits of ``apply_fn(parts)`` against the batch's labels;
+    the parts are the batch's ``x0``, ``x1``, ..."""
+    def loss_fn(batch):
+        parts = tuple(batch[f"x{j}"] for j in range(n_parts))
+        return F.binary_cross_entropy_with_logits(apply_fn(parts), batch["label"])
+
+    return loss_fn
+
+
+def _fit_batches(runner: StepGraph, cfg: Config, batches, device) -> TrainState:
+    """One step of ``runner`` per batch of ``batches()`` (a dict of index
+    vectors) for every epoch; ``state.losses`` holds each epoch's mean loss."""
+    state = runner.state
     timer = StepTimer(device)
     for _ in range(cfg.reranker.epochs):
         losses = []
-        for rows, target in batches():
-            rows = torch.as_tensor(rows, device=device)
-            loss = loss_fn(tuple(x[rows] for x in parts), torch.as_tensor(target, device=device))
-            state.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-            state.optimizer.step()
-            state.step += 1
-            losses.append(loss.detach())
+        for idx in batches():
+            losses.append(runner(idx))
             timer.mark()
         if losses:
             state.losses.append(float(torch.stack(losses).mean()))
     state.step_seconds = timer.seconds()
+    state.graph_replays = runner.replays
     return state
 
 
-def _train_neural(model, X_parts, y, cfg: Config, apply_fn, device) -> TrainState:
+def _train_neural(model, X_parts, y, cfg: Config, apply_fn, device,
+                  capture: bool | None = None) -> TrainState:
     """Mean BCE-with-logits over shuffled batches. The batch order is numpy's
     (``default_rng(0)``, the ragged tail dropped), as in the JAX package, so
-    both frameworks see the same batches."""
+    both frameworks see the same batches. The parts and the labels live on
+    the device; a step gathers its rows."""
     n = len(y)
     bs = min(cfg.reranker.batch_size, n)
     rng = np.random.default_rng(0)
-    labels = np.asarray(y, np.float32)
+    data = {**_parts(X_parts, device),
+            "label": torch.as_tensor(np.asarray(y, np.float32), device=device)}
 
     def batches():
         order = rng.permutation(n)
         for s in range(0, n - n % bs, bs):
-            idx = order[s:s + bs]
-            yield idx, labels[idx]
+            yield {"rows": order[s:s + bs]}
 
-    def loss_fn(batch, target):
-        return F.binary_cross_entropy_with_logits(apply_fn(batch), target)
-
-    return _fit_batches(model, X_parts, cfg, batches, loss_fn, device)
+    runner = neural_runner(model, data, {"rows": bs}, dict.fromkeys(data, "rows"),
+                           cfg.reranker.lr, bce_loss(apply_fn, len(X_parts)), capture)
+    return _fit_batches(runner, cfg, batches, device)
 
 
 def _train_neural_pairwise(model, X_parts, y, groups, cfg: Config, apply_fn,
-                           device) -> TrainState:
+                           device, capture: bool | None = None) -> TrainState:
     """Group-wise pairwise ranking (softplus(neg - pos) within each group).
 
     The importers (``import_interactions*``) emit 1 positive + ``neg_per_pos``
     negatives per group — fixed group size S, so a batch of G groups is a
-    (G*S,) row block reshaped to (G, S)."""
+    (G*S,) row block reshaped to (G, S). A batch is its rows and its groups'
+    ids, which gather the (G, S) positive mask on the device."""
     order = np.argsort(groups, kind="stable")
     _, counts = np.unique(groups[order], return_counts=True)
     S = int(counts[0])
@@ -453,26 +484,36 @@ def _train_neural_pairwise(model, X_parts, y, groups, cfg: Config, apply_fn,
     G = idx_mat.shape[0]
     gb = max(1, min(cfg.reranker.batch_size // S, G))
     rng = np.random.default_rng(0)
+    data = {**_parts(X_parts, device), "pos_mask": torch.as_tensor(pos_mask, device=device)}
+    gather = {**dict.fromkeys(data, "rows"), "pos_mask": "groups"}
 
     def batches():
         gorder = rng.permutation(G)
         for s in range(0, G - G % gb, gb):
-            yield idx_mat[gorder[s:s + gb]].reshape(-1), pos_mask[gorder[s:s + gb]]
+            picked = gorder[s:s + gb]
+            yield {"rows": idx_mat[picked].reshape(-1), "groups": picked}
 
-    def loss_fn(batch, pos_m):
-        logits = apply_fn(batch).reshape(pos_m.shape)
+    def loss_fn(batch):
+        pos_m = batch["pos_mask"]
+        parts = tuple(batch[f"x{j}"] for j in range(len(X_parts)))
+        logits = apply_fn(parts).reshape(pos_m.shape)
         pos = torch.where(pos_m, logits, 0.0).sum(dim=1, keepdim=True)
         pair = F.softplus(logits - pos)
         return torch.where(pos_m, 0.0, pair).sum() / (~pos_m).sum().clamp(min=1)
 
-    return _fit_batches(model, X_parts, cfg, batches, loss_fn, device)
+    runner = neural_runner(model, data, {"rows": gb * S, "groups": gb}, gather,
+                           cfg.reranker.lr, loss_fn, capture)
+    return _fit_batches(runner, cfg, batches, device)
 
 
 def train_dcn(cfg: Config, X: np.ndarray, y: np.ndarray,
               groups: np.ndarray | None = None, device: torch.device | str = "cuda",
-              init_state: Mapping[str, torch.Tensor] | None = None, seed: int = 0):
+              init_state: Mapping[str, torch.Tensor] | None = None, seed: int = 0, *,
+              capture: bool | None = None):
     """Train ``DCNRanker`` on dense rows; returns ``(state, model, scorer)``
-    with ``scorer(X) -> probabilities`` (numpy)."""
+    with ``scorer(X) -> probabilities`` (numpy). On the card each step is a
+    CUDA graph replay after the warm-up (``capture=False``: eagerly);
+    ``state.graph_replays`` counts them."""
     device = resolve_device(device)
     # standardize on train stats — CrossNet is ill-conditioned on raw
     # mixed-scale features (dot products next to log prices)
@@ -482,9 +523,9 @@ def train_dcn(cfg: Config, X: np.ndarray, y: np.ndarray,
     model = _new_model(lambda: DCNRanker(X.shape[1], cfg.reranker), device, seed, init_state)
     if cfg.reranker.loss == "pairwise" and groups is not None:
         state = _train_neural_pairwise(model, (Xs,), y, groups, cfg,
-                                       lambda b: model(b[0]), device)
+                                       lambda b: model(b[0]), device, capture)
     else:
-        state = _train_neural(model, (Xs,), y, cfg, lambda b: model(b[0]), device)
+        state = _train_neural(model, (Xs,), y, cfg, lambda b: model(b[0]), device, capture)
 
     @torch.no_grad()
     def scorer(Xq):
@@ -497,16 +538,19 @@ def train_dcn(cfg: Config, X: np.ndarray, y: np.ndarray,
 def train_deepfm(cfg: Config, ids: np.ndarray, dense: np.ndarray | None,
                  y: np.ndarray, field_sizes: tuple[int, ...],
                  device: torch.device | str = "cuda",
-                 init_state: Mapping[str, torch.Tensor] | None = None, seed: int = 0):
+                 init_state: Mapping[str, torch.Tensor] | None = None, seed: int = 0, *,
+                 capture: bool | None = None):
     """Train ``DeepFM`` on sparse ids (+ optional dense rows); returns
     ``(state, model, scorer)`` with ``scorer(ids, dense) -> probabilities``.
+    On the card each step is a CUDA graph replay after the warm-up, with the
+    FM kernel's forward and backward inside (``capture=False``: eagerly).
     The scorer takes all its rows in one forward (one FM launch on the card)."""
     device = resolve_device(device)
     num_dense = 0 if dense is None else dense.shape[1]
     model = _new_model(lambda: DeepFM(field_sizes, cfg.reranker, num_dense=num_dense),
                        device, seed, init_state)
     parts = (ids,) if dense is None else (ids, np.asarray(dense, np.float32))
-    state = _train_neural(model, parts, y, cfg, lambda b: model(*b), device)
+    state = _train_neural(model, parts, y, cfg, lambda b: model(*b), device, capture)
 
     @torch.no_grad()
     def scorer(i, d=None):

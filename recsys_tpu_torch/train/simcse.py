@@ -43,6 +43,7 @@ from recsys_tpu_torch.models.item_tower import SimCSEModel
 from recsys_tpu_torch.models.text_encoder import PretrainedTextEncoder
 from recsys_tpu_torch.ops import select_infonce
 from recsys_tpu_torch.ops.augment import two_views
+from recsys_tpu_torch.ops.topk import stable_topk
 from recsys_tpu_torch.parallel.mesh import Mesh, shard_batch
 from recsys_tpu_torch.train.checkpoint import CheckpointStore, save_array_with_ids
 from recsys_tpu_torch.train.metrics import MetricWriter, alignment, uniformity
@@ -351,11 +352,12 @@ def topk_items(item_matrix: np.ndarray, queries: np.ndarray, k: int = 50,
                device: torch.device | str = "cuda"):
     """Exact dot-product top-k against the catalog; rows are L2-normalized
     so dot == cosine. Returns (scores, indices into the padded matrix); row
-    0 (PAD) is excluded."""
+    0 (PAD) is excluded. Equal scores come back lowest index first, as
+    ``jax.lax.top_k`` gives them."""
     device = resolve_device(device)
     q = torch.as_tensor(queries, dtype=torch.float32, device=device)
     m = torch.as_tensor(item_matrix, dtype=torch.float32, device=device)
     scores = q @ m.T
     scores[:, 0] = -torch.inf
-    vals, idx = torch.topk(scores, k, dim=1)
+    vals, idx = stable_topk(scores, k)
     return vals.cpu().numpy(), idx.cpu().numpy()

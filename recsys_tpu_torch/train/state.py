@@ -202,8 +202,13 @@ class GroupedAdamW(torch.optim.AdamW):
         device choices (fused, capturable; a checkpoint from the CPU has
         neither) and its count, factor and (under a ``DeviceLR``) lr
         tensors, which a captured step reads, filled in place (a ``LambdaLR``
-        checkpoint's lr is a host float)."""
+        checkpoint's lr is a host float). A plain ``torch.optim.Adam``
+        checkpoint (one an eager trainer wrote) has no count or factor: the
+        count is then its moments' step and the factor 1, and the keys it
+        lacks (name, freeze gate, a schedule's ``initial_lr``) stay this
+        optimizer's."""
         device_keys = ("capturable", "fused", "foreach")
+        kept = [{k: v for k, v in g.items() if k != "params"} for g in self.param_groups]
         mine = [{k: g[k] for k in ("updates", "lr_factor", *device_keys)}
                 for g in self.param_groups]
         for g, m in zip(self.param_groups, mine):
@@ -212,11 +217,15 @@ class GroupedAdamW(torch.optim.AdamW):
         super().load_state_dict({**state_dict, "param_groups": [
             {**g, **{k: m[k] for k in device_keys}}
             for g, m in zip(state_dict["param_groups"], mine)]})
-        for g, m in zip(self.param_groups, mine):
+        for g, m, k in zip(self.param_groups, mine, kept):
+            moments = self.state.get(g["params"][0], {})
+            saved = {"updates": float(moments.get("step", 0)), "lr_factor": 1.0, **g}
             for key in ("updates", "lr_factor", "lr"):
                 if key in m:
-                    m[key].fill_(float(g[key]))
+                    m[key].fill_(float(saved[key]))
             g.update(m)
+            for key, value in k.items():
+                g.setdefault(key, value)
 
 
 class DeviceLR:
@@ -239,6 +248,11 @@ class DeviceLR:
     def step(self) -> None:
         for g in self.optimizer.param_groups:
             g["lr"].copy_(g["initial_lr"] * self.factor(g["updates"]))
+
+    def get_last_lr(self) -> list[float]:
+        """Each group's current learning rate, as ``LRScheduler.get_last_lr``
+        (reads the device)."""
+        return [float(g["lr"]) for g in self.optimizer.param_groups]
 
     def state_dict(self) -> dict:
         return {}
@@ -276,6 +290,17 @@ def grouped_adamw(model: nn.Module, label_fn: Callable[[str], str],
           "lr_factor": lr_factors.get(name, 1.0)}
          for name, ps in groups.items() if ps],
         weight_decay=weight_decay, grad_clip=grad_clip)
+
+
+def device_adam(model: nn.Module, lr: float) -> GroupedAdamW:
+    """optax ``adam(lr)`` (betas 0.9 / 0.999, eps 1e-8, no decay) as a device
+    program: a ``GroupedAdamW`` of one group without weight decay, so that one
+    CUDA graph of a step replays its updates (and a ``DeviceLR`` can carry a
+    schedule). Its update is Adam's; the learning rate is a tensor, so the
+    step size rounds in float32 where ``torch.optim.Adam`` rounds a host
+    double: the two part in the last bits of a weight."""
+    return GroupedAdamW([{"params": [p for p in model.parameters() if p.requires_grad],
+                          "lr": lr}], weight_decay=0.0)
 
 
 def set_lr_factor(optimizer: torch.optim.Optimizer, factor: float) -> None:

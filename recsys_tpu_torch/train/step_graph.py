@@ -8,10 +8,15 @@ leaves the card idle most of a step. ``StepGraph`` is the counterpart of that
 ``jit``: it takes a trainer's step function as it is (``make_stage2_step``,
 ``make_train_step``) and, on the card,
 
-  * holds a static device index vector; each batch's indices are copied into
-    it from pinned host memory (a ring of HOST_SLOTS slots, each reused only
-    after its copy has run), and the gather of the device-resident data is
-    part of the step, so it is inside the graph;
+  * holds static device index vectors; each batch's indices are copied into
+    them from pinned host memory (a ring of HOST_SLOTS slots a vector, each
+    reused only after its copy has run), and the gather of the device-resident
+    data is part of the step, so it is inside the graph. A step takes one
+    vector (every data key gathered by it) or several named ones of their own
+    lengths (``batch_size`` a dict): the LightGCL step's edge positions, which
+    gather its users and positives, and its host-drawn negatives; distill's
+    user rows and item rows, into tables of different lengths; the pairwise
+    reranker's rows and the groups that gather its positive mask;
   * runs the first WARMUP_STEPS steps eagerly on its own stream, as real
     training steps: they make Adam's moments, the kernels' workspaces and the
     libraries' handles outside the graph;
@@ -35,9 +40,11 @@ The optimizer decides nothing on the host (``train/state.py``), and the hand
 kernels' launches are counted once a replay (``ops/_build.count_launch``). A
 capture or a replay that fails raises; nothing falls back to the eager step.
 ``capture=False`` runs the same step eagerly, with the batch gathered by the
-same indices: the CPU's path, and an eager reference on the card. ``draws``
-(fixed random draws of the stage-2 step, device tensors) are copied into
-static buffers the same way as the indices.
+same indices: the CPU's path, and an eager reference on the card. A vector of
+another length than its own raises on either path. ``draws`` (fixed random
+draws of the stage-2 step, device tensors) are copied into static buffers;
+integers drawn on the host go through the index ring instead, since a copy
+from a host tensor would make the host wait.
 
 Only one capture runs at a time in a process (``_CAPTURE_LOCK``), and it runs
 in the ``thread_local`` capture mode, so that a server's other threads may
@@ -72,12 +79,28 @@ class StepGraph:
     """``runner(idx, draws=None)`` runs ``step`` on the rows ``idx`` of
     ``data`` (a dict of device tensors) and returns its outputs; see the
     module docstring. ``step(batch, generator[, draws=...])`` is a trainer's
-    step, ``state`` its ``TrainState``."""
+    step, ``state`` its ``TrainState``.
 
-    def __init__(self, step, state: TrainState, data: dict, batch_size: int,
-                 generator: torch.Generator | None, *, capture: bool | None = None):
+    ``batch_size`` an int: ``idx`` is one int vector of that length and the
+    batch is every key of ``data`` gathered by it. ``batch_size`` a dict
+    ``{name: length}``: ``idx`` is a dict of int vectors of those lengths, a
+    key of ``data`` is gathered by the vector ``gather`` names for it, and
+    the batch also holds every vector, on the device, under its name."""
+
+    def __init__(self, step, state: TrainState, data: dict, batch_size: int | dict,
+                 generator: torch.Generator | None, *, gather: dict | None = None,
+                 capture: bool | None = None):
         self.step, self.state, self.data = step, state, data
-        self.batch_size, self.generator = batch_size, generator
+        self.generator = generator
+        self.named = isinstance(batch_size, dict)
+        self.sizes = dict(batch_size) if self.named else {"idx": batch_size}
+        self.gather = gather if self.named else {k: "idx" for k in data}
+        if set(self.gather) != set(data) or not set(self.gather.values()) <= set(self.sizes):
+            raise ValueError(f"gather {self.gather} must name a vector of {list(self.sizes)} "
+                             f"for every key of the data {list(data)}")
+        if self.named and set(self.sizes) & set(data):
+            raise ValueError(f"the vectors {list(self.sizes)} and the data {list(data)} "
+                             "share a name")
         self.device = next(iter(data.values())).device
         self.capture = self.device.type == "cuda" if capture is None else capture
         if self.capture and self.device.type != "cuda":
@@ -89,16 +112,19 @@ class StepGraph:
         self._draws: dict | None = None
         if self.capture:
             self.stream = torch.cuda.Stream(self.device)
-            self._idx = torch.zeros(batch_size, dtype=torch.int64, device=self.device)
-            self._host = torch.zeros((HOST_SLOTS, batch_size), dtype=torch.int64,
-                                     pin_memory=True)
+            self._idx = {name: torch.zeros(n, dtype=torch.int64, device=self.device)
+                         for name, n in self.sizes.items()}
+            self._host = {name: torch.zeros((HOST_SLOTS, n), dtype=torch.int64,
+                                            pin_memory=True)
+                          for name, n in self.sizes.items()}
             self._copied = [None] * HOST_SLOTS
 
     def __call__(self, idx, draws: dict | None = None):
+        vectors = self._vectors(idx)
         if not self.capture:
-            ix = torch.as_tensor(np.asarray(idx), device=self.device)
-            return self._run(ix, draws)
-        self._load(idx, draws)
+            return self._run({name: torch.as_tensor(v, device=self.device)
+                              for name, v in vectors.items()}, draws)
+        self._load(vectors, draws)
         if self.graph is None and self._calls < WARMUP_STEPS:
             out = self._on_stream(lambda: self._run(self._idx, self._draws))
         else:
@@ -108,23 +134,37 @@ class StepGraph:
         self._calls += 1
         return out
 
-    def _run(self, ix: torch.Tensor, draws: dict | None):
-        batch = {k: v[ix] for k, v in self.data.items()}
+    def _vectors(self, idx) -> dict:
+        """``idx`` as ``{name: int64 numpy vector}``, each of its length."""
+        given = idx if self.named else {"idx": idx}
+        if set(given) != set(self.sizes):
+            raise ValueError(f"index vectors {sorted(given)}, the graph's are "
+                             f"{sorted(self.sizes)}")
+        out = {}
+        for name, n in self.sizes.items():
+            v = np.asarray(given[name], dtype=np.int64)
+            if v.shape != (n,):
+                raise ValueError(f"{name}: a batch of {v.shape}, the graph's is ({n},)")
+            out[name] = v
+        return out
+
+    def _run(self, ix: dict, draws: dict | None):
+        batch = {k: v[ix[self.gather[k]]] for k, v in self.data.items()}
+        if self.named:
+            batch.update(ix)
         if draws is None:
             return self.step(batch, self.generator)
         return self.step(batch, self.generator, draws=draws)
 
-    def _load(self, idx, draws: dict | None) -> None:
-        """This batch's indices (and draws) into the static buffers, on the
-        current stream."""
-        idx = np.asarray(idx)
-        if idx.shape != (self.batch_size,):
-            raise ValueError(f"batch of {idx.shape}, the graph's is ({self.batch_size},)")
+    def _load(self, vectors: dict, draws: dict | None) -> None:
+        """This batch's index vectors (and draws) into the static buffers, on
+        the current stream."""
         slot = self._calls % HOST_SLOTS
         if self._copied[slot] is not None:
             self._copied[slot].synchronize()   # the copy HOST_SLOTS batches ago has run
-        self._host[slot].numpy()[:] = idx
-        self._idx.copy_(self._host[slot], non_blocking=True)
+        for name, v in vectors.items():
+            self._host[name][slot].numpy()[:] = v
+            self._idx[name].copy_(self._host[name][slot], non_blocking=True)
         self._copied[slot] = torch.cuda.Event()
         self._copied[slot].record()
         if (draws is None) != (self._draws is None) and self._calls:

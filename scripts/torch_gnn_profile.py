@@ -1,11 +1,14 @@
 """Where one LightGCL training step of the PyTorch port spends its time.
 
     python3 scripts/torch_gnn_profile.py [--steps 10] [--warmup 5] [--out DIR]
+                                         [--mode eager|captured|both]
 
 Needs one NVIDIA GPU. Builds the reference-scale graph of ``chip_smoke.py``
 (200,000 users, 47,000 items, 11.3M interactions) from a seed and runs
 ``train_lightgcl`` itself at the default width (batch 8192, two layers, K2
-propagation) for ``warmup + 2 * steps`` steps, host batch sampling included:
+propagation) for ``warmup + 2 * steps`` steps, host batch sampling included,
+once for each mode (``both``, the default: eager, then captured, the step a
+CUDA graph replay after the trainer's two warm-up steps):
 
   * the first ``--steps`` steps after the warm-up run unprofiled; their times
     are the trainer's own CUDA-event step times;
@@ -16,7 +19,7 @@ propagation) for ``warmup + 2 * steps`` steps, host batch sampling included:
     waiting for the host).
 
 Prints the card's name and power limit first. With ``--out`` the chrome
-trace goes there as ``gnn_step_trace.json``.
+traces go there as ``gnn_step_trace_{mode}.json``.
 """
 
 from __future__ import annotations
@@ -45,17 +48,22 @@ def main() -> None:
     parser.add_argument("--steps", type=int, default=10)
     parser.add_argument("--warmup", type=int, default=5)
     parser.add_argument("--out", default=None)
+    parser.add_argument("--mode", choices=("eager", "captured", "both"), default="both")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     print(chip_smoke.card_line(), flush=True)
-
-    from torch.profiler import ProfilerActivity, profile
-
     first, last = args.warmup + args.steps, args.warmup + 2 * args.steps
     cfg = load_config(None, {"gnn": {"epochs": 1, "steps_per_epoch_max": last}})
     graph, edges_u, edges_i = chip_smoke.reference_scale_graph(seed=0)
+    for mode in (("eager", "captured") if args.mode == "both" else (args.mode,)):
+        profile_mode(mode, cfg, graph, edges_u, edges_i, args, first, last)
+
+
+def profile_mode(mode: str, cfg, graph, edges_u, edges_i, args, first: int, last: int) -> None:
+    from torch.profiler import ProfilerActivity, profile
+
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     wall = {}
 
@@ -71,23 +79,30 @@ def main() -> None:
 
     S.reset_launch_counts()
     with tempfile.TemporaryDirectory() as workdir:
-        state, _ = train_lightgcl(cfg, graph, edges_u, edges_i, workdir, step_hook=hook)
+        state, _ = train_lightgcl(cfg, graph, edges_u, edges_i, workdir, step_hook=hook,
+                                  capture=mode == "captured")
     step_ms = [1e3 * t for t in state.step_seconds]
     unprofiled = statistics.median(step_ms[args.warmup:first])
-    print(json.dumps({"steps": args.steps, "warmup": args.warmup,
+    print(json.dumps({"mode": mode, "steps": args.steps, "warmup": args.warmup,
+                      "graph_replays": state.graph_replays,
                       "step_ms_median": unprofiled, "step_ms": step_ms[args.warmup:first],
                       "k2_launches_per_step": {k: v / last for k, v in S.LAUNCHES.items()}}),
           flush=True)
 
     by_name: dict = defaultdict(lambda: [0.0, 0])
+    host_launches = 0
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             by_name[ev.name][0] += ev.device_time_total / 1e3   # us -> ms
             by_name[ev.name][1] += 1
+        elif ev.name.startswith(chip_smoke.HOST_LAUNCH_CALLS):
+            host_launches += 1
     busy = sum(v[0] for v in by_name.values()) / args.steps
     launches = sum(v[1] for v in by_name.values()) / args.steps
     profiled = 1e3 * (wall["stop"] - wall["start"]) / args.steps
-    print(json.dumps({"device_busy_ms_per_step": busy, "launches_per_step": launches,
+    print(json.dumps({"mode": mode, "device_busy_ms_per_step": busy,
+                      "launches_per_step": launches,
+                      "host_launch_calls_per_step": host_launches / args.steps,
                       "profiled_step_ms": profiled,
                       "profiled_step_ms_by_events": statistics.median(step_ms[first:last]),
                       "device_busy_share_of_profiled_step": busy / profiled,
@@ -98,7 +113,7 @@ def main() -> None:
               f"{name[:110]}", flush=True)
     if args.out:
         os.makedirs(args.out, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(args.out, "gnn_step_trace.json"))
+        prof.export_chrome_trace(os.path.join(args.out, f"gnn_step_trace_{mode}.json"))
 
 
 if __name__ == "__main__":

@@ -46,8 +46,10 @@ then ``--requests`` recommendations in each of rerank, blend and cosine mode,
 the HTTP rerank list equal to ``rerank_serve_topk``'s offline list for the same
 user. Gates: exact (exit 1) for the world, the ETL, the item steps, the
 matrix, the GNN check, the distilled shape, n_eval, the rerank pools' sizes and
-split, the GNN arm; bands (``HYBRID_BANDS``, ``"ok": false`` in the summary)
-for the recalls, the GNN check's delta and the AUCs.
+split, the GNN arm, and on the card every step of train-gnn, distill,
+train-hybrid and rerank-eval's DCN arm after the warm-up a graph replay, with
+K2 four times a train-gnn step; bands (``HYBRID_BANDS``, ``"ok": false`` in
+the summary) for the recalls, the GNN check's delta and the AUCs.
 
 ``--recipe stage1`` runs both arms of the stage-1 A/B (arm A the hash text
 encoder, arm B the frozen corpus-pretrained one, ``item_tower.text_encoder=
@@ -1071,15 +1073,27 @@ def hybrid_recipe(args, stage, stages: dict, got: dict, root: str, world_extra: 
         json.dump(serve, f)
 
     result = compare_hybrid(got, load_reference(names=HYBRID_REFERENCE))
-    for name, ok, value in (
-            ("serve.served_vs_tower_err", serve["served_vs_tower_err"] <= SERVE_TOL,
-             serve["served_vs_tower_err"]),
-            ("serve.rerank_equal_offline", serve["rerank_equal_offline"] == serve["users"],
-             serve["rerank_equal_offline"])):
-        result["comparisons"].append(_row(name, value, None, "exact", ok))
-        result["exact_ok"] = result["exact_ok"] and ok
-        if not ok:
-            result["misses"].append(name)
+    rows = [_row("serve.served_vs_tower_err", serve["served_vs_tower_err"], None, "exact",
+                 serve["served_vs_tower_err"] <= SERVE_TOL),
+            _row("serve.rerank_equal_offline", serve["rerank_equal_offline"], None, "exact",
+                 serve["rerank_equal_offline"] == serve["users"])]
+    if args.device.startswith("cuda"):
+        # every step after the warm-up a graph replay: LightGCL (K2 four times a
+        # step), distill, the hybrid tower and rerank-eval's DCN arm
+        rows.append(exact_row("gnn.k2_launches", stages["gnn"]["k2_launches"],
+                              {"spmm_csr": 4 * gnn["steps"] + 2 * 2}))
+        rr = got["rerank_hybrid"]
+        for name, replays, steps in (
+                *((f"{k}.graph_replays", got[k]["graph_replays"], got[k]["steps"])
+                  for k in ("gnn", "distill", "hybrid")),
+                ("rerank_hybrid.dcn_graph_replays", rr.get("dcn_graph_replays"),
+                 rr.get("dcn_steps", WARMUP_STEPS))):
+            rows.append(exact_row(name, replays, steps - WARMUP_STEPS))
+    for row in rows:
+        result["comparisons"].append(row)
+        result["exact_ok"] = result["exact_ok"] and row["ok"]
+        if not row["ok"]:
+            result["misses"].append(row["name"])
     cfg = cli.config_from_args(cli.parse_args(["train-hybrid", *sets]))
     gnn_steps = gnn["steps"]
     summary = {
@@ -1087,11 +1101,17 @@ def hybrid_recipe(args, stage, stages: dict, got: dict, root: str, world_extra: 
         "train_item": {"steps": item["steps"], "graph_replays": item["graph_replays"],
                        "step_ms_median": item["step_ms_median"],
                        "k1_launches": stages["item"]["k1_launches"]},
-        "train_gnn": {"steps": gnn_steps, "step_ms_median": gnn["step_ms_median"],
+        "train_gnn": {"steps": gnn_steps, "graph_replays": gnn["graph_replays"],
+                      "step_ms_median": gnn["step_ms_median"], "train_seconds": gnn["seconds"],
                       "graph": gnn["graph"], "k2_launches": stages["gnn"]["k2_launches"],
                       "k2_launches_per_step": (sum(stages["gnn"]["k2_launches"].values())
                                                / gnn_steps if gnn_steps else None),
                       "peak_device_gib": stages["gnn"].get("peak_device_gib")},
+        "distill": {k: got["distill"][k] for k in ("steps", "graph_replays", "step_ms_median",
+                                                   "seconds", "launches")},
+        "rerank_dcn": {k: got["rerank_hybrid"].get(k) for k in (
+            "dcn_steps", "dcn_graph_replays", "dcn_step_ms_median", "dcn_seconds",
+            "dcn_launches")},
         "gnn_eval": {"k2_launches": stages["gnn_eval"]["k2_launches"],
                      "k2_launches_distilled": stages["gnn_eval_distilled"]["k2_launches"]},
         "train_hybrid": {"steps": hybrid["steps"], "graph_replays": hybrid["graph_replays"],

@@ -1,11 +1,14 @@
 """Where a training step of the PyTorch port's neural rerankers spends its time.
 
     python3 scripts/torch_reranker_profile.py [--rows 96000] [--out DIR]
+                                              [--mode eager|captured|both]
 
 Needs one NVIDIA GPU. Makes a reranker problem from a seed at the full width
 ``chip_smoke.py`` phase 9 drives (19 sparse fields of the default world's
 sizes + 10 dense features, K = 16, deep (128, 64), batch 2048) and runs
-``train_deepfm`` and ``train_dcn`` themselves, twice each:
+``train_deepfm`` and ``train_dcn`` themselves, twice each for each mode
+(``both``, the default: eager, then captured, the step a CUDA graph replay
+after the trainer's two warm-up steps):
 
   * two epochs unprofiled: the step time is the trainer's own CUDA-event
     median over the second epoch;
@@ -71,10 +74,34 @@ def report(label: str, by_name: dict, steps: int, unprofiled_ms: float | None) -
         print(f"{ms / steps:9.4f} ms  {n / steps:7.1f} launches  {name[:100]}", flush=True)
 
 
+def profile_run(label: str, mode: str, run, args):
+    """Two epochs of ``run`` unprofiled, then one under the profiler; returns
+    the scorer of the profiled run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    capture = mode == "captured"
+    state, _, _ = run(load_config(None, {"reranker": {"epochs": 2}}), capture)
+    per_epoch = state.step // 2
+    unprofiled = statistics.median(1e3 * t for t in state.step_seconds[per_epoch:])
+    FM.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, _, scorer = run(load_config(None, {"reranker": {"epochs": 1}}), capture)
+        torch.cuda.synchronize()
+    print(json.dumps({"what": label, "mode": mode, "steps": state.step,
+                      "graph_replays": state.graph_replays,
+                      "k3_launches": dict(FM.LAUNCHES)}), flush=True)
+    report(f"{label} ({mode}): one step", device_events(prof), state.step, unprofiled)
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(args.out, f"{label}_{mode}_trace.json"))
+    return scorer
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--rows", type=int, default=96000)
     parser.add_argument("--out", default=None)
+    parser.add_argument("--mode", choices=("eager", "captured", "both"), default="both")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
@@ -90,22 +117,13 @@ def main() -> None:
          ).astype(np.int32)
     if len(FIELD_SIZES) + 1 != chip_smoke.FM_FIELDS:
         sys.exit("not the full-width field count")
-    runs = {"train_deepfm": lambda cfg: train_deepfm(cfg, ids, dense, y, FIELD_SIZES),
-            "train_dcn": lambda cfg: train_dcn(cfg, dense, y)}
+    runs = {"train_deepfm": lambda cfg, capture: train_deepfm(cfg, ids, dense, y, FIELD_SIZES,
+                                                              capture=capture),
+            "train_dcn": lambda cfg, capture: train_dcn(cfg, dense, y, capture=capture)}
+    modes = ("eager", "captured") if args.mode == "both" else (args.mode,)
     for label, run in runs.items():
-        state, _, _ = run(load_config(None, {"reranker": {"epochs": 2}}))
-        per_epoch = state.step // 2
-        unprofiled = statistics.median(1e3 * t for t in state.step_seconds[per_epoch:])
-        FM.reset_launch_counts()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            state, _, scorer = run(load_config(None, {"reranker": {"epochs": 1}}))
-            torch.cuda.synchronize()
-        print(json.dumps({"what": label, "steps": state.step, "k3_launches": dict(FM.LAUNCHES)}),
-              flush=True)
-        report(f"{label}: one step", device_events(prof), state.step, unprofiled)
-        if args.out:
-            os.makedirs(args.out, exist_ok=True)
-            prof.export_chrome_trace(os.path.join(args.out, f"{label}_trace.json"))
+        for mode in modes:
+            scorer = profile_run(label, mode, run, args)
         if label == "train_deepfm":
             pick = rng.integers(0, n, chip_smoke.FM_SCORE_B)
             scorer(ids[pick[:256]], dense[pick[:256]])

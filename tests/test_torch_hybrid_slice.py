@@ -51,9 +51,11 @@ def world(tmp_path_factory):
     out = {}
     for stage, extra in (
             ("gen-data", []), ("etl", []),
-            ("train-item", ["--set", "simcse.batch_size=16", "--set", "simcse.epochs=1"]),
+            ("train-item", ["--set", "simcse.batch_size=16", "--set", "simcse.epochs=1",
+                            "--set", "simcse.steps_per_epoch_min=20"]),
             ("vectorize", []), ("train-gnn", GNN), ("distill", GNN), ("gnn-eval", USER),
-            ("train-user", USER), ("eval", USER), ("train-hybrid", USER),
+            ("train-user", [*USER, "--set", "user_train.epochs=1"]), ("eval", USER),
+            ("train-hybrid", USER),
             ("ensemble-eval", USER),
             ("rerank-eval", [*USER, "--vectors", "hybrid", "--iterations", "30"])):
         out[stage] = cli.main([stage, *sets, *extra])
@@ -89,9 +91,9 @@ def test_train_hybrid_without_report_and_the_jax_stages_keys(world, tmp_path):
               "gnn_users.ids.json"):
         shutil.copy(f"{root}/{f}", tmp_path)
     sets = ["--set", f"data.root={tmp_path}", *WORLD, *USER,
-            "--set", "user_train.hybrid_report=false"]
+            "--set", "user_train.hybrid_report=false", "--set", "user_train.epochs=1"]
     ref = jax_cli.main(["train-hybrid", *sets])
-    got = cli.main(["train-hybrid", *sets, "--set", "user_train.epochs=1", "--device", "cpu"])
+    got = cli.main(["train-hybrid", *sets, "--device", "cpu"])
     assert got["report"] == ref["report"] == "skipped"
     assert set(ref) <= set(got) and len(got["hybrid_history"]) == 1
     assert set(got["hybrid_best"]) == set(ref["hybrid_best"])

@@ -485,6 +485,8 @@ def test_spmm_counters_are_zero_after_many_calls(device):
 
 
 def test_spmm_cuda_graph_replay_is_bit_equal_to_the_eager_call(device):
+    from recsys_tpu_torch.ops._build import captured_launches, count_replay
+
     src, dst, w, n = _skewed_graph()
     layout = S.csr_graph(src, dst, w, n, device=device)
     assert layout.num_hubs > 0
@@ -497,14 +499,17 @@ def test_spmm_cuda_graph_replay_is_bit_equal_to_the_eager_call(device):
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     S.reset_launch_counts()
-    with torch.cuda.graph(graph, stream=side):
+    with captured_launches() as log, torch.cuda.graph(graph, stream=side):
         captured = S.spmm_cuda(layout, x, "bf16")
-    assert S.LAUNCHES == {"spmm_csr": 1}
+    # the capture ran nothing; each replay counts its one launch
+    assert S.LAUNCHES == {"spmm_csr": 0} and log == [(S.LAUNCHES, "spmm_csr")]
     for _ in range(3):
         captured.zero_()
         graph.replay()
+        count_replay(log)
         torch.cuda.synchronize()
         assert torch.equal(captured, eager)
+    assert S.LAUNCHES == {"spmm_csr": 3}
     assert int(S.hub_counters(layout, side.cuda_stream).abs().sum()) == 0
 
 

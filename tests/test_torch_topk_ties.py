@@ -1,5 +1,8 @@
 """Equal scores in the port's dense top-k sites come back in the JAX package's
 order: largest first, equal values lowest index first, as ``jax.lax.top_k``.
+The sites: ``topk_scores`` (dense and on a mesh), the device blend, the blend
+sweep, distill's hard-pair mining, ``simcse.topk_items`` and the ring's
+sharded top-k.
 
 The item matrix holds each of a few unit directions many times over, so
 every score comes in groups of exact ties, and the top-k cuts through such a
@@ -159,3 +162,65 @@ def test_blend_sweep_device_orders_ties_as_jax(tied, monkeypatch):
         np.testing.assert_array_equal(g, r)
         np.testing.assert_array_equal(g, lexsort_topk(blend_scores(tied, alpha, beta), 150))
     assert got["table"] == ref["table"] and got["best"] == ref["best"]
+
+
+@pytest.mark.parametrize("k", [5, 60, 150])
+def test_distill_mining_orders_ties_as_jax(tied, k):
+    """Distill's mining (the JAX package's ``mine``: ``jax.lax.top_k`` of the
+    teacher's dot scores) on tied scores: the same (B, k) indices, so the
+    same pool after ``np.unique``."""
+    import jax
+    import jax.numpy as jnp
+
+    from recsys_tpu_torch.train.gnn import mine_hard_items
+
+    users, items = tied["users"], tied["items"][1:]
+    _, ref = jax.lax.top_k(jnp.asarray(users) @ jnp.asarray(items).T, k)
+    got = mine_hard_items(torch.tensor(users), torch.tensor(items), k).numpy()
+    np.testing.assert_array_equal(got, np.asarray(ref))
+    np.testing.assert_array_equal(got, lexsort_topk(users @ items.T, k))
+    np.testing.assert_array_equal(np.unique(got), np.unique(np.asarray(ref)))
+
+
+@pytest.mark.parametrize("k", [5, 60, 150])
+def test_simcse_topk_items_orders_ties_as_jax(tied, k):
+    from recsys_tpu.train.simcse import topk_items as jax_topk_items
+    from recsys_tpu_torch.train.simcse import topk_items
+
+    ref_vals, ref_idx = jax_topk_items(tied["items"], tied["users"], k)
+    vals, idx = topk_items(tied["items"], tied["users"], k, device="cpu")
+    np.testing.assert_array_equal(idx, ref_idx)
+    np.testing.assert_array_equal(vals, ref_vals)
+    scores = tied["users"] @ tied["items"].T
+    scores[:, 0] = -np.inf
+    np.testing.assert_array_equal(idx, lexsort_topk(scores, k))
+
+
+@pytest.mark.parametrize("bidirectional", [False, True], ids=["one_way", "both_ways"])
+def test_ring_sharded_topk_orders_ties_as_jax(tied, bidirectional):
+    """The ring's sharded top-k over 4 column shards of the tied scores, the
+    JAX package's run through its Pallas ring under the TPU interpreter on 4
+    devices of the CPU mesh (as tests/test_torch_ring.py runs it): every
+    shard's indices equal JAX's, ties cut at the k-th place and across
+    shards."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import PartitionSpec as P
+
+    from recsys_tpu.config import MeshConfig
+    from recsys_tpu.parallel import pallas_ring as JR
+    from recsys_tpu.parallel.mesh import build_mesh, smap
+    from recsys_tpu_torch.parallel import ring as TR
+
+    k, S = 60, 4
+    scores = tied["users"] @ tied["items"][1:].T                 # (B, 400): 100 a shard
+    mesh = build_mesh(MeshConfig(num_data=S, num_model=1), jax.devices()[:S])
+    f = smap(lambda s: JR.ring_sharded_topk(s, k, "data", bidirectional=bidirectional),
+             mesh, P(None, "data"), out_specs=(P(None, None), P(None, None)))
+    ref_vals, ref_idx = (np.asarray(a) for a in f(jnp.asarray(scores)))
+    out = TR.ring_sharded_topk(list(torch.tensor(scores).chunk(S, dim=1)), k, bidirectional)
+    assert len(out) == S
+    for vals, idx in out:
+        np.testing.assert_array_equal(idx.numpy(), ref_idx)
+        np.testing.assert_array_equal(vals.numpy(), ref_vals)
+        np.testing.assert_array_equal(idx.numpy(), lexsort_topk(scores, k))
