@@ -289,6 +289,18 @@ then (phases 10 and 11 run after 6, while the graph of 4 is still there):
      after the warm-up a graph replay; the losses finite and falling; the
      matrix's shape; both purities > 0.
 
+  23. (run first: it needs no kernel) the initial parameters: for a small
+     configuration of each model family (the SimCSE item tower with either
+     text encoder, the stage-2 towers, the user tower with side gates, the
+     hybrid tower, LightGCL, the distill student, DCN, DeepFM with and
+     without the dense block), the port's init site draws the JAX package's
+     init for the JAX site's key on this machine (``models/flax_init.py``,
+     numpy on the host) and puts it on the card; the tree must be the JAX
+     package's, every uniform-, zero-, one- and constant-derived leaf its bits
+     (sha256) and every normal-derived leaf's 128 strided values within
+     FLAX_INIT_TOL x the leaf's std of FLAX_INIT_FIXTURE, which
+     scripts/jax_flax_init_fixture.py writes with the JAX package on a CPU.
+
 Phase 2 also holds each K1 kernel to exactly two launches a step.
 
 One line holds every kernel with its launches, error, times and bound. The
@@ -299,6 +311,7 @@ without it. TF32 is off, so the plain fp32 oracle is full fp32.
 from __future__ import annotations
 
 import concurrent.futures
+import hashlib
 import json
 import os
 import shutil
@@ -411,6 +424,10 @@ HM_CUT_WORLD_TIMEOUT_S = 300.0   # the wait for gen-data and etl once phase 19 h
 HM_CUT_GNN_STEPS, HM_CUT_SERVE_PRODUCTS = 300, 256
 HM_CUT_RERANK = ("--pool", "128", "--m-cos", "96", "--m-pop", "32", "--sample", "2000",
                  "--iterations", "50")
+# phase 23: the JAX package's inits of a small configuration of each model family
+# (scripts/jax_flax_init_fixture.py); normal-derived values within FLAX_INIT_TOL x
+# the leaf's std, as tests/test_torch_flax_init.py, every other leaf bit for bit
+FLAX_INIT_FIXTURE, FLAX_INIT_TOL, FLAX_INIT_VALUES = "artifacts/flax_init_fixture.npz", 1e-6, 128
 HM_CUT_WORLD = ("--set", f"data.num_items={HM_CUT_ITEMS}", "--set", "data.num_users=60000",
                 "--set", "data.days=365", "--set", "data.repeat_prob=0.10",
                 "--set", "data.name_style_words=2")
@@ -3463,6 +3480,104 @@ def hm_cut_pretrained_phase(root: str, device) -> dict:
             "purity": purity, "stage_seconds": seconds}
 
 
+def flax_init_model(family: str, spec: dict, device) -> torch.nn.Module:
+    """The port's model of a fixture family, drawn by that family's init site
+    (the JAX site's key) and put on ``device``."""
+    from recsys_tpu_torch.config import (Config, DataConfig, DistillConfig, GNNConfig,
+                                         ItemTowerConfig, RerankerConfig, UserTowerConfig,
+                                         VocabConfig)
+    from recsys_tpu_torch.data.vocab import StdVocab
+    from recsys_tpu_torch.models import flax_init
+    from recsys_tpu_torch.models import reranker as RM
+    from recsys_tpu_torch.models import user_tower as TU
+    from recsys_tpu_torch.train import gnn as G
+    from recsys_tpu_torch.train import hybrid as H
+    from recsys_tpu_torch.train import reranker as TR
+    from recsys_tpu_torch.train import sasrec, simcse
+
+    def tuples(kwargs: dict) -> dict:
+        return {k: tuple(v) if isinstance(v, list) else v for k, v in kwargs.items()}
+
+    seed = spec["seed"]
+    if family.startswith("simcse"):
+        cfg = Config(vocab=VocabConfig(**spec["vocab"]),
+                     item_tower=ItemTowerConfig(**tuples(spec["item_tower"]),
+                                                text_encoder=spec["text_encoder"]))
+        return simcse.build_model(cfg, StdVocab().size, spec["num_std_fields"], device, seed)
+    if "tower" in spec:
+        cfg = Config(user_tower=UserTowerConfig(**spec["tower"]))
+    if family == "stage2":
+        return sasrec.init_stage2_params(cfg, spec["items_pad"], None, device, seed)
+    if family == "side_gates":    # the stage-2 user tower's key, k1 of split(PRNGKey(seed))
+        tower = TU.SASRecUserTower(cfg.user_tower, spec["items_pad"], enable_side_gates=True)
+        return flax_init.init_from_seed(tower, flax_init.split(flax_init.key(seed))[0]).to(device)
+    if family == "hybrid":
+        return H.build_hybrid_model(cfg, spec["items_pad"], spec["content_dim"], spec["gnn_dim"],
+                                    device, seed)
+    if family == "lightgcl":
+        cfg = Config(data=DataConfig(seed=seed), gnn=GNNConfig(emb_dim=spec["emb_dim"]))
+        return G.init_lightgcl(spec["users"], spec["items"], cfg).to(device)
+    if family == "magnitude":
+        d = DistillConfig(hidden_dim=spec["hidden"], out_dim=spec["out_dim"])
+        return G.init_magnitude_encoder(spec["in_dim"], d).to(device)
+    rc = RerankerConfig(**tuples(spec["reranker"]))
+    if family == "dcn":
+        return TR._new_model(lambda: RM.DCNRanker(spec["features"], rc), device, seed, None)
+    return TR._new_model(lambda: RM.DeepFM(tuple(spec["field_sizes"]), rc,
+                                           num_dense=spec["num_dense"]), device, seed, None)
+
+
+def flax_init_phase(device) -> dict:
+    """Phase 23: each family's init site on this machine against the JAX
+    package's init (FLAX_INIT_FIXTURE): the same tree, exact leaves' sha256
+    equal, normal-derived leaves' strided values within FLAX_INIT_TOL x std."""
+    from recsys_tpu_torch.bridge import torch_to_flax
+
+    def flat(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from flat(v, f"{prefix}{k}/")
+            else:
+                yield prefix + k, v
+
+    fixture = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                   FLAX_INIT_FIXTURE))
+    out = {"numpy": np.__version__}
+    for family in sorted(f for f in fixture.files if "/" not in f):
+        ref = json.loads(str(fixture[family]))
+        values = fixture[f"{family}/values"]
+        t0 = time.perf_counter()
+        model = flax_init_model(family, ref["spec"], device)
+        seconds = time.perf_counter() - t0
+        check(all(p.device.type == device.type for p in model.parameters()),
+              f"flax init {family}: the model is not on {device}")
+        leaves = dict(flat(torch_to_flax(model)))
+        check(set(leaves) == set(ref["exact"]) | set(ref["normal"]),
+              f"flax init {family}: the port's tree is not the JAX package's: "
+              f"{sorted(set(leaves) ^ (set(ref['exact']) | set(ref['normal'])))}")
+        for path, digest in ref["exact"].items():
+            got = hashlib.sha256(np.ascontiguousarray(leaves[path]).tobytes()).hexdigest()
+            check(got == digest, f"flax init {family}/{path}: not the JAX package's bits")
+        equal = total = 0
+        worst = 0.0
+        for path, (offset, count, std) in ref["normal"].items():
+            flat_leaf = leaves[path].reshape(-1)
+            got = flat_leaf[::max(1, flat_leaf.size // FLAX_INIT_VALUES)][:FLAX_INIT_VALUES]
+            want = values[offset:offset + count]
+            check(got.shape == want.shape, f"flax init {family}/{path}: {got.shape} values")
+            gap = float(np.abs(got.astype(np.float64) - want).max())
+            check(gap <= FLAX_INIT_TOL * std,
+                  f"flax init {family}/{path}: gap {gap} > {FLAX_INIT_TOL} x std {std}")
+            worst = max(worst, gap / std)
+            equal += int((got == want).sum())
+            total += count
+        out[family] = {"leaves": len(leaves), "exact_leaves": len(ref["exact"]),
+                       "normal_values": total,
+                       "bit_equal_share": equal / total if total else None,
+                       "max_gap_over_std": worst, "seconds": seconds}
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
@@ -3490,6 +3605,8 @@ def main() -> None:
                                     for ln in m.BUILD_INFO.get("ptxas", "").splitlines()
                                     if "registers" in ln or "spill" in ln]}), flush=True)
 
+        init = flax_init_phase(device)      # needs no kernel: first, to fail early
+        print(json.dumps({"phase": "flax_init", **init}), flush=True)
         _rows, kstats = kernel_phase(device)
         result = slice_phase(root)
         print(json.dumps({"phase": "slice", **result}), flush=True)

@@ -456,7 +456,8 @@ def cmd_train_gnn(cfg: Config, args) -> dict:
     return {"check": gnn_propagation_check(model, graph, device, layout),
             "graph": graph_stats(graph), "device": str(device), "steps": state.step,
             "graph_replays": state.graph_replays, "launches": launches,
-            "seconds": seconds, "epoch_losses": state.losses,
+            "seconds": seconds, "init_seconds": state.init_seconds,
+            "epoch_losses": state.losses,
             "step_ms_median": 1e3 * statistics.median(steady) if steady else None}
 
 

@@ -30,13 +30,15 @@ from __future__ import annotations
 
 import contextlib
 import math
+import time
 from typing import Callable, Mapping
 
 import numpy as np
 import torch
 
-from recsys_tpu_torch.config import Config, GNNConfig
+from recsys_tpu_torch.config import Config, DistillConfig, GNNConfig
 from recsys_tpu_torch.device import resolve_device
+from recsys_tpu_torch.models import flax_init
 from recsys_tpu_torch.models.lightgcl import (
     LightGCL,
     MagnitudeEncoder,
@@ -238,6 +240,21 @@ def gnn_runner(step_fn, state: TrainState, edges_u: np.ndarray, edges_i: np.ndar
                      gather={"users": "edge", "pos": "edge"}, capture=capture)
 
 
+def init_lightgcl(num_users: int, num_items: int, cfg: Config,
+                  prop_fn: Callable | None = None) -> LightGCL:
+    """LightGCL on the host with the JAX package's init for ``cfg.data.seed``
+    (``jax.jit(model.init)(PRNGKey(seed))``, ``train_lightgcl``'s)."""
+    return flax_init.build(lambda: LightGCL(num_users, num_items, cfg.gnn, prop_fn=prop_fn),
+                           flax_init.key(cfg.data.seed))
+
+
+def init_magnitude_encoder(in_dim: int, d: DistillConfig) -> MagnitudeEncoder:
+    """The distill student on the host with the JAX package's init
+    (``model.init(PRNGKey(0))``, not jitted: ``train_distill``'s)."""
+    return flax_init.build(lambda: MagnitudeEncoder(in_dim, d.hidden_dim, d.out_dim),
+                           flax_init.key(0), jitted=False)
+
+
 def train_lightgcl(cfg: Config, graph: BipartiteGraph, edges_u: np.ndarray,
                    edges_i: np.ndarray, workdir: str,
                    device: torch.device | str = "cuda", *,
@@ -249,9 +266,11 @@ def train_lightgcl(cfg: Config, graph: BipartiteGraph, edges_u: np.ndarray,
 
     Returns ``(state, model)``; ``state.losses`` holds each epoch's mean loss,
     ``state.step_seconds`` each step's time (CUDA events on the card, so
-    no step waits for the host) and ``state.graph_replays`` the steps run as
-    a CUDA graph replay. ``propagation`` is a ``select_propagation`` result
-    to reuse; by default one is built here (``mesh`` goes to it, for
+    no step waits for the host), ``state.graph_replays`` the steps run as
+    a CUDA graph replay and ``state.init_seconds`` the host time of the
+    initial tables (the JAX package's init for ``data.seed``, drawn in
+    numpy). ``propagation`` is a ``select_propagation`` result to reuse; by
+    default one is built here (``mesh`` goes to it, for
     ``segment_sum_sharded``). ``step_hook(step)`` is called after every step
     (a profiler's switch; it may wait for the card).
 
@@ -265,9 +284,9 @@ def train_lightgcl(cfg: Config, graph: BipartiteGraph, edges_u: np.ndarray,
     device = resolve_device(device)
     prop_fn, prop_args = propagation or select_propagation(g, graph, graph.num_nodes,
                                                             device, mesh)
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(cfg.data.seed)
-        model = LightGCL(graph.num_users, graph.num_items, g, prop_fn=prop_fn)
+    t0 = time.perf_counter()
+    model = init_lightgcl(graph.num_users, graph.num_items, cfg, prop_fn)
+    init_seconds = time.perf_counter() - t0
     model = model.to(device)
     passes = max(1, -(-g.steps_per_epoch_min //
                       max(len(edges_u) // g.batch_size, 1)))
@@ -290,6 +309,7 @@ def train_lightgcl(cfg: Config, graph: BipartiteGraph, edges_u: np.ndarray,
         payload, entry = restored
         model.load_state_dict(payload["model"])
     state = fresh_state()  # fine-tune: fresh optimizer, previous params
+    state.init_seconds = init_seconds
     if restored is not None and resume:
         state.optimizer.load_state_dict(payload["optimizer"])
         if state.scheduler is not None and "scheduler" in payload:
@@ -446,10 +466,7 @@ def train_distill(cfg: Config, teacher_users: np.ndarray, teacher_items: np.ndar
     loop's ``float(loss)``."""
     d = cfg.distill
     device = resolve_device(device)
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(0)
-        model = MagnitudeEncoder(teacher_items.shape[1], d.hidden_dim, d.out_dim)
-    model = model.to(device).train()
+    model = init_magnitude_encoder(teacher_items.shape[1], d).to(device).train()
     state = TrainState(model, device_adam(model, d.lr))
     tu = torch.as_tensor(teacher_users, dtype=torch.float32, device=device)
     ti = torch.as_tensor(teacher_items, dtype=torch.float32, device=device)

@@ -38,6 +38,7 @@ from recsys_tpu_torch.data.dataset import batch_iterator
 from recsys_tpu_torch.device import resolve_device
 from recsys_tpu_torch.eval.ensemble import alpha_sweep
 from recsys_tpu_torch.eval.recall import recall_at_ks, target_rows, topk_scores
+from recsys_tpu_torch.models import flax_init
 from recsys_tpu_torch.models.hybrid_tower import HybridUserTower
 from recsys_tpu_torch.models.layers import l2_normalize
 from recsys_tpu_torch.ops.augment import apply_random_cut, random_cut_draws
@@ -65,13 +66,15 @@ def align_gnn_users(gnn_vecs: np.ndarray, gnn_ids: list[str], user_ids: list[str
 
 
 def build_hybrid_model(cfg: Config, num_items_pad: int, content_dim: int, gnn_dim: int,
-                       device: torch.device | str = "cuda", seed: int = 0) -> HybridUserTower:
-    """The tower the trainer builds (the class default of 4 layers), seeded,
-    on ``device``."""
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(seed)
-        model = HybridUserTower(cfg.user_tower, num_id_embeddings=num_items_pad,
-                                content_dim=content_dim, gnn_dim=gnn_dim)
+                       device: torch.device | str = "cuda",
+                       seed: int | None = 0) -> HybridUserTower:
+    """The tower the trainer builds (the class default of 4 layers) on
+    ``device``, with the JAX package's init for ``seed``; ``seed`` None: no
+    draw, for a caller that loads a checkpoint into it."""
+    model = flax_init.build(
+        lambda: HybridUserTower(cfg.user_tower, num_id_embeddings=num_items_pad,
+                                content_dim=content_dim, gnn_dim=gnn_dim),
+        None if seed is None else flax_init.key(seed))
     return model.to(resolve_device(device))
 
 
@@ -272,10 +275,10 @@ def restore_hybrid(cfg: Config, data: dict, content: np.ndarray, gnn_items: np.n
     serving): ``(model, user_vectors, item_matrix)``. A params-only restore,
     so a checkpoint of any optimizer recipe loads; raises FileNotFoundError
     when the store is empty."""
-    model = build_hybrid_model(cfg, len(data["item_map"]) + 1, content.shape[1],
-                               gnn_items.shape[1], device, seed=cfg.data.seed)
     params, _ = CheckpointStore(workdir, maximize=True).restore_best_params(
         resolve_device(device))
+    model = build_hybrid_model(cfg, len(data["item_map"]) + 1, content.shape[1],
+                               gnn_items.shape[1], device, seed=None)
     model.load_state_dict(params)
     state = TrainState(model, torch.optim.SGD(model.parameters(), lr=0.0))
     _, uv_fn, im_fn = make_hybrid_step(cfg, state, content, gnn_items, data["logq"])

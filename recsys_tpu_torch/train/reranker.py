@@ -31,6 +31,7 @@ from recsys_tpu_torch.config import Config
 from recsys_tpu_torch.data.ranker_features import build_rank_features
 from recsys_tpu_torch.device import resolve_device
 from recsys_tpu_torch.eval.recall import topk_scores
+from recsys_tpu_torch.models import flax_init
 from recsys_tpu_torch.models.reranker import DCNRanker, DeepFM
 from recsys_tpu_torch.train.state import StepTimer, TrainState, device_adam
 from recsys_tpu_torch.train.step_graph import StepGraph
@@ -378,14 +379,13 @@ class GBDTRanker:
 
 def _new_model(build: Callable[[], torch.nn.Module], device: torch.device, seed: int,
                init_state: Mapping[str, torch.Tensor] | None) -> torch.nn.Module:
-    """A model with seeded random weights, or with ``init_state`` loaded. It
-    stays in eval mode: the JAX trainers call ``model.apply`` without
-    ``deterministic``, whose default is True, so dropout is never on in
-    training either, and the port trains the same function (and its step
-    draws no random numbers)."""
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(seed)
-        model = build()
+    """A model with the JAX trainers' init for ``seed`` (``model.init(PRNGKey(
+    seed))``, not jitted), or with ``init_state`` loaded. It stays in eval
+    mode: the JAX trainers call ``model.apply`` without ``deterministic``,
+    whose default is True, so dropout is never on in training either, and the
+    port trains the same function (and its step draws no random numbers)."""
+    model = flax_init.build(build, None if init_state is not None else flax_init.key(seed),
+                            jitted=False)
     if init_state is not None:
         model.load_state_dict(init_state, strict=True)
     return model.to(device).eval()

@@ -49,6 +49,7 @@ from recsys_tpu_torch.data import etl
 from recsys_tpu_torch.data.dataset import batch_iterator, build_sasrec_tensors, build_side_info
 from recsys_tpu_torch.device import resolve_device
 from recsys_tpu_torch.eval.recall import recall_at_ks, target_rows, topk_scores
+from recsys_tpu_torch.models import flax_init
 from recsys_tpu_torch.models.layers import l2_normalize
 from recsys_tpu_torch.models.user_tower import Stage2Model
 from recsys_tpu_torch.ops import select_logq_loss
@@ -87,13 +88,18 @@ def prepare_stage2(cfg: Config, items, users, tx_df) -> dict:
 
 
 def init_stage2_params(cfg: Config, num_items_pad: int, pretrained: np.ndarray | None,
-                       device: torch.device | str = "cuda", seed: int = 0) -> Stage2Model:
-    """Both towers on ``device``, seeded; the item matrix is the stage-1
-    matrix when ``pretrained`` is given."""
+                       device: torch.device | str = "cuda", seed: int | None = 0) -> Stage2Model:
+    """Both towers on ``device`` with the JAX package's init for ``seed``: the
+    user tower from k1 and the item tower from k2 of ``split(PRNGKey(seed))``;
+    the item matrix is the stage-1 matrix when ``pretrained`` is given.
+    ``seed`` None: no draw, for a caller that loads a checkpoint into it."""
     device = resolve_device(device)
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(seed)
-        model = Stage2Model(cfg.user_tower, num_items_pad)
+    model = flax_init.build(lambda: Stage2Model(cfg.user_tower, num_items_pad), None)
+    if seed is not None:
+        k_user, k_item = flax_init.split(flax_init.key(seed))
+        flax_init.init_from_seed(model.user, k_user)
+        if pretrained is None:
+            flax_init.init_from_seed(model.item, k_item)
     if pretrained is not None:
         with torch.no_grad():
             model.item.item_matrix.copy_(torch.as_tensor(np.asarray(pretrained, np.float32)))
@@ -415,11 +421,12 @@ def restore_stage2(cfg: Config, data: dict, ckpt_dir: str, device: torch.device 
     optimizer recipe) and their eval forward: ``(model, user_vectors, entry)``.
     Without a checkpoint: a seeded init (the JAX stage's fall-back), entry None."""
     device = resolve_device(device)
-    model = init_stage2_params(cfg, len(data["item_map"]) + 1, pretrained, device, seed=0)
-    entry = None
+    n_pad = len(data["item_map"]) + 1
     try:
         params, entry = CheckpointStore(ckpt_dir, maximize=True).restore_best_params(device)
-        model.load_state_dict(params)
     except FileNotFoundError:
-        pass
+        model = init_stage2_params(cfg, n_pad, pretrained, device, seed=0)
+        return model, make_user_vectors(model, model.item), None
+    model = init_stage2_params(cfg, n_pad, None, device, seed=None)
+    model.load_state_dict(params)
     return model, make_user_vectors(model, model.item), entry

@@ -39,6 +39,7 @@ from recsys_tpu_torch.config import Config
 from recsys_tpu_torch.data.dataset import batch_iterator
 from recsys_tpu_torch.device import resolve_device
 from recsys_tpu_torch.data.vocab import StdVocab
+from recsys_tpu_torch.models import flax_init
 from recsys_tpu_torch.models.item_tower import SimCSEModel
 from recsys_tpu_torch.models.text_encoder import PretrainedTextEncoder
 from recsys_tpu_torch.ops import select_infonce
@@ -55,15 +56,14 @@ MODEL_INPUTS = ("std", "re_ids", "re_mask", "txt_ids", "txt_mask")
 
 
 def build_model(cfg: Config, std_vocab_size: int, num_std_fields: int,
-                device: torch.device | str = "cuda", seed: int | None = None
-                ) -> SimCSEModel:
-    """A fresh model on ``device``; ``seed`` makes its random init reproducible."""
+                device: torch.device | str = "cuda", seed: int | None = 0) -> SimCSEModel:
+    """A fresh model on ``device`` with the JAX package's init for ``seed``
+    (``init_params(model, tensors, PRNGKey(seed))``); ``seed`` None: no draw,
+    for a caller that loads a checkpoint into it."""
     device = resolve_device(device)
-    with torch.random.fork_rng(devices=[]):
-        if seed is not None:
-            torch.manual_seed(seed)
-        model = SimCSEModel(std_vocab_size, num_std_fields, cfg.item_tower, cfg.vocab)
-    return model.to(device)
+    return flax_init.build(
+        lambda: SimCSEModel(std_vocab_size, num_std_fields, cfg.item_tower, cfg.vocab),
+        None if seed is None else flax_init.key(seed)).to(device)
 
 
 def item_tensors_to(tensors: dict, device: torch.device | str) -> dict:
@@ -288,11 +288,11 @@ def restore_model(cfg: Config, ckpt_dir: str, num_std_fields: int,
                   device: torch.device | str) -> tuple[SimCSEModel, dict | None]:
     """The best checkpoint's model, or a seeded random init when there is
     none (the JAX stages' fallback)."""
-    model = build_model(cfg, StdVocab().size, num_std_fields, device, seed=0)
     try:
         payload, entry = CheckpointStore(ckpt_dir, maximize=False).restore_best(device)
     except FileNotFoundError:
-        return model.eval(), None
+        return build_model(cfg, StdVocab().size, num_std_fields, device, seed=0).eval(), None
+    model = build_model(cfg, StdVocab().size, num_std_fields, device, seed=None)
     model.load_state_dict(payload["model"])
     return model.eval(), entry
 

@@ -69,6 +69,7 @@ class TrainState:
     losses: list[float] = field(default_factory=list)         # per step
     step_seconds: list[float] = field(default_factory=list)   # see StepTimer
     graph_replays: int = 0                                    # steps run as a CUDA graph replay
+    init_seconds: float = 0.0                                 # host time of the initial draw
 
 
 class StepTimer:

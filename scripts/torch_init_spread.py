@@ -1,26 +1,24 @@
-"""The pretrained arm at the H&M catalog over init draws: the port trained from
-its own init and from the JAX package's init of the same seed.
+"""The pretrained arm at the H&M catalog from the port's init and from the JAX
+package's init of the same seed, saved on a machine with JAX.
 
     python3 scripts/torch_init_spread.py --jax-init DIR [--device cuda]
-        [--plan spread|groups] [--seeds 42,1,2,3,4,5] [--set key=value ...]
+        [--seeds 42,1,2,3,4,5] [--set key=value ...]
 
-``DIR`` holds the JAX package's inits as the port's ``state_dict``s, made on
-a machine with JAX by ``JAX_PLATFORMS=cpu python3
+The port's trainers draw the JAX package's init themselves
+(``models/flax_init.py``), so the two arms start from the same parameters:
+each ``jax`` line carries ``init_gap``, the largest gap between the port's
+draw and the saved JAX init over every tensor, in units of the tensor's std
+(0.0 where the draws are bit-equal), and the two arms of a seed should give
+the same numbers on one machine. ``DIR`` holds the JAX package's inits as
+the port's ``state_dict``s, made by ``JAX_PLATFORMS=cpu python3
 scripts/torch_simcse_lockstep.py --root R --save-jax-init DIR`` (this script
 imports no JAX). The world is ``scripts/text_ab_seeds.py --world hm``'s
 (105,000 items, 1,000 users), made once here by ``gen-data`` and
 ``pretrain-text``. Each run is ``train_simcse`` with the pretrained encoder,
-``simcse.epochs=3`` and ``data.seed`` = the seed (so its training draws and
-batch order are the port's own), then the best checkpoint's item vectors and
-``torch_quality_hm.knn_purity`` over 8,192 queries.
-
-``--plan spread``: each seed from the port's own init (``own``) and from the
-JAX init (``jax``), then, for the first three seeds, the JAX init with the
-port's init of the text encoder (``jax+text``) or of everything else
-(``jax+rest``) swapped in. ``--plan groups``: the JAX init with the port's
-init of one group of the rest swapped in (``std``, ``re``, ``txtproj``,
-``fusion``, ``head``, ``projector``), for the seeds given. One JSON line a
-run.
+``simcse.epochs=3`` and ``data.seed`` = the seed (its dropout, corruption
+and batch order are the port's own torch draws), then the best checkpoint's
+item vectors and ``torch_quality_hm.knn_purity`` over 8,192 queries. One
+JSON line a run.
 """
 
 from __future__ import annotations
@@ -48,14 +46,6 @@ from recsys_tpu_torch.train.checkpoint import CheckpointStore  # noqa: E402
 
 WORLD = ["data.num_items=105000", "data.num_users=1000", "data.days=365",
          "data.repeat_prob=0.10", "data.name_style_words=2"]
-GROUPS = {"text": lambda n: "text_encoder" in n,
-          "rest": lambda n: "text_encoder" not in n,
-          "std": lambda n: n.startswith("encoder.std_"),
-          "re": lambda n: n.startswith("encoder.re_"),
-          "txtproj": lambda n: n.startswith("encoder.text_projection"),
-          "fusion": lambda n: n.startswith("encoder.fusion"),
-          "head": lambda n: n.startswith("encoder.head"),
-          "projector": lambda n: n.startswith("projector")}
 TABLE = "encoder.text_encoder.pretrained_embedding"
 
 
@@ -67,16 +57,24 @@ def quality_script():
     return module
 
 
-def init_state(init: str, seed: int, jax_dir: str, cfg, nf: int, table) -> dict | None:
-    """The state_dict a run starts from: None for the port's own init."""
+def init_state(init: str, seed: int, jax_dir: str, table) -> dict | None:
+    """The state_dict a run starts from: None for the port's own draw."""
     if init == "own":
         return None
     jax_sd = np.load(f"{jax_dir}/seed{seed}.npz")
-    swap = GROUPS[init.split("+")[1]] if "+" in init else (lambda n: False)
-    own = TS.build_model(cfg, StdVocab().size, nf, "cpu", seed=seed).state_dict()
-    sd = {n: own[n] if swap(n) else torch.as_tensor(jax_sd[n]) for n in jax_sd.files}
+    sd = {n: torch.as_tensor(jax_sd[n]) for n in jax_sd.files}
     sd[TABLE] = torch.as_tensor(table)
     return sd
+
+
+def init_gap(seed: int, jax_dir: str, cfg, nf: int) -> float:
+    """The port's init for ``seed`` against the saved JAX init: the largest
+    absolute gap over every saved tensor, over that tensor's std."""
+    own = TS.build_model(cfg, StdVocab().size, nf, "cpu", seed=seed).state_dict()
+    jax_sd = np.load(f"{jax_dir}/seed{seed}.npz")
+    gaps = [float(np.abs(own[n].numpy().astype(np.float64) - jax_sd[n]).max())
+            / max(float(jax_sd[n].std()), 1e-30) for n in jax_sd.files]
+    return max(gaps)
 
 
 def run(seed: int, init: str, args, root: str, labels_of, quality, table) -> dict:
@@ -87,7 +85,7 @@ def run(seed: int, init: str, args, root: str, labels_of, quality, table) -> dic
     tensors = cli._item_tensors(cfg)
     nf = tensors["std"].shape[1]
     work = tempfile.mkdtemp(prefix=f"{init}_{seed}_", dir=root)
-    sd = init_state(init, seed, args.jax_init, cfg, nf, table)
+    sd = init_state(init, seed, args.jax_init, table)
     if sd is not None:
         CheckpointStore(work, maximize=False).save("init", {"model": sd}, step=0)
     t0 = time.perf_counter()
@@ -97,23 +95,23 @@ def run(seed: int, init: str, args, root: str, labels_of, quality, table) -> dic
     vecs = TS.encode_items(model, TS.item_tensors_to(tensors, args.device), 4096).cpu().numpy()
     out = quality.knn_purity(vecs, labels_of(tensors["item_ids"]), 10, sample=8192,
                              device=args.device)
-    return {"seed": seed, "init": init, "steps": state.step, "best_step": entry["step"],
-            "seconds": time.perf_counter() - t0,
-            **{k: out[k] for k in ("knn_purity", "within_cos", "cross_cos")}}
+    row = {"seed": seed, "init": init, "steps": state.step, "best_step": entry["step"],
+           "seconds": time.perf_counter() - t0,
+           **{k: out[k] for k in ("knn_purity", "within_cos", "cross_cos")}}
+    if init == "jax":
+        row["init_gap"] = init_gap(seed, args.jax_init, cfg, nf)
+    return row
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--jax-init", required=True, metavar="DIR")
     parser.add_argument("--device", default="cuda")
-    parser.add_argument("--plan", choices=("spread", "groups"), default="spread")
-    parser.add_argument("--seeds", default=None,
-                        help="default: 42,1,2,3,4,5 (spread), 42,1,2,5 (groups)")
+    parser.add_argument("--seeds", default="42,1,2,3,4,5")
     parser.add_argument("--set", action="append", default=[], dest="sets",
                         help="more overrides after the world's (a smaller world for a test)")
     args = parser.parse_args(argv)
-    seeds = [int(s) for s in (args.seeds or ("42,1,2,3,4,5" if args.plan == "spread"
-                                             else "42,1,2,5")).split(",")]
+    seeds = [int(s) for s in args.seeds.split(",")]
     quality = quality_script()
     root = tempfile.mkdtemp(prefix="init_spread_")
     sets = ["--set", f"data.root={root}", *[a for kv in [*WORLD, *args.sets]
@@ -128,13 +126,7 @@ def main(argv=None) -> int:
     def labels_of(ids):
         return lab.reindex([str(i) for i in ids]).to_numpy()
 
-    if args.plan == "spread":
-        plan = [(s, i) for s in seeds for i in ("own", "jax")]
-        plan += [(s, i) for s in seeds[:3] for i in ("jax+text", "jax+rest")]
-    else:
-        plan = [(s, f"jax+{g}") for s in seeds
-                for g in ("std", "re", "txtproj", "fusion", "head", "projector")]
-    for seed, init in plan:
+    for seed, init in [(s, i) for s in seeds for i in ("own", "jax")]:
         print(json.dumps({"run": run(seed, init, args, root, labels_of, quality, table)}),
               flush=True)
     return 0

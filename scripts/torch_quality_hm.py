@@ -6,6 +6,7 @@ committed runs of the same worlds.
         [--device cuda] [--budget-s 3350]
         [--reserve-s 1200] [--user-epochs 25] [--item-epochs 3] [--requests 20]
         [--set key=value ...]
+    python3 scripts/torch_quality_hm.py --compare DIR
 
 The world of ``scripts/quality_hm_v4_data.sh`` (105,000 items, 1,370,000
 users, 365 days, ``data.repeat_prob=0.10``, ``data.name_style_words=2``) and
@@ -101,7 +102,10 @@ JSONs go to ``--out`` under the committed files' names. Exit code 1 when an
 exact gate fails (the world, the ETL, the item steps, the matrix shape, the
 training-free baselines, n_eval, the served vectors, and the hybrid recipe's
 exact rows); a statistical comparison outside its band is ``"ok": false`` in
-the summary and leaves the exit code 0.
+the summary and leaves the exit code 0. ``--compare DIR`` runs nothing: it
+sets the stage JSONs of a ``--recipe hybrid`` run cut before its serve stage
+(by a call's time limit) beside the committed run, as the summary would,
+and writes ``DIR/summary.json``.
 """
 
 from __future__ import annotations
@@ -929,11 +933,16 @@ def parse_args(argv=None):
     parser.add_argument("--requests", type=int, default=20)
     parser.add_argument("--set", action="append", default=[], dest="sets",
                         help="more overrides after the world's (a smaller world for a test)")
+    parser.add_argument("--compare", default=None, metavar="DIR",
+                        help="no run: a cut --recipe hybrid run's stage JSONs in DIR against "
+                             "the committed JAX run")
     return parser.parse_args(argv)
 
 
 def main(argv=None) -> int:
     args = parse_args(argv)
+    if args.compare:
+        return compare_cut_hybrid(args.compare)
     start = time.time()
     os.makedirs(args.out, exist_ok=True)
     on_card = args.device.startswith("cuda")
@@ -1042,6 +1051,39 @@ def main(argv=None) -> int:
     return 0 if result["exact_ok"] else 1
 
 
+def hybrid_replay_rows(got: dict) -> list[dict]:
+    """On the card every step after the warm-up is a graph replay: LightGCL,
+    distill, the hybrid tower and rerank-eval's DCN arm."""
+    rr = got["rerank_hybrid"]
+    return [exact_row(name, replays, steps - WARMUP_STEPS) for name, replays, steps in (
+        *((f"{k}.graph_replays", got[k]["graph_replays"], got[k]["steps"])
+          for k in ("gnn", "distill", "hybrid")),
+        ("rerank_hybrid.dcn_graph_replays", rr.get("dcn_graph_replays"),
+         rr.get("dcn_steps", WARMUP_STEPS)))]
+
+
+def compare_cut_hybrid(run_dir: str) -> int:
+    """``--compare DIR``: the hybrid recipe's rows of a card run cut before
+    its summary (by the call's time limit), from the stage JSONs it wrote to
+    DIR, against the committed JAX run; the serve stage's rows need the run
+    itself. K2's row is train-gnn's own count (4 a step; the stage's also
+    holds the export's and the check's). Writes DIR/summary.json; exit 1 if
+    an exact gate misses."""
+    got = load_reference(run_dir, HYBRID_REFERENCE)
+    result = compare_hybrid(got, load_reference(names=HYBRID_REFERENCE))
+    rows = [exact_row("gnn.launches", got["gnn"]["launches"],
+                      {"spmm_csr": 4 * got["gnn"]["steps"]}), *hybrid_replay_rows(got)]
+    result["comparisons"] += rows
+    result["exact_ok"] = result["exact_ok"] and all(r["ok"] for r in rows)
+    result["misses"] += [r["name"] for r in rows if not r["ok"]]
+    summary = {"recipe": "hybrid", "cut_before": "serve", "run_dir": run_dir,
+               "init_seconds": got["gnn"].get("init_seconds"), **result}
+    with open(os.path.join(run_dir, "summary.json"), "w") as f:
+        json.dump(summary, f, indent=1)
+    print(json.dumps(summary), flush=True)
+    return 0 if result["exact_ok"] else 1
+
+
 def hybrid_recipe(args, stage, stages: dict, got: dict, root: str, world_extra: tuple,
                   card: str, start: float, item: dict) -> int:
     """The headline chain after vectorize (see the module docstring), its
@@ -1078,17 +1120,9 @@ def hybrid_recipe(args, stage, stages: dict, got: dict, root: str, world_extra: 
             _row("serve.rerank_equal_offline", serve["rerank_equal_offline"], None, "exact",
                  serve["rerank_equal_offline"] == serve["users"])]
     if args.device.startswith("cuda"):
-        # every step after the warm-up a graph replay: LightGCL (K2 four times a
-        # step), distill, the hybrid tower and rerank-eval's DCN arm
         rows.append(exact_row("gnn.k2_launches", stages["gnn"]["k2_launches"],
                               {"spmm_csr": 4 * gnn["steps"] + 2 * 2}))
-        rr = got["rerank_hybrid"]
-        for name, replays, steps in (
-                *((f"{k}.graph_replays", got[k]["graph_replays"], got[k]["steps"])
-                  for k in ("gnn", "distill", "hybrid")),
-                ("rerank_hybrid.dcn_graph_replays", rr.get("dcn_graph_replays"),
-                 rr.get("dcn_steps", WARMUP_STEPS))):
-            rows.append(exact_row(name, replays, steps - WARMUP_STEPS))
+        rows += hybrid_replay_rows(got)
     for row in rows:
         result["comparisons"].append(row)
         result["exact_ok"] = result["exact_ok"] and row["ok"]

@@ -28,7 +28,7 @@ from recsys_tpu_torch.config import (
     GNNConfig,
     RerankerConfig,
 )
-from recsys_tpu_torch.models.lightgcl import LightGCL, MagnitudeEncoder, distill_loss
+from recsys_tpu_torch.models.lightgcl import distill_loss
 from recsys_tpu_torch.models.reranker import DCNRanker, DeepFM
 from recsys_tpu_torch.ops.graph import build_graph
 from recsys_tpu_torch.train.checkpoint import CheckpointStore
@@ -125,9 +125,7 @@ def eager_lightgcl(cfg, graph, u, i, *, fine_tune=False, start=None, epochs=None
     state to resume from. Returns (epoch losses, model, optimizer)."""
     g = cfg.gnn
     prop_fn, prop_args = TG.select_propagation(g, graph, graph.num_nodes, "cpu")
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(cfg.data.seed)
-        model = LightGCL(graph.num_users, graph.num_items, g, prop_fn=prop_fn)
+    model = TG.init_lightgcl(graph.num_users, graph.num_items, cfg, prop_fn)
     passes = max(1, -(-g.steps_per_epoch_min // max(len(u) // g.batch_size, 1)))
     steps_per_epoch = max(len(u) // g.batch_size, 1) * passes
     lr = g.lr * 0.4 if fine_tune else g.lr
@@ -215,9 +213,7 @@ def eager_distill(cfg, tu, ti):
     """The replaced distill loop: host Adam, rows sent as tensors, the mining
     with ``torch.topk`` (no ties in these continuous scores)."""
     d = cfg.distill
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(0)
-        model = MagnitudeEncoder(ti.shape[1], d.hidden_dim, d.out_dim)
+    model = TG.init_magnitude_encoder(ti.shape[1], d)
     opt = TG._adam(model, d.lr)
     tu, ti = torch.as_tensor(tu), torch.as_tensor(ti)
     rng = np.random.default_rng(0)

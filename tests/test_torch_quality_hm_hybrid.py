@@ -111,3 +111,31 @@ def test_rows_of_the_committed_run_pass(script):
     assert rows["hybrid.gnn_arm"]["jax"] == "gnn_cos"
     assert rows["gnn_eval.n_eval_users"]["jax"] == 216834
     assert rows["hybrid.hybrid_best.n_eval"]["jax"] == 216802
+
+
+def test_a_cut_run_is_compared_from_its_stage_jsons(script, toy_run, tmp_path):
+    """``--compare DIR``: the rows of a run cut before its serve stage, from
+    the stage JSONs it wrote (the toy world misses the exact gates: exit 1)."""
+    import shutil
+
+    _, out_dir = toy_run
+    for name in script.HYBRID_REFERENCE:
+        shutil.copy(out_dir / f"{name}.json", tmp_path / f"{name}.json")
+    assert script.main(["--compare", str(tmp_path)]) == 1
+    summary = json.loads((tmp_path / "summary.json").read_text())
+    assert summary["cut_before"] == "serve" and "gen.items" in summary["misses"]
+    rows = {r["name"]: r for r in summary["comparisons"]}
+    assert {"gnn.launches", "gnn.graph_replays", "rerank_hybrid.dcn_graph_replays"} <= set(rows)
+
+
+def test_the_committed_cut_run_passes(script, tmp_path):
+    """The committed card run on the JAX package's inits, cut in its serve
+    stage: every exact gate and band of its other stages."""
+    import shutil
+
+    src = os.path.join(REPO, "artifacts", "torch_quality_hm_v4_hybrid_flaxinit")
+    for name in script.HYBRID_REFERENCE:
+        shutil.copy(os.path.join(src, f"{name}.json"), tmp_path / f"{name}.json")
+    assert script.main(["--compare", str(tmp_path)]) == 0
+    summary = json.loads((tmp_path / "summary.json").read_text())
+    assert summary["exact_ok"] and summary["bands_ok"] and summary["misses"] == []
