@@ -3,9 +3,10 @@
     python3 chip_smoke.py
 
 Builds kernels K1 (recsys_tpu_torch/csrc/diag_ce.cu), K2
-(recsys_tpu_torch/csrc/spmm.cu), K3 (recsys_tpu_torch/csrc/fm.cu) and K4
-(recsys_tpu_torch/csrc/ring.cu) for sm_90a from the checkout, all at once,
-then (phases 10 and 11 run after 6, while the graph of 4 is still there):
+(recsys_tpu_torch/csrc/spmm.cu), K3 (recsys_tpu_torch/csrc/fm.cu), K4
+(recsys_tpu_torch/csrc/ring.cu) and the approximate top-k scans
+(recsys_tpu_torch/csrc/approx_topk.cu) for sm_90a from the checkout, all at
+once, then (phases 10 and 11 run after 6, while the graph of 4 is still there):
 
   1. kernel vs plain: K1's forward and both backward kernels against their
      plain PyTorch forms on the card, at the SimCSE shape (B=192, D=128),
@@ -195,14 +196,31 @@ then (phases 10 and 11 run after 6, while the graph of 4 is still there):
   17. the device indexes at full size, on bench_retrieval.py's four catalogs
      (47,000 items k = 500 and k = 50, 105,000, 1,000,000; B = 1024 queries,
      D = 128, ``default_rng(0)``, PAD row zero): exact (``topk_scores``), int8
-     (``ops/quant.int8_topk``) and IVF (``ops/ivf``, nlist / nprobe as there)
-     timed with CUDA events over chained repeats, the IVF build's seconds
-     (IVF dropped from a row whose build passes IVF_BUILD_LIMIT_S), recalls
-     against exact. Gates: the int8 accumulator equals the exact integer
-     product for every query; the int8 top-k equals the plain form's
-     tie-exact top-k; at 47,000 items IVF with every bucket probed gives the
-     exact top-k (values within IVF_TOL, ids equal but for ties at the edge);
-     no launch of K1-K4.
+     (``ops/quant.int8_topk``), the approximate top-k of both at
+     bench_retrieval.py's recall target (``method="approx"``: the scans of
+     csrc/approx_topk.cu, then the top-k of the bins' winners; the bin count
+     O in the row) and IVF (``ops/ivf``, nlist / nprobe as there) timed with
+     CUDA events over chained repeats (bench_retrieval.py's row names:
+     exact_ms, int8_ms, approx_ms, int8_approx_ms, ivf_ms), the IVF build's
+     seconds (IVF dropped from a row whose build passes IVF_BUILD_LIMIT_S),
+     recalls against exact (int8_approx_recall against the fp32 exact top-k,
+     as bench_retrieval.py; int8_approx_recall_vs_int8 against int8's own).
+     Each approximate scan alone and its plain form on all the queries in
+     turns (CUDA events), beside its bound. Gates: the int8 accumulator
+     equals the exact integer product for every query; the int8 top-k equals
+     the plain form's tie-exact top-k; on all 1,024 queries the fp32 scan's
+     bins are within APPROX_TOL of the scores' scale of its plain form's, a
+     bin's column equal but where its two best scores lie within that, the
+     top-k of the winners equal but for ties at the edge, and the int8
+     scan's bins (of the dequantized scores) and approximate top-k equal the
+     plain form's bit for bit; the approximate recall against exact (fp32)
+     and against int8's own top-k (int8) at least APPROX_RECALL_FLOOR at
+     every catalog;
+     at 47,000 items IVF with every bucket probed gives the exact top-k
+     (values within IVF_TOL, ids equal but for ties at the edge); no launch
+     of K1-K4; each approximate scan launched by the main path's calls (the
+     counts zeroed before them and read after, the comparisons' launches
+     outside).
   18. serving on the world of phase 2 through ``cli.build_app`` with
      ``serve.ann_backend=int8`` and then ``ivf`` (at the default probe
      count, 8 of ~45 buckets here) behind the HTTP server: ingest,
@@ -337,6 +355,7 @@ try:
     import numpy as np
     import torch
 
+    from recsys_tpu_torch.ops import approx_topk as A
     from recsys_tpu_torch.ops import contrastive_kernel as K
     from recsys_tpu_torch.ops import fm_kernel as FM
     from recsys_tpu_torch.ops import spmm as S
@@ -351,7 +370,8 @@ except ImportError as e:  # run outside the repository
 SOURCES = {"diag_ce": "recsys_tpu_torch/csrc/diag_ce.cu",
            "spmm": "recsys_tpu_torch/csrc/spmm.cu",
            "fm": "recsys_tpu_torch/csrc/fm.cu",
-           "ring": "recsys_tpu_torch/csrc/ring.cu"}
+           "ring": "recsys_tpu_torch/csrc/ring.cu",
+           "approx_topk": "recsys_tpu_torch/csrc/approx_topk.cu"}
 REPLACES = {
     "diag_ce_fwd": "recsys_tpu/ops/pallas_contrastive.py:73",
     "diag_ce_bwd_dq": "recsys_tpu/ops/pallas_contrastive.py:97",
@@ -361,9 +381,14 @@ REPLACES = {
     "fm_bwd": "recsys_tpu/ops/pallas_fm.py:31",
     "ring_uni": "recsys_tpu/parallel/pallas_ring.py:81",
     "ring_bidi": "recsys_tpu/parallel/pallas_ring.py:127",
+    "approx_scan_f32": "recsys_tpu/eval/recall.py:71 (jax.lax.approx_max_k: XLA's TPU "
+                       "primitive, not a Pallas kernel)",
+    "approx_scan_int8": "recsys_tpu/ops/quant.py:74 (jax.lax.approx_max_k: XLA's TPU "
+                        "primitive, not a Pallas kernel)",
 }
-# published peaks of one H100 SXM: device memory and fp32 outside the tensor cores
-PEAK_BYTES_PER_S, PEAK_FP32_FLOPS = 3.35e12, 67e12
+# published peaks of one H100 SXM: device memory, fp32 outside the tensor cores, int8
+# on the tensor cores (dense)
+PEAK_BYTES_PER_S, PEAK_FP32_FLOPS, PEAK_INT8_OPS = 3.35e12, 67e12, 1979e12
 SPMM_TOL = 1e-5          # small graph, as tests/test_spmm.py
 REF_TOL = 5e-5           # reference scale: kernel vs plain, both fp32 (see docstring)
 REF_ERR_MULT, REF_ERR_FLOOR = 4.0, 1e-6
@@ -407,6 +432,12 @@ HYBRID_EPOCHS, HYBRID_STEPS_MIN, HYBRID_RERANK_ITERS, HYBRID_GNN_DIM = 4, 13, 10
 RETRIEVAL_CATALOGS = ((47_000, 500, 256, 32), (47_000, 50, 256, 16),
                       (105_000, 500, 512, 32), (1_000_000, 100, 1024, 32))
 RETRIEVAL_B, RETRIEVAL_REPS, IVF_TOL, IVF_BUILD_LIMIT_S = 1024, 20, 1e-5, 120.0
+# the approximate top-k there: bench_retrieval.py's recall target; the fp32 scan held
+# to its plain form within APPROX_TOL of the scores' scale on every query; each form's
+# recall against its exact top-k at least APPROX_RECALL_FLOOR; the scans' own times
+# over APPROX_KERNEL_ITERS calls in turns with the plain forms
+APPROX_TARGET, APPROX_TOL = 0.95, 1e-5
+APPROX_RECALL_FLOOR, APPROX_KERNEL_ITERS = 0.95, 5
 # phase 18: similarity queries a backend, users whose purchases feed /train/user-tower;
 SIMILARITY_QUERIES, TRAIN_ROUTE_USERS = 16, 64
 # IVF served at its default probe count: the share of IVF_QUERIES well-separated
@@ -532,10 +563,10 @@ def interleaved_ms(kernel_fn, plain_fn, iters: int) -> tuple[float, float]:
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def bound(n_bytes: float, n_ops: float) -> dict:
+def bound(n_bytes: float, n_ops: float, peak_ops: float = PEAK_FP32_FLOPS) -> dict:
     """The least time the card could take: bytes over its memory rate or
-    operations over its fp32 rate, whichever is larger."""
-    by_bytes, by_ops = 1e3 * n_bytes / PEAK_BYTES_PER_S, 1e3 * n_ops / PEAK_FP32_FLOPS
+    operations over their peak rate (fp32 unless given), whichever is larger."""
+    by_bytes, by_ops = 1e3 * n_bytes / PEAK_BYTES_PER_S, 1e3 * n_ops / peak_ops
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
@@ -2225,7 +2256,7 @@ def item_step_phase(root: str, device) -> dict:
 # -- phase 15: the hybrid slice through the CLI ---------------------------------------
 
 def all_launches() -> dict:
-    return {**K.LAUNCHES, **S.LAUNCHES, **FM.LAUNCHES, **R.LAUNCHES}
+    return {**K.LAUNCHES, **S.LAUNCHES, **FM.LAUNCHES, **R.LAUNCHES, **A.LAUNCHES}
 
 
 def hybrid_slice_phase(root: str) -> dict:
@@ -2566,14 +2597,94 @@ def check_full_probe(name: str, q: torch.Tensor, items: torch.Tensor, vals, idx,
                   f"{name}: full-probe IVF ids differ from the exact top-k in row {r}")
 
 
-def retrieval_phase(device) -> list[dict]:
-    from recsys_tpu_torch.eval.recall import topk_scores
+def approx_bounds(B: int, n: int, dim: int, bins: int) -> dict:
+    """Each approximate scan reads the queries and the items once and writes
+    the (B, bins) values and columns once; it does 2 B n D operations, in fp32
+    outside the tensor cores or in int8 at the tensor cores' rate."""
+    out, ops = 8 * B * bins, 2.0 * B * n * dim
+    return {"approx_scan_f32": bound(4 * (B + n) * dim + out, ops),
+            "approx_scan_int8": bound((B + n) * dim + out, ops, PEAK_INT8_OPS)}
+
+
+def score64(u: torch.Tensor, unit: torch.Tensor, rows: torch.Tensor,
+            cols: torch.Tensor) -> torch.Tensor:
+    """The float64 scores of the (row, column) pairs, the PAD column -inf."""
+    s = (u[rows].double() * unit[cols.long()].double()).sum(-1)
+    return torch.where(cols == 0, -torch.inf, s)
+
+
+def check_approx(name: str, q: torch.Tensor, unit: torch.Tensor, qi, k: int, bins: int,
+                 red: int) -> dict:
+    """Both scans against their plain forms on every query of the batch
+    (launches outside the main path's count). fp32: the bins' values within
+    APPROX_TOL of the scores' scale; a bin's column equal but where its two
+    best scores (float64) lie within that; the top-k of the winners equal but
+    for ties at the edge (as ``check_full_probe``). int8: the bins and
+    ``int8_topk``'s answer bit for bit. Returns the fp32 scan's largest error."""
+    from recsys_tpu_torch.ops import quant as Q
+
+    kv, kc = A.approx_scan_f32_cuda(q, unit, None, bins, red)
+    pv, pc = A.approx_scan_f32_plain(q, unit, None, bins, red)
+    finite = torch.isfinite(pv)
+    check(torch.equal(finite, torch.isfinite(kv)), f"{name}: approx fp32 bins' -inf differ")
+    tol = APPROX_TOL * float(pv[finite].abs().max())
+    err = float((kv[finite] - pv[finite]).abs().max())
+    check(err <= tol, f"{name}: approx fp32 bins off the plain form by {err} (> {tol})")
+    r, j = (kc != pc).nonzero(as_tuple=True)
+    if len(r):
+        gap = float((score64(q, unit, r, kc[r, j]) - score64(q, unit, r, pc[r, j])).abs().max())
+        check(gap <= tol, f"{name}: approx fp32 bin columns differ beyond a tie ({gap})")
+    _, ti = A.select_topk(kv, kc, k)
+    _, ei = A.select_topk(pv, pc, k)
+    got, want = ti.cpu().numpy(), ei.cpu().numpy()
+    pairs = [(row, c) for row in range(len(got))
+             for c in set(got[row].tolist()) ^ set(want[row].tolist())]
+    if pairs:
+        r, c = torch.tensor(pairs, device=q.device).T
+        kth = score64(q, unit, torch.arange(len(got), device=q.device), ei[:, k - 1])
+        short = score64(q, unit, r, c) < kth[r] - tol
+        check(not bool(short.any()), f"{name}: approx fp32 top-k ids differ from the plain "
+              f"form's in row {int(r[short][0]) if short.any() else -1}")
+    uq, alpha = Q._quantize_queries(q, qi.col_scale)
+    alpha = alpha.reshape(-1)
+    kv, kc = A.approx_scan_int8_cuda(uq, qi.q, alpha, bins, red)
+    pv, pc = A.approx_scan_int8_plain(uq, qi.q, alpha, bins, red)
+    check(torch.equal(kv, pv) and torch.equal(kc, pc),
+          f"{name}: approx int8 bins differ from the plain form's")
+    vals, idx = Q.int8_topk(q, qi, k, method="approx", recall_target=APPROX_TARGET)
+    top, pidx = A.select_topk(pv, pc, k)
+    check(torch.equal(idx, pidx) and torch.equal(vals, top),
+          f"{name}: approx int8 top-k differs from the plain form's")
+    return {"approx_scan_f32": err, "approx_scan_int8": 0.0}
+
+
+def approx_kernel_times(q: torch.Tensor, unit: torch.Tensor, qi, bins: int, red: int) -> dict:
+    """Each scan and its plain form on all the queries, in turns (CUDA
+    events; these launches are outside the main path's count)."""
+    from recsys_tpu_torch.ops import quant as Q
+
+    uq, alpha = Q._quantize_queries(q, qi.col_scale)
+    alpha = alpha.reshape(-1)
+    out = {}
+    for name, kernel, plain in (
+            ("approx_scan_f32", lambda: A.approx_scan_f32_cuda(q, unit, None, bins, red),
+             lambda: A.approx_scan_f32_plain(q, unit, None, bins, red)),
+            ("approx_scan_int8", lambda: A.approx_scan_int8_cuda(uq, qi.q, alpha, bins, red),
+             lambda: A.approx_scan_int8_plain(uq, qi.q, alpha, bins, red))):
+        ms, plain_ms = interleaved_ms(kernel, plain, APPROX_KERNEL_ITERS)
+        out[name] = {"ms": ms, "plain_ms": plain_ms}
+    return out
+
+
+def retrieval_phase(device) -> dict:
+    from recsys_tpu_torch.eval.recall import _normalized, topk_scores
     from recsys_tpu_torch.ops import ivf as I
     from recsys_tpu_torch.ops import quant as Q
 
     before = all_launches()
     rng = np.random.default_rng(0)     # bench_retrieval.py's draws, catalog after catalog
-    rows, built = [], {}
+    rows, errs = [], {name: 0.0 for name in A.LAUNCHES}
+    launches = {name: 0 for name in A.LAUNCHES}
     for n_items, k, nlist, nprobe in RETRIEVAL_CATALOGS:
         items_np = rng.normal(0, 1, (n_items + 1, D)).astype(np.float32)
         items_np[0] = 0
@@ -2581,16 +2692,44 @@ def retrieval_phase(device) -> list[dict]:
                              device=device)
         items = torch.as_tensor(items_np, device=device)
         name = f"{n_items} items, k={k}"
+        bins, red = A.approx_bins(n_items + 1, k, APPROX_TARGET)
         row = {"n_items": n_items, "k": k, "batch": RETRIEVAL_B, "ivf_nlist": nlist,
-               "ivf_nprobe": nprobe}
+               "ivf_nprobe": nprobe, "approx_bins": bins, "approx_log2_reduction": red}
         exact = lambda u: topk_scores(u, items, k)
         qi = Q.quantize_items_int8(items, device=device)
         int8 = lambda u: Q.int8_topk(u, qi, k)
+        approx = lambda u: topk_scores(u, items, k, method="approx",
+                                       recall_target=APPROX_TARGET)
+        int8_approx = lambda u: Q.int8_topk(u, qi, k, method="approx",
+                                            recall_target=APPROX_TARGET)
         check_int8(name, q0, qi, k)
+        unit = _normalized(items, True)
+        for kname, err in check_approx(name, q0, unit, qi, k, bins, red).items():
+            errs[kname] = max(errs[kname], err)
         row["exact_ms"] = chained_ms(exact, q0, RETRIEVAL_REPS)
         row["int8_ms"] = chained_ms(int8, q0, RETRIEVAL_REPS)
         _, ie = exact(q0)
-        row["int8_recall"] = recall_vs(int8(q0)[1], ie)
+        _, iq = int8(q0)
+        row["int8_recall"] = recall_vs(iq, ie)
+        # the main path of the approximate scans: its launches alone are counted
+        A.reset_launch_counts()
+        row["approx_ms"] = chained_ms(approx, q0, RETRIEVAL_REPS)
+        row["int8_approx_ms"] = chained_ms(int8_approx, q0, RETRIEVAL_REPS)
+        row["approx_recall"] = recall_vs(approx(q0)[1], ie)
+        iqa = int8_approx(q0)[1]
+        row["int8_approx_recall"] = recall_vs(iqa, ie)
+        row["int8_approx_recall_vs_int8"] = recall_vs(iqa, iq)
+        row["approx_launches"] = dict(A.LAUNCHES)
+        for kname in launches:
+            launches[kname] += A.LAUNCHES[kname]
+        check(row["approx_recall"] >= APPROX_RECALL_FLOOR,
+              f"{name}: approx recall {row['approx_recall']} < {APPROX_RECALL_FLOOR}")
+        check(row["int8_approx_recall_vs_int8"] >= APPROX_RECALL_FLOOR,
+              f"{name}: int8 approx recall against the int8 top-k "
+              f"{row['int8_approx_recall_vs_int8']} < {APPROX_RECALL_FLOOR}")
+        times = approx_kernel_times(q0, unit, qi, bins, red)
+        bounds = approx_bounds(RETRIEVAL_B, n_items + 1, D, bins)
+        row["approx_kernels"] = {kname: {**times[kname], **bounds[kname]} for kname in times}
         t0 = time.perf_counter()
         ivf = I.build_ivf(items_np, nlist=nlist, iters=10, device=device)
         torch.cuda.synchronize()
@@ -2606,13 +2745,17 @@ def retrieval_phase(device) -> list[dict]:
                 vals, idx = I.ivf_search(ivf, q0, k, nlist)
                 check_full_probe(name, q0, items, vals, idx, k)
                 row["full_probe_equals_exact"] = True
-        del ivf, qi, items
+        del ivf, qi, items, unit
         torch.cuda.empty_cache()
         rows.append(row)
         print(json.dumps({"phase": "retrieval", **row}), flush=True)
     after = all_launches()
-    check(after == before, f"the device indexes launched a hand kernel: {before} -> {after}")
-    return rows
+    hand = [n for n in after if n not in A.LAUNCHES]
+    check(all(after[n] == before[n] for n in hand),
+          f"the device indexes launched K1-K4: {before} -> {after}")
+    check(all(v > 0 for v in launches.values()),
+          f"an approximate scan never launched on the main path: {launches}")
+    return {"rows": rows, "launches": launches, "errs": errs}
 
 
 # -- phase 18: serving with the device indexes and the /train/* routes -------------------
@@ -3592,7 +3735,7 @@ def main() -> None:
     world = hm_cut_world_start(root)           # phase 20's data, beside phases 1-19
     try:
         t0 = time.perf_counter()
-        modules = {"diag_ce": K, "spmm": S, "fm": FM, "ring": R}
+        modules = {"diag_ce": K, "spmm": S, "fm": FM, "ring": R, "approx_topk": A}
         # one nvcc per source, together
         with concurrent.futures.ThreadPoolExecutor(len(modules)) as pool:
             for job in [pool.submit(m.load_library) for m in modules.values()]:
@@ -3643,7 +3786,7 @@ def main() -> None:
         hstep = hybrid_step_phase(device)
         print(json.dumps({"phase": "hybrid_step", **hstep}), flush=True)
         seconds["phase_16"] = time.perf_counter() - start - sum(seconds.values())
-        retrieval_phase(device)
+        bulk = retrieval_phase(device)
         seconds["phase_17"] = time.perf_counter() - start - sum(seconds.values())
         indexes = device_index_serve_phase(root)
         print(json.dumps({"phase": "device_index_serve", **indexes}), flush=True)
@@ -3724,6 +3867,23 @@ def main() -> None:
                  "bound_ms": rstats["main"]["bound_ms"], "bound_by": rstats["main"]["bound_by"],
                  "virtual_ranks": RING_TIMED_S, "chunk_bytes": rstats["main"]["chunk_bytes"]}
                 for name in R.LAUNCHES]
+    # the approximate scans' launches are phase 17's main path (topk_scores and int8_topk
+    # with method="approx", timed and recalled at the four catalogs); their times are
+    # at 1,000,000 items (B = 1024, k = 100), each catalog's beside them with the exact
+    # and approximate paths' times
+    last = bulk["rows"][-1]
+    kernels += [{"name": name, "route": "cuda", "source": SOURCES["approx_topk"],
+                 "replaces": REPLACES[name], "launches": bulk["launches"][name],
+                 "max_abs_err": bulk["errs"][name], **last["approx_kernels"][name],
+                 "library_ms": None,
+                 "catalogs": [{"n_items": r["n_items"], "k": r["k"], "bins": r["approx_bins"],
+                               **r["approx_kernels"][name],
+                               "exact_ms": r["exact_ms" if name == "approx_scan_f32"
+                                             else "int8_ms"],
+                               "approx_ms": r["approx_ms" if name == "approx_scan_f32"
+                                              else "int8_approx_ms"]}
+                              for r in bulk["rows"]]}
+                for name in A.LAUNCHES]
     check(all(k["launches"] > 0 for k in kernels), f"kernel not on the main path: {kernels}")
     check(not any(m.split(".")[0] in ("jax", "flax", "optax", "recsys_tpu")
                   for m in sys.modules), "the port pulled in JAX or the JAX package")

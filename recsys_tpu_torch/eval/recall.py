@@ -8,8 +8,10 @@ with users absent from the ground truth dropped from the denominator. The
 numpy helpers are the JAX package's code unchanged. On a mesh whose model
 axis is > 1 the item matrix and the prior are row-sharded, every shard
 scores its rows and ``parallel/collectives.sharded_topk`` merges, so eval and
-serving share one retrieval path. The approximate top-k is a TPU primitive
-and is refused.
+serving share one retrieval path. ``method="approx"`` on the dense path is
+``jax.lax.approx_max_k`` as the TPU computes it (``ops/approx_topk.py``: the
+scores binned inside the fp32 kernel on the card, the plain form on the
+CPU); on the sharded path it is ignored, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from recsys_tpu_torch.ops.approx_topk import approx_topk_f32
 from recsys_tpu_torch.ops.topk import stable_topk
 from recsys_tpu_torch.parallel.collectives import sharded_topk
 from recsys_tpu_torch.parallel.mesh import Mesh, shard_rows
@@ -51,7 +54,8 @@ def sharded_scores(user_vecs: torch.Tensor, item_matrix: torch.Tensor, mesh: Mes
 
 def topk_scores(user_vecs: torch.Tensor, item_matrix: torch.Tensor, k: int,
                 mesh: Mesh | None = None, normalize_items: bool = True,
-                prior: torch.Tensor | None = None, method: str = "exact"):
+                prior: torch.Tensor | None = None, method: str = "exact",
+                recall_target: float = 0.95):
     """(B, D) x (N+1, D) -> (vals, idx) (B, k); PAD row 0 excluded.
 
     With a mesh whose model axis is > 1 the item matrix is row-sharded and the
@@ -61,14 +65,19 @@ def topk_scores(user_vecs: torch.Tensor, item_matrix: torch.Tensor, k: int,
     ``prior``: optional per-item additive score (N+1,) — e.g. a scaled
     log-popularity blend — applied before top-k; on a mesh it is sharded like
     the item matrix. Equal scores come back lowest index first, as
-    ``jax.lax.top_k`` returns them (``ops/topk.stable_topk``)."""
-    if method != "exact":
-        raise NotImplementedError(
-            f"topk_scores method {method!r}: only the exact top-k is ported")
+    ``jax.lax.top_k`` returns them (``ops/topk.stable_topk``).
+
+    ``method="approx"`` (dense path only) takes ``jax.lax.approx_max_k``'s
+    answer at ``recall_target`` (``ops/approx_topk.approx_topk_f32``). The
+    sharded path is always exact, as in the JAX package."""
+    if method not in ("exact", "approx"):
+        raise ValueError(f"topk_scores method {method!r}: want 'exact' or 'approx'")
     if mesh is not None and mesh.shape[mesh.axis_names[1]] > 1:
         return sharded_topk(
             sharded_scores(user_vecs, item_matrix, mesh, normalize_items, prior), k)[0]
     items = _normalized(item_matrix, normalize_items)
+    if method == "approx":
+        return approx_topk_f32(user_vecs, items, prior, k, recall_target)
     scores = user_vecs.float() @ items.T
     if prior is not None:
         scores = scores + prior.float()[None, :]

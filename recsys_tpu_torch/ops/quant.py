@@ -14,8 +14,11 @@ package leaves it to XLA's ``dot_general`` outside any Pallas kernel, so it
 stays a library call here too) on operands padded with zeros to the shapes
 it takes; on the CPU it is a float64 product, exact for these integers. Both
 equal the exact integer product. The top-k is ``ops/topk.stable_topk``:
-equal scores lowest index first, as ``jax.lax.top_k``, PAD row 0 last. The
-approximate top-k (``lax.approx_max_k``) is a TPU primitive and is refused.
+equal scores lowest index first, as ``jax.lax.top_k``, PAD row 0 last.
+``method="approx"`` is ``jax.lax.approx_max_k`` as the TPU computes it
+(``ops/approx_topk.py``): the int8 kernel bins the dequantized scores inside
+the scan on the card, the plain form does on the CPU, then the top-k of the
+bins' winners.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from dataclasses import dataclass, field
 import torch
 
 from recsys_tpu_torch.device import resolve_device
+from recsys_tpu_torch.ops.approx_topk import approx_bins, approx_topk_int8
 from recsys_tpu_torch.ops.topk import stable_topk
 
 _INT32_MIN = -(1 << 31)
@@ -94,27 +98,34 @@ def int8_topk(user_vecs, qitems: QuantizedItems, k: int, method: str = "exact",
     """(B, D) fp queries x int8 catalog -> (approx fp32 vals, idx) (B, k).
 
     PAD row 0 is excluded, same contract as ``eval/recall.topk_scores``.
-    Queries are taken in chunks so that at most 2^28 scores are held at once.
+    Queries are taken in chunks so that at most 2^28 scores (with
+    ``method="approx"`` on the card, bins) are held at once.
+    ``method="approx"`` takes ``jax.lax.approx_max_k``'s answer at
+    ``recall_target`` on the dequantized scores, through
+    ``ops/approx_topk.approx_topk_int8``.
     """
-    if method != "exact":
-        raise NotImplementedError(
-            f"int8_topk method {method!r}: only the exact top-k is ported "
-            "(approx_max_k is a TPU primitive)")
-    del recall_target
+    if method not in ("exact", "approx"):
+        raise ValueError(f"int8_topk method {method!r}: want 'exact' or 'approx'")
     u = torch.as_tensor(user_vecs, dtype=torch.float32, device=qitems.q.device)
     uq, alpha = _quantize_queries(u, qitems.col_scale)
     n, d = qitems.q.shape
-    step = max(1, _CHUNK_ELEMENTS // n)
+    held = n
+    if method == "approx":
+        bins, _ = approx_bins(n, k, recall_target)
+        held = bins if qitems.q.is_cuda else n
+    step = max(1, _CHUNK_ELEMENTS // held)
     vals, idx = [], []
     for s in range(0, uq.shape[0], step):
-        acc = int8_accumulate(uq[s:s + step], qitems)
         a = alpha[s:s + step]
-        if d <= _EXACT_ORDER_DIM:   # the accumulator orders as the scores do
+        if method == "approx":
+            v, i = approx_topk_int8(uq[s:s + step], qitems.q, a.reshape(-1), k, recall_target)
+        elif d <= _EXACT_ORDER_DIM:   # the accumulator orders as the scores do
+            acc = int8_accumulate(uq[s:s + step], qitems)
             acc[:, 0] = _INT32_MIN
             top, i = stable_topk(acc, k)
             v = top.float() * a
         else:
-            scores = acc.float() * a
+            scores = int8_accumulate(uq[s:s + step], qitems).float() * a
             scores[:, 0] = -torch.inf
             v, i = stable_topk(scores, k)
         vals.append(torch.where(i == 0, -torch.inf, v))

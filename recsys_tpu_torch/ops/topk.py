@@ -33,8 +33,14 @@ def stable_topk(values: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tenso
     n = values.shape[-1]
     if n > _LOW:
         raise ValueError(f"stable_topk: {n} columns do not fit the key's 32 low bits")
-    low = _LOW - torch.arange(n, device=values.device, dtype=torch.int64)
-    key = torch.add(low, _order_bits(values), alpha=1 << 32)
-    top = torch.topk(key, k, dim=-1).values
-    idx = _LOW - (top & _LOW)
-    return values.gather(-1, idx), idx
+    return topk_by_id(values, torch.arange(n, device=values.device), k)
+
+
+def topk_by_id(values: torch.Tensor, ids: torch.Tensor, k: int
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, M) int32 or float32 values and their ids ((M,) or (B, M), distinct
+    in a row, below 2^32) -> (vals, ids) (B, k): largest first, equal values
+    smallest id first."""
+    key = torch.add(_LOW - ids.long(), _order_bits(values), alpha=1 << 32)
+    pos = torch.topk(key, k, dim=-1).indices
+    return values.gather(-1, pos), ids.expand(values.shape).gather(-1, pos)

@@ -385,9 +385,16 @@ def test_topk_scores_prior_pad_and_method(vectors):
         np.testing.assert_array_equal(got_i.numpy(), np.asarray(ref_i))
         np.testing.assert_allclose(got_v.numpy(), np.asarray(ref_v), atol=1e-5)
     assert int(got_i.min()) >= 1
-    with pytest.raises(NotImplementedError):
+    # every column a bin (recall_target 1.0): the approximate top-k is JAX's answer
+    ref_v, ref_i = jax_topk(jnp.asarray(vectors["users"]), jnp.asarray(items), 10,
+                            method="approx", recall_target=1.0)
+    got_v, got_i = topk_scores(torch.as_tensor(vectors["users"]), torch.as_tensor(items), 10,
+                               method="approx", recall_target=1.0)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(ref_i))
+    np.testing.assert_allclose(got_v.numpy(), np.asarray(ref_v), atol=1e-5)
+    with pytest.raises(ValueError):
         topk_scores(torch.as_tensor(vectors["users"]), torch.as_tensor(items), 10,
-                    method="approx")
+                    method="ann")
 
 
 def test_standalone_rows_and_fidelity_match(vectors):

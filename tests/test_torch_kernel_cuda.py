@@ -1,5 +1,6 @@
-"""Kernels K1 (csrc/diag_ce.cu), K2 (csrc/spmm.cu), K3 (csrc/fm.cu) and K4
-(csrc/ring.cu) against their plain PyTorch forms, on the card.
+"""Kernels K1 (csrc/diag_ce.cu), K2 (csrc/spmm.cu), K3 (csrc/fm.cu), K4
+(csrc/ring.cu) and the approximate top-k scan (csrc/approx_topk.cu) against
+their plain PyTorch forms, on the card.
 
 Needs an NVIDIA GPU and nvcc; skips elsewhere. This file imports no JAX, so
 on the GPU machine it runs without the JAX test harness:
@@ -20,7 +21,11 @@ bound for the Pallas FM kernel (tests/test_pallas.py), forward and gradient.
 K4 moves bytes between virtual ranks laid over the one card: it is held bit
 for bit against its plain hop loop and against ``torch.cat``. Last, the
 stage-2 and hybrid towers' time-bucket table (``models/layers.BucketEmbed``)
-gives the same gradient bits in every run on the card.
+gives the same gradient bits in every run on the card. The approximate top-k
+scan (csrc/approx_topk.cu) is held against its plain form: in fp32 the bins'
+values within 1e-5 (cuBLAS sums in another order) and a bin's column equal
+but where its two best scores lie within that; in int8 bit for bit, and
+below 2^23 equal to the bins of the int32 sums scaled by alpha.
 """
 
 import numpy as np
@@ -811,3 +816,134 @@ def test_bucket_embed_gradient_is_the_same_every_run(device):
     want = torch.zeros(10, 128, dtype=torch.float64, device=device).index_add_(
         0, ids.reshape(-1), g.to(BF16).double().reshape(-1, 128))
     torch.testing.assert_close(grads[0].double(), want, atol=1e-3, rtol=0)
+
+
+# -- the approximate top-k scan (csrc/approx_topk.cu) --------------------------------------
+
+def _scan_problem(n, D, B, seed, device):
+    """Unit items with PAD row 0 zero and a few duplicate rows (exact ties),
+    queries (some equal to items), a prior; all on the card."""
+    rng = np.random.default_rng(seed)
+    items = _unit(rng, n, D)
+    items[0] = 0
+    items[n - 8:] = items[1:9]
+    u = rng.normal(size=(B, D)).astype(np.float32)
+    u[:2] = items[[1, n - 1]]
+    prior = (rng.random(n) * 0.5).astype(np.float32)
+    t = lambda a: torch.as_tensor(a, device=device)
+    return t(u), t(items), t(prior)
+
+
+# (n, k, D): bench_retrieval.py's k = 50 catalog (1,536 bins of 32), a width that
+# takes no 16-byte loads, every column a bin, a top-1 (128 bins), a ragged last slice
+_SCANS = [(47_001, 50, 128), (20_001, 50, 33), (300, 10, 128), (1_029, 1, 16),
+          (5_000, 100, 64)]
+
+
+@pytest.mark.parametrize("n,k,D", _SCANS)
+def test_approx_scan_f32_matches_plain(device, n, k, D):
+    """Bin values within 1e-5 of the plain form (cuBLAS sums in another
+    order); a bin's column differs only where its two best scores (float64)
+    lie within that; two calls give the same bits; one launch a call."""
+    from recsys_tpu_torch.ops import approx_topk as A
+
+    u, items, prior = _scan_problem(n, D, 70, n + D, device)
+    bins, red = A.approx_bins(n, k, 0.95)
+    for p in (None, prior):
+        before = A.LAUNCHES["approx_scan_f32"]
+        kv, kc = A.approx_scan_f32_cuda(u, items, p, bins, red)
+        kv2, kc2 = A.approx_scan_f32_cuda(u, items, p, bins, red)
+        assert A.LAUNCHES["approx_scan_f32"] == before + 2
+        assert torch.equal(kv, kv2) and torch.equal(kc, kc2)
+        pv, pc = A.approx_scan_f32_plain(u, items, p, bins, red)
+        assert kv.shape == (70, bins) and kc.dtype == torch.int32
+        finite = torch.isfinite(pv)
+        assert torch.equal(finite, torch.isfinite(kv))
+        assert float((kv[finite] - pv[finite]).abs().max()) <= 1e-5
+        s64 = u.double() @ items.double().T + (0 if p is None else p.double()[None, :])
+        s64[:, 0] = -torch.inf
+        differ = kc != pc
+        if differ.any():
+            gap = (s64.gather(1, kc.long()) - s64.gather(1, pc.long()))[differ].abs()
+            assert float(gap.max()) <= 1e-5
+        vals, ids = A.select_topk(kv, kc, k)
+        assert bool((vals[:, :-1] >= vals[:, 1:]).all()) and int(ids.min()) >= 1
+
+
+@pytest.mark.parametrize("n,k,D", [(47_001, 50, 128), (20_001, 50, 40), (300, 10, 128),
+                                   (1_029, 1, 16)])
+def test_approx_scan_int8_bit_equal_to_plain(device, n, k, D):
+    """The dequantized scores' bins equal the plain form's bit for bit, and
+    (|sums| < 2^23 at these widths) the bins of the int32 sums: the same
+    columns, alpha times the same integers."""
+    from recsys_tpu_torch.ops import approx_topk as A
+
+    rng = np.random.default_rng(n + D)
+    uq = torch.as_tensor(rng.integers(-127, 128, (70, D)).astype(np.int8), device=device)
+    q = torch.as_tensor(rng.integers(-127, 128, (n, D)).astype(np.int8), device=device)
+    q[n - 8:] = q[1:9]
+    uq[0] = q[1]
+    alpha = torch.as_tensor(rng.random(70).astype(np.float32), device=device) + 0.1
+    bins, red = A.approx_bins(n, k, 0.95)
+    kv, kc = A.approx_scan_int8_cuda(uq, q, alpha, bins, red)
+    assert kv.dtype == torch.float32
+    pv, pc = A.approx_scan_int8_plain(uq, q, alpha, bins, red)
+    assert torch.equal(kv, pv) and torch.equal(kc, pc)
+    kv2, kc2 = A.approx_scan_int8_cuda(uq, q, alpha, bins, red)
+    assert torch.equal(kv, kv2) and torch.equal(kc, kc2)
+    sums = uq.double() @ q.double().T
+    sums[:, 0] = -torch.inf
+    sv, sc = A.bin_max_plain(sums, bins, red)
+    assert torch.equal(kc, sc)
+    assert torch.equal(kv, sv.float() * alpha[:, None])
+
+
+def test_approx_topk_entry_points_launch_the_kernels(device):
+    """``topk_scores`` and ``int8_topk`` with ``method="approx"`` on the card:
+    one launch a call (a chunk), recall against exact >= 0.95 at 47,001 x k = 50,
+    the int8 top-k equal to the plain form's."""
+    from recsys_tpu_torch.eval.recall import topk_scores
+    from recsys_tpu_torch.ops import approx_topk as A
+    from recsys_tpu_torch.ops import quant as Q
+
+    u, items, prior = _scan_problem(47_001, 128, 256, 3, device)
+    A.reset_launch_counts()
+    vals, idx = topk_scores(u, items, 50, method="approx")
+    qi = Q.quantize_items_int8(items, device=device)
+    qv, qidx = Q.int8_topk(u, qi, 50, method="approx")
+    assert A.LAUNCHES == {"approx_scan_f32": 1, "approx_scan_int8": 1}
+    _, exact = topk_scores(u, items, 50)
+    _, qexact = Q.int8_topk(u, qi, 50)
+
+    def recall(a, b):
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        return np.mean([len(set(a[r]) & set(b[r])) / b.shape[1] for r in range(len(b))])
+
+    assert recall(idx, exact) >= 0.95 and recall(qidx, qexact) >= 0.95
+    uq, alpha = Q._quantize_queries(u, qi.col_scale)
+    bins, red = A.approx_bins(47_001, 50, 0.95)
+    top, pidx = A.select_topk(*A.approx_scan_int8_plain(uq, qi.q, alpha.reshape(-1), bins,
+                                                         red), 50)
+    assert torch.equal(qidx, pidx) and torch.equal(qv, top)
+
+
+def test_approx_scan_rejects_bad_inputs(device):
+    from recsys_tpu_torch.ops import approx_topk as A
+
+    u = torch.randn(8, 16, device=device)
+    items = torch.randn(300, 16, device=device)
+    with pytest.raises(ValueError):
+        A.approx_scan_f32_cuda(u.double(), items, None, 128, 2)
+    with pytest.raises(ValueError):
+        A.approx_scan_f32_cuda(u.t(), items.t().contiguous(), None, 128, 2)  # not contiguous
+    with pytest.raises(ValueError):
+        A.approx_scan_f32_cuda(u, items, None, 128, 1)     # 256 columns hold no 300
+    with pytest.raises(ValueError):
+        A.approx_scan_f32_cuda(u, items, torch.zeros(299, device=device), 128, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        A.approx_scan_f32_cuda(u, items.cpu(), None, 128, 2)
+    for alpha in (torch.ones(7, device=device), None):
+        with pytest.raises(ValueError):
+            A.approx_scan_int8_cuda(u.to(torch.int8), items.to(torch.int8), alpha, 128, 2)
+    empty_v, empty_c = A.approx_scan_f32_cuda(u[:0], items, None, 128, 2)
+    assert empty_v.shape == (0, 128) and empty_c.shape == (0, 128)

@@ -36,7 +36,8 @@ def test_port_file_list_is_complete():
                      "recsys_tpu_torch/models/user_tower.py",
                      "recsys_tpu_torch/train/sasrec.py", "recsys_tpu_torch/eval/baselines.py",
                      "recsys_tpu_torch/ops/quant.py", "recsys_tpu_torch/ops/ivf.py",
-                     "recsys_tpu_torch/ops/topk.py", "recsys_tpu_torch/serve/train_glue.py",
+                     "recsys_tpu_torch/ops/topk.py", "recsys_tpu_torch/ops/approx_topk.py",
+                     "recsys_tpu_torch/serve/train_glue.py",
                      "recsys_tpu_torch/data/text_pretrain.py",
                      "recsys_tpu_torch/data/ingest.py", "recsys_tpu_torch/data/hm_adapter.py",
                      "recsys_tpu_torch/data/analysis.py", "recsys_tpu_torch/eval/viz.py",

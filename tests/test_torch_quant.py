@@ -107,9 +107,18 @@ def test_quantization_recall_matches_jax():
 
 
 def test_approx_method_is_refused():
+    """Only a method that neither package names is refused: ``"approx"`` is
+    ``jax.lax.approx_max_k``'s answer (tests/test_torch_approx_topk.py), here
+    where every column is a bin, the JAX package's top-k."""
     items, u = _catalog(8)
-    with pytest.raises(NotImplementedError, match="approx"):
-        TQ.int8_topk(u, TQ.quantize_items_int8(items, device="cpu"), 5, method="approx")
+    qi = TQ.quantize_items_int8(items, device="cpu")
+    with pytest.raises(ValueError, match="approximate"):
+        TQ.int8_topk(u, qi, 5, method="approximate")
+    tv, ti = TQ.int8_topk(u, qi, 5, method="approx", recall_target=1.0)
+    jv, ji = JQ.int8_topk(u, JQ.quantize_items_int8(items), 5, method="approx",
+                          recall_target=1.0)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=1e-6, atol=1e-6)
 
 
 def test_catalog_quantized_by_jax_searched_in_the_port():

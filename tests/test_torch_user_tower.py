@@ -99,7 +99,8 @@ def tower_pair():
     side = np.zeros((*b["input_ids"].shape, 4), np.int32)
     args = (vecs, b["input_ids"], b["time_buckets"], side, b["seq_mask"], b["user_buckets"],
             b["user_cats"], b["user_cont"])
-    params = jax.device_get(jt.init(jax.random.PRNGKey(3), *args)["params"])
+    # one compiled init: un-jitted, Flax's init runs (and compiles) op by op
+    params = jax.device_get(jax.jit(jt.init)(jax.random.PRNGKey(3), *args)["params"])
     params = dict(params)
     rng = np.random.default_rng(4)
     params["seq_gate"] = rng.normal(size=params["seq_gate"].shape).astype(np.float32)
@@ -142,8 +143,9 @@ def test_stage2_model_bridge_both_ways():
 def test_tower_forward_matches_jax(tower_pair, all_timesteps):
     """Dropout 0, left padding, a row with one real position; both modes."""
     jt, params, tt, args, b = tower_pair
-    ref = np.asarray(jt.apply({"params": params}, *args, all_timesteps=all_timesteps,
-                              deterministic=True))
+    apply = jax.jit(jt.apply, static_argnames=("all_timesteps", "deterministic"))
+    ref = np.asarray(apply({"params": params}, *args, all_timesteps=all_timesteps,
+                           deterministic=True))
     t = {k: torch.as_tensor(v) for k, v in b.items()}
     with torch.no_grad():
         got = tt(torch.as_tensor(args[0]), t["input_ids"].long(), t["time_buckets"].long(),
@@ -299,6 +301,19 @@ def stage2_world():
     return jcfg, tcfg, jdata, tdata
 
 
+@pytest.fixture(scope="module")
+def stage2_init(stage2_world):
+    """The JAX stage-2 init of a 16-row sample (``init_stage2_params`` reads
+    only the tower's config, so every loss variant shares it)."""
+    jcfg, _, jdata, _ = stage2_world
+    sample = JS._slice(jdata["tensors"], np.arange(16))
+    n_pad = len(jdata["item_map"]) + 1
+    pretrained = np.random.default_rng(0).normal(size=(n_pad, 32)).astype(np.float32)
+    params, models = JS.init_stage2_params(jcfg, n_pad, pretrained, jax.random.PRNGKey(0),
+                                           sample)
+    return sample, n_pad, params, models
+
+
 def test_prepare_stage2_matches_jax(stage2_world):
     _, _, jdata, tdata = stage2_world
     for k in TS.BATCH_KEYS:
@@ -310,7 +325,7 @@ def test_prepare_stage2_matches_jax(stage2_world):
 
 
 @pytest.mark.parametrize("variant", ["logq", "hnm", "mixed_hnm", "margin"])
-def test_one_stage2_step_matches_jax_on_its_draws(stage2_world, variant):
+def test_one_stage2_step_matches_jax_on_its_draws(stage2_world, stage2_init, variant):
     """The JAX step's own draws (``split(key, 4)``: cut, positions, the
     mixed-HNM columns) replayed into the port's step, dropout 0, weights
     bridged: the loss parts agree at the bf16 bound of the towers, and the
@@ -321,11 +336,7 @@ def test_one_stage2_step_matches_jax_on_its_draws(stage2_world, variant):
     tcfg = dataclasses.replace(tcfg, user_train=dataclasses.replace(
         tcfg.user_train, loss_variant=variant, top_k_percent=0.1))
     B, P = 16, 2
-    sample = JS._slice(jdata["tensors"], np.arange(B))
-    n_pad = len(jdata["item_map"]) + 1
-    pretrained = np.random.default_rng(0).normal(size=(n_pad, 32)).astype(np.float32)
-    params, models = JS.init_stage2_params(jcfg, n_pad, pretrained, jax.random.PRNGKey(0),
-                                           sample)
+    sample, n_pad, params, models = stage2_init
     jstate = JST.TrainState.create(params, JS.make_stage2_optimizer(jcfg, params, 4))
     jstep, _ = JS.make_stage2_step(jcfg, models, jdata["side"], jdata["logq"])
     key = jax.random.PRNGKey(5)
