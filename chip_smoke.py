@@ -206,7 +206,9 @@ once, then (phases 10 and 11 run after 6, while the graph of 4 is still there):
      recalls against exact (int8_approx_recall against the fp32 exact top-k,
      as bench_retrieval.py; int8_approx_recall_vs_int8 against int8's own).
      Each approximate scan alone and its plain form on all the queries in
-     turns (CUDA events), beside its bound. Gates: the int8 accumulator
+     turns (CUDA events), beside its bound; a line after the catalogs gives
+     each scan's registers and spilled bytes (ptxas) and blocks an SM (the
+     occupancy calculator) beside its times and shares of the bound. Gates: the int8 accumulator
      equals the exact integer product for every query; the int8 top-k equals
      the plain form's tie-exact top-k; on all 1,024 queries the fp32 scan's
      bins are within APPROX_TOL of the scores' scale of its plain form's, a
@@ -332,6 +334,7 @@ import concurrent.futures
 import hashlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -2658,6 +2661,21 @@ def check_approx(name: str, q: torch.Tensor, unit: torch.Tensor, qi, k: int, bin
     return {"approx_scan_f32": err, "approx_scan_int8": 0.0}
 
 
+def ptxas_resources(text: str) -> dict:
+    """Each kernel's registers and spilled bytes from ``nvcc -Xptxas -v``
+    output, by the kernel's (mangled) name."""
+    out, name = {}, None
+    for line in text.splitlines():
+        if "Function properties for" in line:
+            name = line.split("Function properties for", 1)[1].strip()
+            out[name] = {}
+        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            out[name].update(spill_store_bytes=int(m[1]), spill_load_bytes=int(m[2]))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            out[name]["registers"] = int(m[1])
+    return out
+
+
 def approx_kernel_times(q: torch.Tensor, unit: torch.Tensor, qi, bins: int, red: int) -> dict:
     """Each scan and its plain form on all the queries, in turns (CUDA
     events; these launches are outside the main path's count)."""
@@ -2749,6 +2767,17 @@ def retrieval_phase(device) -> dict:
         torch.cuda.empty_cache()
         rows.append(row)
         print(json.dumps({"phase": "retrieval", **row}), flush=True)
+    resources = ptxas_resources(A.BUILD_INFO.get("ptxas", ""))
+    occupancy = A.blocks_per_sm(device, D)
+    print(json.dumps({"phase": "retrieval_scans", **{
+        kname: {"ptxas": {k: v for k, v in resources.items() if f"{kname}_kernel" in k},
+                "blocks_per_sm": occupancy[kname],
+                "ms": {f"{r['n_items']}_k{r['k']}": r["approx_kernels"][kname]["ms"]
+                       for r in rows},
+                "share_of_bound": {f"{r['n_items']}_k{r['k']}":
+                                   r["approx_kernels"][kname]["bound_ms"]
+                                   / r["approx_kernels"][kname]["ms"] for r in rows}}
+        for kname in A.LAUNCHES}}), flush=True)
     after = all_launches()
     hand = [n for n in after if n not in A.LAUNCHES]
     check(all(after[n] == before[n] for n in hand),

@@ -47,8 +47,10 @@ def build(source: Path) -> tuple[Path, dict]:
     digest = hashlib.sha256(source.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     so = BUILD_DIR / f"lib{source.stem}_{digest}.so"
+    report = so.with_suffix(".ptxas")   # what ptxas said of the build, kept beside it
     if so.exists():
-        return so, {"path": str(so), "seconds": 0.0, "cached": True}
+        return so, {"path": str(so), "seconds": 0.0, "cached": True,
+                    "ptxas": report.read_text() if report.exists() else ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
     t0 = time.perf_counter()
@@ -56,6 +58,7 @@ def build(source: Path) -> tuple[Path, dict]:
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed to build {source}:\n{proc.stderr}")
+    report.write_text(proc.stderr)
     os.replace(tmp, so)
     return so, {"path": str(so), "seconds": time.perf_counter() - t0,
                 "cached": False, "ptxas": proc.stderr}

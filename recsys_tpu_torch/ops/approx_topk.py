@@ -20,9 +20,12 @@ exact top-k). The port computes the TPU's answer on every device:
 The kernels (``csrc/approx_topk.cu``, sm_90a, built with ``nvcc`` into
 ``csrc/build/`` at first use and called through ``ctypes``) fuse step 2
 into the product, and neither writes the (B, n) scores:
-``approx_scan_f32`` from fp32 queries and items, with the prior;
-``approx_scan_int8`` from int8 queries and catalog, binning the scores
-dequantized with the rows' alpha. Their plain forms
+``approx_scan_f32`` from fp32 queries and items, with the prior (a
+register-blocked FFMA tile); ``approx_scan_int8`` from int8 queries and
+catalog on the tensor cores (``wgmma`` fed by TMA), binning the scores
+dequantized with the rows' alpha. Where a catalog gives the card too few
+blocks, a call splits the slices over parts that a second launch merges,
+into a workspace the wrapper allocates; a call is counted once. Their plain forms
 (``approx_scan_f32_plain``, ``approx_scan_int8_plain``) write the scores
 out, then bin them. ``approx_topk_f32`` / ``approx_topk_int8`` run the
 kernel on CUDA tensors and the plain form on CPU tensors; a CUDA tensor never
@@ -43,8 +46,8 @@ from recsys_tpu_torch.ops.topk import topk_by_id
 # launches per kernel; each wrapper adds one where it launches, nowhere else
 LAUNCHES = {"approx_scan_f32": 0, "approx_scan_int8": 0}
 LANES = 128   # the TPU's lane tiling of a rank-2 operand, which XLA's bin count follows
-# the kernel's grid: 64 queries a block, at most 65,535 blocks of them
-_MAX_QUERIES = 64 * 65535
+# the kernel's grid: 128 queries a block, at most 65,535 blocks of them
+_MAX_QUERIES = 128 * 65535
 
 
 def reset_launch_counts() -> None:
@@ -56,7 +59,11 @@ def _bind(lib: ctypes.CDLL) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.approx_scan_f32, lib.approx_scan_int8):
         fn.restype = i32
-        fn.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr, ptr, ptr]
+        fn.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr]
+    lib.approx_scan_parts.restype = i32
+    lib.approx_scan_parts.argtypes = [i32] * 6
+    lib.approx_scan_blocks_per_sm.restype = i32
+    lib.approx_scan_blocks_per_sm.argtypes = [i32, i32]
 
 
 LIBRARY = KernelLibrary("approx_topk.cu", _bind)
@@ -179,24 +186,50 @@ def _side(name: str, label: str, t: torch.Tensor | None, size: int, device) -> i
     return t.data_ptr()
 
 
-def _launch(fn, device: torch.device, *args) -> int:
+def _launch(name: str, int8_mode: int, device: torch.device, a: int, b: int, side: int | None,
+            B: int, n: int, D: int, bins: int, slices: int, vals: torch.Tensor,
+            cols: torch.Tensor) -> None:
+    """One call of kernel ``name``: its parts (``approx_scan_parts``), the
+    workspace of a split call, the launches; raises on an error code."""
+    lib = load_library()
     with torch.cuda.device(device):
-        return fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        parts = lib.approx_scan_parts(int8_mode, B, n, D, bins, slices)
+        if parts < 1:
+            raise_on_error(-parts, name)
+        ws_val = ws_col = None
+        if parts > 1:
+            ws_val = torch.empty((parts, B, bins), dtype=torch.float32, device=device)
+            ws_col = torch.empty((parts, B, bins), dtype=torch.int32, device=device)
+        code = getattr(lib, name)(
+            a, b, side, B, n, D, bins, slices, parts,
+            None if ws_val is None else ws_val.data_ptr(),
+            None if ws_col is None else ws_col.data_ptr(), vals.data_ptr(), cols.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream)
+    raise_on_error(code, name)
+
+
+def blocks_per_sm(device: torch.device | str = "cuda", D: int = 128) -> dict:
+    """Blocks of each scan that fit on one SM at width D (registers and
+    shared memory; the CUDA occupancy calculator)."""
+    lib = load_library()
+    with torch.cuda.device(torch.device(device)):
+        return {"approx_scan_f32": lib.approx_scan_blocks_per_sm(0, D),
+                "approx_scan_int8": lib.approx_scan_blocks_per_sm(1, D)}
 
 
 def approx_scan_f32_cuda(u: torch.Tensor, items: torch.Tensor, prior: torch.Tensor | None,
                          bins: int, log2_reduction: int):
     """The fp32 kernel: u (B, D), items (n, D), prior (n,) or None, all fp32
-    on the card -> (vals fp32, cols int32) (B, bins), one launch."""
+    on the card -> (vals fp32, cols int32) (B, bins), one count a call (a
+    split call adds the merge's launch)."""
     B, n, D = _checked_scan("approx_scan_f32", u, items, torch.float32, bins, log2_reduction)
     p = _side("approx_scan_f32", "prior", prior, n, u.device)
     vals = torch.empty((B, bins), dtype=torch.float32, device=u.device)
     cols = torch.empty((B, bins), dtype=torch.int32, device=u.device)
     if B == 0:
         return vals, cols
-    code = _launch(load_library().approx_scan_f32, u.device, u.data_ptr(), items.data_ptr(),
-                   p, B, n, D, bins, 1 << log2_reduction, vals.data_ptr(), cols.data_ptr())
-    raise_on_error(code, "approx_scan_f32")
+    _launch("approx_scan_f32", 0, u.device, u.data_ptr(), items.data_ptr(), p, B, n, D, bins,
+            1 << log2_reduction, vals, cols)
     count_launch(LAUNCHES, "approx_scan_f32")
     return vals, cols
 
@@ -205,7 +238,7 @@ def approx_scan_int8_cuda(uq: torch.Tensor, q: torch.Tensor, alpha: torch.Tensor
                           log2_reduction: int):
     """The int8 kernel: uq (B, D), q (n, D) int8 and alpha (B,) fp32 on the
     card -> (vals fp32, cols int32) (B, bins), the bins of the dequantized
-    scores. One launch."""
+    scores. One count a call, as ``approx_scan_f32_cuda``."""
     B, n, D = _checked_scan("approx_scan_int8", uq, q, torch.int8, bins, log2_reduction)
     if alpha is None:
         raise ValueError("approx_scan_int8: alpha is required")
@@ -214,9 +247,8 @@ def approx_scan_int8_cuda(uq: torch.Tensor, q: torch.Tensor, alpha: torch.Tensor
     cols = torch.empty((B, bins), dtype=torch.int32, device=uq.device)
     if B == 0:
         return vals, cols
-    code = _launch(load_library().approx_scan_int8, uq.device, uq.data_ptr(), q.data_ptr(),
-                   a, B, n, D, bins, 1 << log2_reduction, vals.data_ptr(), cols.data_ptr())
-    raise_on_error(code, "approx_scan_int8")
+    _launch("approx_scan_int8", 1, uq.device, uq.data_ptr(), q.data_ptr(), a, B, n, D, bins,
+            1 << log2_reduction, vals, cols)
     count_launch(LAUNCHES, "approx_scan_int8")
     return vals, cols
 

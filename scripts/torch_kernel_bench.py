@@ -1,6 +1,6 @@
-"""K1 (fused contrastive CE), K2 (sparse propagation) and K3 (the FM term) on
-the card: build, check against the plain forms, time at the main path's
-shapes.
+"""K1 (fused contrastive CE), K2 (sparse propagation), K3 (the FM term) and
+the approximate top-k's two scans on the card: build, check against the
+plain forms, time at the main path's shapes.
 
     python3 scripts/torch_kernel_bench.py [--quick] [--baseline DIR] [--kernels K3,K1]
         [--hm-root DIR]
@@ -41,6 +41,23 @@ vector kernel does not take (each row names the kernel its plan takes; an older
 checkout's one kernel as ``single``): the wrapper's call in a loop (CUDA events),
 its time on the device (``torch.profiler``) and the plain form's, beside the
 byte bound (v read once, out or dv written once, at 3.35 TB/s).
+``--kernels approx`` (not in the default list) times ``approx_scan_f32`` and
+``approx_scan_int8`` at bench_retrieval.py's four catalogs (47,000 items at
+k = 500 and k = 50, 105,000 at k = 500, 1,000,000 at k = 100; B = 1,024,
+D = 128, recall target 0.95) on phase 17 of ``chip_smoke.py``'s draws
+(numpy seed 0, catalog after catalog; unit items, their int8 quantization and
+the queries' own): each scan's error against its plain form (int8 bit for
+bit), its time in a loop (CUDA events) and what a call costs the host
+(``host_us``: where it is near ``ms``, the loop waits on the host), the
+caller's whole approximate top-k as phase 17 chains it (``path_ms``) beside
+its device time a call (``path_device_ms``, every kernel of the call under
+``torch.profiler``), the plain form's time, the bound and its
+share (as ``chip_smoke.approx_bounds``: operations at 67 TFLOP/s fp32 or
+1,979 TOP/s int8), the product alone as a yardstick for the scan's product
+part (``q @ unit.T`` in fp32, TF32 off; ``torch._int_mm`` on the padded int8
+operands: neither computes the scan's function), and once a checkout the
+ptxas lines (registers, spills, shared memory of each kernel) and the blocks
+an SM (an older checkout: null). ``--quick`` checks the 1M catalog only.
 """
 
 from __future__ import annotations
@@ -71,6 +88,25 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def chained_ms(fn, q0, reps: int) -> float:
+    """``fn(q) -> (vals, idx)`` ``reps`` times, each query nudged by the
+    previous answer's first value (as ``chip_smoke.chained_ms``, after
+    bench_retrieval.py); CUDA events over the chain."""
+    import torch
+
+    fn(q0)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    q = q0
+    start.record()
+    for _ in range(reps):
+        vals, _ = fn(q)
+        q = q0 + 1e-6 * vals[:, :1]
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def host_us(fn, iters: int, repeats: int = 5) -> float:
@@ -370,7 +406,90 @@ def k3(tag: str, quick: bool) -> None:
         emit(**row)
 
 
-KERNELS = {"K2": k2, "K1": k1, "K3": k3}
+# bench_retrieval.py's catalogs (items without the PAD row, k) and batch, as
+# chip_smoke.py's phase 17 draws them; the peak rates of chip_smoke.bound
+APPROX_CATALOGS, APPROX_B, APPROX_D = ((47_000, 500), (47_000, 50), (105_000, 500),
+                                      (1_000_000, 100)), 1024, 128
+PEAK_BYTES_PER_S, PEAK_FP32_FLOPS, PEAK_INT8_OPS = 3.35e12, 67e12, 1979e12
+
+
+def approx(tag: str, quick: bool) -> None:
+    """The approximate top-k's two scans at bench_retrieval.py's catalogs."""
+    import numpy as np
+    import torch
+
+    from recsys_tpu_torch.eval.recall import _normalized, topk_scores
+    from recsys_tpu_torch.ops import approx_topk as A
+    from recsys_tpu_torch.ops import quant as Q
+
+    A.load_library()
+    # an older checkout has no occupancy query
+    occupancy = A.blocks_per_sm("cuda", APPROX_D) if hasattr(A, "blocks_per_sm") else None
+    emit(tag=tag, kernel="approx", build_seconds=A.BUILD_INFO.get("seconds"),
+         ptxas=[ln.strip() for ln in A.BUILD_INFO.get("ptxas", "").splitlines()
+                if "entry function" in ln or "registers" in ln or "spill" in ln],
+         blocks_per_sm=occupancy)
+    rng = np.random.default_rng(0)   # phase 17's draws, catalog after catalog
+    for n_items, k in APPROX_CATALOGS:
+        items_np = rng.normal(0, 1, (n_items + 1, APPROX_D)).astype(np.float32)
+        items_np[0] = 0
+        q0 = torch.as_tensor(rng.normal(0, 1, (APPROX_B, APPROX_D)).astype(np.float32),
+                             device="cuda")
+        if quick and n_items != APPROX_CATALOGS[-1][0]:
+            continue
+        items = torch.as_tensor(items_np, device="cuda")
+        unit = _normalized(items, True)
+        qi = Q.quantize_items_int8(items, device="cuda")
+        uq, alpha = Q._quantize_queries(q0, qi.col_scale)
+        alpha = alpha.reshape(-1)
+        n = n_items + 1
+        bins, red = A.approx_bins(n, k, 0.95)
+        a_pad = torch.zeros((max(17, -(-APPROX_B // 8) * 8), -(-APPROX_D // 8) * 8),
+                            dtype=torch.int8, device="cuda")
+        a_pad[:APPROX_B, :APPROX_D] = uq
+        big = n_items >= 500_000
+        out, ops = 8 * APPROX_B * bins, 2.0 * APPROX_B * n * APPROX_D
+        scans = {
+            "approx_scan_f32": (lambda: A.approx_scan_f32_cuda(q0, unit, None, bins, red),
+                                lambda: A.approx_scan_f32_plain(q0, unit, None, bins, red),
+                                lambda: q0 @ unit.T, 4 * (APPROX_B + n) * APPROX_D + out,
+                                PEAK_FP32_FLOPS),
+            "approx_scan_int8": (lambda: A.approx_scan_int8_cuda(uq, qi.q, alpha, bins, red),
+                                 lambda: A.approx_scan_int8_plain(uq, qi.q, alpha, bins, red),
+                                 lambda: torch._int_mm(a_pad, qi.gemm_operand().T),
+                                 (APPROX_B + n) * APPROX_D + out, PEAK_INT8_OPS)}
+        # each scan's path as phase 17 times it: the caller's whole top-k, chained
+        paths = {"approx_scan_f32": lambda u: topk_scores(u, items, k, method="approx"),
+                 "approx_scan_int8": lambda u: Q.int8_topk(u, qi, k, method="approx")}
+        for name, (kernel, plain, product, n_bytes, peak) in scans.items():
+            kv, kc = kernel()
+            pv, pc = plain()
+            finite = torch.isfinite(pv)
+            row = {"tag": tag, "kernel": name, "n_items": n_items, "k": k, "bins": bins,
+                   "log2_reduction": red, "B": APPROX_B, "D": APPROX_D,
+                   "max_abs_err": float((kv[finite] - pv[finite]).abs().max()),
+                   "cols_equal_share": float((kc == pc).float().mean()),
+                   "bit_equal_to_plain": bool(torch.equal(kv, pv) and torch.equal(kc, pc))}
+            del kv, kc, pv, pc, finite
+            by_bytes, by_ops = 1e3 * n_bytes / PEAK_BYTES_PER_S, 1e3 * ops / peak
+            row.update(bound_ms=max(by_bytes, by_ops),
+                       bound_by="bytes" if by_bytes >= by_ops else "operations")
+            if not quick:
+                iters = 20 if name == "approx_scan_f32" and big else 50
+                row["ms"] = cuda_ms(kernel, iters)
+                row["share_of_bound"] = row["bound_ms"] / row["ms"]
+                row["host_us"] = host_us(kernel, iters)
+                row["plain_ms"] = cuda_ms(plain, 3 if big else 10)
+                row["product_alone_ms"] = cuda_ms(product, 5 if big else 20)
+                row["path_ms"] = chained_ms(paths[name], q0, 20)
+                row["path_device_ms"] = device_ms(lambda: paths[name](q0), 10, "")
+            emit(**row)
+            torch.cuda.empty_cache()
+        del unit, qi, uq, a_pad, items
+        torch.cuda.empty_cache()
+
+
+KERNELS = {"K2": k2, "K1": k1, "K3": k3, "approx": approx}
 
 
 def run_here(tag: str, quick: bool, kernels: list[str], hm_root: str | None = None) -> None:

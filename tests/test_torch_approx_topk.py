@@ -16,6 +16,9 @@ the exact top-k; what the TPU returns is held by its shapes and its contract:
   returns the exact score of each id, each id is its bin's maximum and the
   lowest column on ties, rows are sorted, and the recall against JAX's exact
   ``top_k`` is at least 0.95;
+* the int8 kernel's integer epilogue (packed (sum, slice) keys, dequantized
+  at the end) and the merge of split slices, written out in torch, equal the
+  plain forms' bins bit for bit at the edges of the keys' premise;
 * on a mesh whose model axis is > 1 both packages ignore the method;
 * a CUDA tensor never takes the plain form: with the kernel's build failing,
   the call raises.
@@ -204,6 +207,132 @@ def test_int8_plain_form_keeps_the_contract_on_the_sums():
     recall = np.mean([len(set(ids[r].tolist()) & set(ei[r].tolist())) / k
                       for r in range(len(ei))])
     assert recall >= 0.95, recall
+
+
+# -- the int8 kernel's integer epilogue and the merge of split slices ------------------
+
+def _int_key_shift(D: int) -> int:
+    """``int_key_shift`` of csrc/approx_topk.cu: the slice bits that fit beside
+    |sum| <= D * 128^2 in a 31-bit key, 0 where |sum| could reach 2^23."""
+    maxabs = D * 128 * 128
+    if maxabs >= 1 << 23:
+        return 0
+    shift = 0
+    while (maxabs + 1) << (shift + 1) <= 1 << 31:
+        shift += 1
+    return shift
+
+
+def _int8_bins_by_keys(uq, q, alpha, bins, red, parts):
+    """The int8 kernel's arithmetic: each part of the slices keeps, per bin,
+    the max of the packed keys sum * 2^s + (2^s - 1 - slice) (INT32_MIN for
+    the PAD column and columns past n), unpacked and dequantized at the end as
+    float(sum) * alpha; the parts merged in order, strictly greater winning."""
+    n, B = q.shape[0], uq.shape[0]
+    shift = _int_key_shift(uq.shape[1])
+    assert shift > 0
+    acc = (uq.double() @ q.double().T).long()
+    S = -(-n // bins)
+    none = torch.iinfo(torch.int32).min
+    full = torch.full((B, S * bins), none, dtype=torch.long)
+    full[:, :n] = acc
+    full[:, 0] = none
+    L = -(-S // parts)
+    vals = cols = None
+    for p in range(-(-S // L)):
+        t = torch.arange(p * L, min(S, (p + 1) * L))
+        sums = full.view(B, S, bins)[:, t]
+        keys = sums * (1 << shift) + ((1 << shift) - 1 - (t - p * L))[None, :, None]
+        keys = torch.where(sums == none, none, keys)
+        assert int(keys.max()) < 2**31 and int(keys[sums != none].min()) > none
+        kmax = keys.max(dim=1).values
+        empty = kmax == none
+        v = torch.where(empty, -torch.inf, (kmax >> shift).float() * alpha[:, None])
+        tl = torch.where(empty, 0, (1 << shift) - 1 - (kmax & ((1 << shift) - 1)))
+        c = ((p * L + tl) * bins + torch.arange(bins)).int()
+        if vals is None:
+            vals, cols = v, c
+        else:
+            take = v > vals
+            vals, cols = torch.where(take, v, vals), torch.where(take, c, cols)
+    return vals, cols
+
+
+def test_int_key_shift_is_the_kernels():
+    assert [_int_key_shift(D) for D in (16, 128, 511, 512, 520)] == [12, 9, 8, 0, 0]
+
+
+@pytest.mark.parametrize("D,value", [(128, 127), (128, 128), (511, 128)])
+@pytest.mark.parametrize("parts", [1, 2, 3])
+def test_int8_integer_keys_equal_the_plain_bins(D, value, parts):
+    """At the edges of the keys' premise the kernel's integer epilogue gives
+    ``approx_scan_int8_plain``'s bins bit for bit: sums at +-D * value^2
+    (value 128: the int8 -128 times itself), equal sums in many slices, alpha
+    1e-12 and 1e3, parts merged in order."""
+    rng = np.random.default_rng(D + value + parts)
+    n, bins, red = 1_500, 128, 4
+    q = rng.integers(-127, 128, (n, D)).astype(np.int64)
+    q[rng.random(n) < 0.3] = value            # the largest sum ...
+    q[rng.random(n) < 0.2] = -value           # ... and the smallest, in many slices
+    uq = rng.integers(-127, 128, (6, D)).astype(np.int64)
+    uq[0], uq[1], uq[2] = value, -value, 1
+    to8 = lambda a: torch.as_tensor(np.clip(a, -128, 127).astype(np.int8))  # noqa: E731
+    uq, q = to8(uq), to8(q)
+    if value == 128:
+        uq[1], q[q[:, 0] == 127] = -128, -128
+    alpha = torch.tensor([1e-12, 1e3, 0.5, 1e-12, 1e3, 7.0], dtype=torch.float32)
+    sums = uq.long() @ q.long().T
+    assert int(sums.abs().max()) == D * value**2 < 2**23
+    got = _int8_bins_by_keys(uq, q, alpha, bins, red, parts)
+    want = A.approx_scan_int8_plain(uq, q, alpha, bins, red)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_int8_sum_bins_hold_below_2_23_at_520():
+    """At D = 520 and |int8| <= 127 the sums stay below 2^23 and their bins,
+    dequantized, are the plain form's; the kernel keeps the dequantized
+    scores there all the same (an int8 of -128 takes the sums past 2^23)."""
+    rng = np.random.default_rng(520)
+    n, D, bins, red = 1_000, 520, 128, 3
+    q = rng.integers(-127, 128, (n, D)).astype(np.int8)
+    q[::7] = 127
+    q[3::11] = -127
+    uq = rng.integers(-127, 128, (5, D)).astype(np.int8)
+    uq[0], uq[1] = 127, -127
+    uq, q = torch.as_tensor(uq), torch.as_tensor(q)
+    alpha = torch.tensor([1e-12, 1e3, 0.25, 3.0, 1e-12], dtype=torch.float32)
+    sums = uq.double() @ q.double().T
+    assert float(sums.abs().max()) == D * 127**2 < 2**23 <= D * 128**2
+    sums[:, 0] = -torch.inf
+    sv, sc = A.bin_max_plain(sums, bins, red)
+    pv, pc = A.approx_scan_int8_plain(uq, q, alpha, bins, red)
+    assert torch.equal(sc, pc) and torch.equal(sv.float() * alpha[:, None], pv)
+    assert _int_key_shift(D) == 0
+
+
+@pytest.mark.parametrize("parts", [2, 3, 4])
+def test_split_slices_merge_to_bin_max_plain(parts):
+    """The kernels' split: each part's bins over its own slices, merged in part
+    order with the later part winning only when strictly greater, are
+    ``bin_max_plain``'s bins, ties across parts included."""
+    rng = np.random.default_rng(parts)
+    n, bins, red = 3_001, 128, 5
+    scores = torch.as_tensor(rng.integers(-20, 20, (7, n)).astype(np.float32))  # many ties
+    scores[:, 0] = -torch.inf
+    S = -(-n // bins)
+    L = -(-S // parts)
+    col_slice = torch.arange(n) // bins
+    vals = cols = None
+    for p in range(-(-S // L)):
+        part = torch.where((col_slice >= p * L) & (col_slice < (p + 1) * L), scores, -torch.inf)
+        v, c = A.bin_max_plain(part, bins, red)
+        if vals is None:
+            vals, cols = v, c
+        else:
+            take = v > vals
+            vals, cols = torch.where(take, v, vals), torch.where(take, c, cols)
+    want = A.bin_max_plain(scores, bins, red)
+    assert torch.equal(vals, want[0]) and torch.equal(cols, want[1])
 
 
 def test_k_beyond_the_bins_is_refused():

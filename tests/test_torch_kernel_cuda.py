@@ -898,6 +898,105 @@ def test_approx_scan_int8_bit_equal_to_plain(device, n, k, D):
     assert torch.equal(kv, sv.float() * alpha[:, None])
 
 
+def _int8_scan_case(n, D, B, seed, device):
+    rng = np.random.default_rng(seed)
+    uq = torch.as_tensor(rng.integers(-127, 128, (B, D)).astype(np.int8), device=device)
+    q = torch.as_tensor(rng.integers(-127, 128, (n, D)).astype(np.int8), device=device)
+    q[n - 8:] = q[1:9]
+    uq[0] = q[1]
+    alpha = torch.as_tensor(rng.random(B).astype(np.float32), device=device) + 0.1
+    return uq, q, alpha
+
+
+def _int8_bit_equal(uq, q, alpha, bins, red):
+    from recsys_tpu_torch.ops import approx_topk as A
+
+    kv, kc = A.approx_scan_int8_cuda(uq, q, alpha, bins, red)
+    pv, pc = A.approx_scan_int8_plain(uq, q, alpha, bins, red)
+    assert torch.equal(kv, pv) and torch.equal(kc, pc)
+    kv2, kc2 = A.approx_scan_int8_cuda(uq, q, alpha, bins, red)
+    assert torch.equal(kv, kv2) and torch.equal(kc, kc2)
+    return kv, kc
+
+
+# the tiles' edges: query counts around the 128-query block; int8 widths below one
+# 32-byte k step, with no 16-byte pitch (40, 100, 520: the producer's own loads), of
+# two 128-byte chunks, at the last and past the packed keys' width (511 / 512: 520,
+# 640), past the queries kept in shared memory (1,056); fp32 widths of no 16-byte
+# load (33) and of several stages
+@pytest.mark.parametrize("B,D", [(70, 128), (129, 128), (1024, 128), (129, 16), (129, 40),
+                                 (129, 100), (129, 256), (129, 520), (129, 640),
+                                 (129, 1056)])
+def test_approx_scan_int8_tile_edges(device, B, D):
+    from recsys_tpu_torch.ops import approx_topk as A
+
+    n = 20_001
+    uq, q, alpha = _int8_scan_case(n, D, B, B + D, device)
+    bins, red = A.approx_bins(n, 50, 0.95)
+    _int8_bit_equal(uq, q, alpha, bins, red)
+
+
+@pytest.mark.parametrize("B,D", [(70, 128), (129, 128), (1024, 128), (129, 16), (129, 33),
+                                 (129, 256)])
+def test_approx_scan_f32_tile_edges(device, B, D):
+    from recsys_tpu_torch.ops import approx_topk as A
+
+    n = 20_001
+    u, items, prior = _scan_problem(n, D, B, B + D, device)
+    bins, red = A.approx_bins(n, 50, 0.95)
+    kv, kc = A.approx_scan_f32_cuda(u, items, prior, bins, red)
+    pv, pc = A.approx_scan_f32_plain(u, items, prior, bins, red)
+    finite = torch.isfinite(pv)
+    assert torch.equal(finite, torch.isfinite(kv))
+    assert float((kv[finite] - pv[finite]).abs().max()) <= 1e-5
+    s64 = u.double() @ items.double().T + prior.double()[None, :]
+    s64[:, 0] = -torch.inf
+    differ = kc != pc
+    if differ.any():
+        gap = (s64.gather(1, kc.long()) - s64.gather(1, pc.long()))[differ].abs()
+        assert float(gap.max()) <= 1e-5
+
+
+def test_approx_scans_split_slices_and_ties(device):
+    """47,001 items at k = 50: 1,536 bins of 31 slices, 12 x 8 blocks of 128 x
+    128 at B = 1,024, fewer than the card's SMs, so the slices are split over
+    parts and merged. Equal scores in different slices (and different
+    parts) keep the lowest column in both scans; int8 rows with alpha 1e-12,
+    0 and below 0 keep the dequantized scores' bins, bit for bit."""
+    from recsys_tpu_torch.ops import approx_topk as A
+
+    n, k, B, D = 47_001, 50, 1024, 128
+    bins, red = A.approx_bins(n, k, 0.95)
+    assert (bins, red) == (1536, 5)
+    lib = A.load_library()
+    with torch.cuda.device(device):
+        assert lib.approx_scan_parts(1, B, n, D, bins, 1 << red) > 1
+        assert lib.approx_scan_parts(0, B, n, D, bins, 1 << red) > 1
+    u, items, prior = _scan_problem(n, D, B, 11, device)
+    for t in (3, 9, 17, 30):             # bin 5's column in slices 3, 9, 17, 30: one row
+        items[5 + t * bins] = items[5 + 3 * bins]
+        prior[5 + t * bins] = prior[5 + 3 * bins]
+    u[7] = items[5 + 3 * bins]
+    kv, kc = A.approx_scan_f32_cuda(u, items, prior, bins, red)
+    pv, pc = A.approx_scan_f32_plain(u, items, prior, bins, red)
+    assert int(kc[7, 5]) == 5 + 3 * bins
+    finite = torch.isfinite(pv)
+    assert float((kv[finite] - pv[finite]).abs().max()) <= 1e-5
+    s64 = u.double() @ items.double().T + prior.double()[None, :]
+    s64[:, 0] = -torch.inf
+    differ = kc != pc
+    if differ.any():
+        gap = (s64.gather(1, kc.long()) - s64.gather(1, pc.long()))[differ].abs()
+        assert float(gap.max()) <= 1e-5
+    uq, q, alpha = _int8_scan_case(n, D, B, 12, device)
+    for t in (3, 9, 17, 30):
+        q[5 + t * bins] = q[5 + 3 * bins]
+    uq[7] = q[5 + 3 * bins]
+    alpha[1], alpha[2], alpha[3], alpha[130] = 1e-12, 0.0, -0.5, -2.0
+    kv, kc = _int8_bit_equal(uq, q, alpha, bins, red)
+    assert int(kc[7, 5]) == 5 + 3 * bins
+
+
 def test_approx_topk_entry_points_launch_the_kernels(device):
     """``topk_scores`` and ``int8_topk`` with ``method="approx"`` on the card:
     one launch a call (a chunk), recall against exact >= 0.95 at 47,001 x k = 50,
@@ -947,3 +1046,9 @@ def test_approx_scan_rejects_bad_inputs(device):
             A.approx_scan_int8_cuda(u.to(torch.int8), items.to(torch.int8), alpha, 128, 2)
     empty_v, empty_c = A.approx_scan_f32_cuda(u[:0], items, None, 128, 2)
     assert empty_v.shape == (0, 128) and empty_c.shape == (0, 128)
+    # 128 queries a block, at most 65,535 blocks of them
+    assert A._MAX_QUERIES == 128 * 65535
+    many = torch.zeros((A._MAX_QUERIES + 1, 1), dtype=torch.int8, device=device)
+    with pytest.raises(ValueError, match="past what the kernel indexes"):
+        A.approx_scan_int8_cuda(many, items[:, :1].to(torch.int8),
+                                torch.ones(A._MAX_QUERIES + 1, device=device), 128, 2)
