@@ -294,7 +294,11 @@ once, then (phases 10 and 11 run after 6, while the graph of 4 is still there):
      recalls finite and > 0; every train-hybrid step after the warm-up a
      graph replay, no hand kernel there; the served user vector within
      SERVE_TOL of the tower's forward on the same history and GNN row; the
-     HTTP rerank list equal to ``rerank_serve_topk``'s offline list.
+     HTTP rerank list equal to ``rerank_serve_topk``'s offline list. Then
+     one line (``hm_cut_seconds``) sets the stage seconds of phases 20 and
+     21, eval's and rerank-eval's splits and the phases' totals beside
+     those before the host data paths were vectorized
+     (HM_CUT_SECONDS_BEFORE).
   22. the stage-1 A/B of the text encoders (``scripts/torch_quality_hm.py
      --recipe stage1``, arm B) on phase 20's world, cut as there: in a data
      root that links phase 20's world, ``pretrain-text`` -> ``train-item``
@@ -458,6 +462,24 @@ HM_CUT_WORLD_TIMEOUT_S = 300.0   # the wait for gen-data and etl once phase 19 h
 HM_CUT_GNN_STEPS, HM_CUT_SERVE_PRODUCTS = 300, 256
 HM_CUT_RERANK = ("--pool", "128", "--m-cos", "96", "--m-pop", "32", "--sample", "2000",
                  "--iterations", "50")
+# the stage seconds of phases 20 and 21 before the host data paths were vectorized
+# (recall, the stage-2 tensors, the graph's ids, the rerank side data): commit ecad44e,
+# two calls on an NVIDIA H100 80GB HBM3 at 700.00 W, and each phase's total at 6e0b891;
+# printed beside this run's
+HM_CUT_SECONDS_BEFORE = {
+    "phase_20": {"gen-data": (36.68, 47.46), "etl": (6.23, 10.48), "train-item": (16.59, 18.13),
+                 "vectorize": (10.95, 13.47), "train-user": (20.22, 26.49),
+                 "eval": (32.29, 44.94), "serve": (18.32, 27.51), "ties": (14.10, 17.72),
+                 "topk_cost": (0.20, 0.21)},
+    "phase_20_eval": {"prepare": (11.95, 18.45), "model_eval": (0.96, 1.16),
+                      "baselines": (3.55, 4.30), "user_vectors_and_blend": (7.34, 9.89),
+                      "bootstrap": (0.82, 1.01), "seasonal_blend": (7.55, 9.89)},
+    "phase_21": {"train-gnn": (16.93, 23.44), "gnn-eval": (0.74, 1.03), "distill": (1.20, 1.55),
+                 "train-hybrid": (19.03, 25.22), "rerank-eval": (41.87, 53.82),
+                 "serve": (18.52, 24.60)},
+    "totals": {"phase_20": {"ecad44e": (112.72, 148.58), "6e0b891": 142.4},
+               "phase_21": {"ecad44e": (98.36, 129.76), "6e0b891": 112.0}},
+}
 # phase 23: the JAX package's inits of a small configuration of each model family
 # (scripts/jax_flax_init_fixture.py); normal-derived values within FLAX_INIT_TOL x
 # the leaf's std, as tests/test_torch_flax_init.py, every other leaf bit for bit
@@ -3587,9 +3609,24 @@ def hm_cut_hybrid_phase(root: str, device) -> dict:
             "rerank": {k: rr[k] for k in ("reranked", "pool_ceiling", "gbdt_auc", "dcn_auc",
                                           "pool_size", "train_users", "gbdt_seconds",
                                           "dcn_steps", "dcn_graph_replays", "dcn_seconds",
-                                          "dcn_step_ms_median", "seconds")},
+                                          "dcn_step_ms_median", "seconds", "seconds_split")},
             "serve": {"served_vs_tower_err": served_err, "recommendation_ms": rec_ms},
             "stage_seconds": seconds}
+
+
+def hm_cut_seconds_beside(hm_cut: dict, hm_hybrid: dict, seconds: dict) -> dict:
+    """This run's stage seconds of phases 20 and 21, each beside the same
+    stage's at commit ecad44e (two calls) and the phases' totals beside
+    6e0b891's (HM_CUT_SECONDS_BEFORE)."""
+    def beside(now: dict, before: dict) -> dict:
+        return {k: {"now": now.get(k), "ecad44e": list(v)} for k, v in before.items()}
+    b = HM_CUT_SECONDS_BEFORE
+    return {"phase_20": beside(hm_cut["stage_seconds"], b["phase_20"]),
+            "phase_20_eval": beside(hm_cut["eval"]["seconds"], b["phase_20_eval"]),
+            "phase_21": beside(hm_hybrid["stage_seconds"], b["phase_21"]),
+            "phase_21_rerank": hm_hybrid["rerank"]["seconds_split"],
+            "totals": {k: {"now": seconds[k], "ecad44e": list(v["ecad44e"]),
+                           "6e0b891": v["6e0b891"]} for k, v in b["totals"].items()}}
 
 
 # -- phase 22: the stage-1 A/B of the text encoders at the H&M catalog, users cut --
@@ -3829,6 +3866,8 @@ def main() -> None:
         hm_hybrid = hm_cut_hybrid_phase(root, device)
         print(json.dumps({"phase": "hm_cut_hybrid", **hm_hybrid}), flush=True)
         seconds["phase_21"] = time.perf_counter() - start - sum(seconds.values())
+        print(json.dumps({"phase": "hm_cut_seconds", **hm_cut_seconds_beside(
+            hm_cut, hm_hybrid, seconds)}), flush=True)
         hm_pt = hm_cut_pretrained_phase(root, device)
         print(json.dumps({"phase": "hm_cut_pretrained", **hm_pt}), flush=True)
         seconds["phase_22"] = time.perf_counter() - start - sum(seconds.values())

@@ -17,6 +17,7 @@ every artifact (see ``train/checkpoint.py``).
 from __future__ import annotations
 
 from dataclasses import dataclass
+from itertools import chain
 
 import numpy as np
 import pandas as pd
@@ -30,6 +31,28 @@ TIME_BUCKET_EDGES = np.array([0, 3, 7, 14, 30, 60, 180, 330, 395])
 
 SIDE_FIELDS = ("product_type_name", "graphical_appearance_name",
                "colour_group_name", "department_name")
+
+
+def map_each(values, fn, dtype) -> np.ndarray:
+    """``fn(v)`` of every value as one array, for a ``fn`` that reads only the
+    value's ``str`` and its equality (``IdMap.idx``, a dict lookup): ``fn``
+    is called once for each distinct value and once for each missing one.
+    Objects that are not all strings go one at a time, since equal values
+    of two types (1, 1.0, True) print apart."""
+    if not isinstance(values, (np.ndarray, pd.Series, pd.Index)):
+        values = np.asarray(list(values), dtype=object)
+    if isinstance(values.dtype, np.dtype) and values.dtype.kind == "f":   # 0.0 == -0.0
+        bits = np.asarray(values).view(f"i{values.dtype.itemsize}")
+        codes, uniques = pd.factorize(bits)
+        uniques = uniques.view(values.dtype)
+    else:
+        codes, uniques = pd.factorize(values)
+    if values.dtype == object and not all(isinstance(u, str) for u in uniques):
+        return np.fromiter(map(fn, values), dtype, len(values))
+    out = np.fromiter(map(fn, uniques), dtype, len(uniques))[codes]
+    missing = np.flatnonzero(codes < 0)    # None and NaN print apart
+    out[missing] = np.fromiter(map(fn, values.take(missing)), dtype, len(missing))
+    return out
 
 
 @dataclass
@@ -48,7 +71,7 @@ class IdMap:
         return self.to_idx.get(str(id_), 0)
 
     def idx_array(self, ids) -> np.ndarray:
-        return np.array([self.idx(i) for i in ids], dtype=np.int32)
+        return map_each(ids, self.idx, np.int32)
 
 
 # -- item tensorization (SimCSE / vectorization input) ---------------------
@@ -152,49 +175,65 @@ def build_side_info(items: pd.DataFrame, num_buckets: int) -> tuple[np.ndarray, 
     items = items.sort_values("item_id", kind="stable").reset_index(drop=True)
     id_map = IdMap(list(items["item_id"].astype(str)))
     side = np.zeros((len(items) + 1, len(SIDE_FIELDS)), dtype=np.int32)
-    for r, row in enumerate(items.to_dict("records")):
-        for f, field in enumerate(SIDE_FIELDS):
-            side[r + 1, f] = tok.hash_bucket(row.get(field), num_buckets, salt=field)
+    for f, field in enumerate(SIDE_FIELDS):
+        if field not in items.columns:
+            continue                       # a missing field hashes to 0
+        side[1:, f] = map_each(items[field],
+                               lambda v, f=field: tok.hash_bucket(v, num_buckets, salt=f),
+                               np.int32)
     return side, id_map
 
 
 def build_sasrec_tensors(sequences: pd.DataFrame, user_feats: pd.DataFrame,
                          item_map: IdMap, cfg: UserTowerConfig) -> dict:
-    """All-user fixed-shape SASRec training tensors.
+    """All-user fixed-shape SASRec training tensors from ``etl.make_sequences``'
+    frame (see ``sasrec_tensors_from_windows``)."""
+    lens = sequences["sequence"].map(len).to_numpy(np.int64)
+    items = list(chain.from_iterable(sequences["sequence"]))
+    deltas = np.fromiter(chain.from_iterable(sequences["sequence_deltas"]), np.int64,
+                         len(items))
+    return sasrec_tensors_from_windows(sequences["user_id"].to_numpy(), lens,
+                                       item_map.idx_array(items), deltas, user_feats, cfg)
 
-    Left-pads so the latest event sits at the last position, and applies
-    the causal shift input = seq[:-1], target = seq[1:] (reference
+
+def sasrec_tensors_from_windows(user_ids: np.ndarray, lens: np.ndarray, items: np.ndarray,
+                                deltas: np.ndarray, user_feats: pd.DataFrame,
+                                cfg: UserTowerConfig) -> dict:
+    """All-user fixed-shape SASRec training tensors from the windows of
+    ``etl.sequence_windows`` with their items mapped to model indices.
+
+    Drops unknown items (index 0), keeps each user's last L + 1 and
+    left-pads so the latest event sits at the last position, with the
+    causal shift input = seq[:-1], target = seq[1:] (reference
     `SASRecDataset`, `v1_refine_usertower.py:222-306`). Users with < 2
-    events are dropped (nothing to predict).
+    known events, or without features, are dropped (nothing to predict).
     """
     L = cfg.max_len
     uf = user_feats.set_index("user_id")
-    rows = []
-    for rec in sequences.to_dict("records"):
-        seq = [item_map.idx(i) for i in rec["sequence"]]
-        deltas = list(rec["sequence_deltas"])
-        keep = [k for k, s in enumerate(seq) if s != 0]  # drop unknown items
-        seq = [seq[k] for k in keep]
-        deltas = [deltas[k] for k in keep]
-        if len(seq) < 2 or rec["user_id"] not in uf.index:
-            continue
-        rows.append((rec["user_id"], seq[-(L + 1):], deltas[-(L + 1):]))
+    group = np.repeat(np.arange(len(lens)), lens)
+    known = np.flatnonzero(items != 0)
+    group = group[known]
+    count = np.bincount(group, minlength=len(lens))
+    span = np.minimum(count, L + 1)
+    keep = (count >= 2) & pd.Index(user_ids, dtype=object).isin(uf.index)
+    row = np.cumsum(keep) - 1
+    back = np.cumsum(count)[group] - 1 - np.arange(len(known))   # 0 = the user's last
+    sel = keep[group] & (back < span[group])
+    group, back, known = group[sel], back[sel], known[sel]
+    r = row[group]
 
-    n = len(rows)
+    n = int(keep.sum())
     inp = np.zeros((n, L), dtype=np.int32)
     tgt = np.zeros((n, L), dtype=np.int32)
     tbk = np.zeros((n, L), dtype=np.int32)
     mask = np.zeros((n, L), dtype=np.int32)  # 1 = real position
-    user_ids = []
-    for r, (uid, seq, deltas) in enumerate(rows):
-        user_ids.append(uid)
-        x, y = seq[:-1], seq[1:]
-        d = np.digitize(deltas[:-1], TIME_BUCKET_EDGES[1:])
-        k = len(x)
-        inp[r, L - k:] = x
-        tgt[r, L - k:] = y
-        tbk[r, L - k:] = d
-        mask[r, L - k:] = 1
+    x = back >= 1                            # every event but the last is an input
+    inp[r[x], L - back[x]] = items[known[x]]
+    tbk[r[x], L - back[x]] = np.digitize(deltas[known[x]], TIME_BUCKET_EDGES[1:])
+    mask[r[x], L - back[x]] = 1
+    y = back <= span[group] - 2              # every event but the first is a target
+    tgt[r[y], L - 1 - back[y]] = items[known[y]]
+    user_ids = np.asarray(user_ids)[keep].tolist()
 
     sel = uf.loc[user_ids]
     from recsys_tpu_torch.data.etl import USER_BUCKET_COLS, USER_CAT_COLS, USER_CONT_COLS
@@ -205,6 +244,14 @@ def build_sasrec_tensors(sequences: pd.DataFrame, user_feats: pd.DataFrame,
         "user_cont": sel[list(USER_CONT_COLS)].to_numpy(np.float32),
         "user_ids": user_ids,
     }
+
+
+def target_index(targets: dict, item_map: IdMap) -> dict:
+    """user_id -> the set of its target items' model indices, unknown items
+    (index 0) left out; every user of ``targets`` keeps an entry."""
+    idx = item_map.idx_array(list(chain.from_iterable(targets.values()))).tolist()
+    ends = np.cumsum([len(v) for v in targets.values()], dtype=np.int64).tolist()
+    return {u: set(idx[s:e]) - {0} for u, s, e in zip(targets, [0] + ends[:-1], ends)}
 
 
 def batch_iterator(n: int, batch_size: int, rng: np.random.Generator | None = None,

@@ -48,10 +48,23 @@ def time_split(tx: pd.DataFrame, valid_days: int = 7):
     return train, valid, split_day
 
 
+def grouped_lists(keys, values, sort: bool = True) -> dict:
+    """key -> the list of its values in row order; the keys sorted (a
+    groupby's order) or in the order they first appear; a missing key forms
+    no group."""
+    codes, uniques = pd.factorize(keys, sort=sort)
+    keep = np.flatnonzero(codes >= 0)
+    order = keep[np.argsort(codes[keep], kind="stable")]
+    vals = np.asarray(values)[order].tolist()
+    ends = np.cumsum(np.bincount(codes[keep], minlength=len(uniques))).tolist()
+    return {u: vals[s:e] for u, s, e in zip(uniques.tolist(), [0] + ends[:-1], ends)}
+
+
 def make_validation_target(valid_tx: pd.DataFrame) -> dict[str, list[str]]:
-    """user_id -> list of distinct items purchased in the target window."""
-    g = valid_tx.groupby("user_id")["item_id"].agg(lambda s: list(dict.fromkeys(s)))
-    return g.to_dict()
+    """user_id -> list of distinct items purchased in the target window, in
+    the order of their first purchase."""
+    pairs = valid_tx[["user_id", "item_id"]].drop_duplicates()
+    return grouped_lists(pairs["user_id"], pairs["item_id"])
 
 
 # -- item features ---------------------------------------------------------
@@ -106,7 +119,8 @@ def logq_from_item_features(item_feats: pd.DataFrame, item_order: list[str],
     PAD at ``pad_value`` — reference `get_logq_probs`,
     `v1_refine_usertower.py:124-137`)."""
     probs = item_feats.set_index("item_id")["raw_probability"]
-    q = np.array([probs.get(i, 0.0) for i in item_order], dtype=np.float32)
+    at = probs.index.get_indexer(pd.Index(item_order, dtype=object))
+    q = np.where(at >= 0, probs.to_numpy()[at], 0.0).astype(np.float32)
     logq = np.log(np.clip(q, 1e-12, None))
     logq[q <= 0] = pad_value
     return np.concatenate([[pad_value], logq]).astype(np.float32)
@@ -216,30 +230,40 @@ def make_user_features(train_tx: pd.DataFrame, users: pd.DataFrame, split_day: i
 
 # -- sequences -------------------------------------------------------------
 
-def make_sequences(train_tx: pd.DataFrame, max_len: int = 50) -> pd.DataFrame:
-    """Per-user purchase sequence (last ``max_len``) + day deltas relative to
-    the final event. Items are string ids here; the dataset stage maps to
-    model indices and left-pads."""
-    # sorted-array group slicing instead of groupby.apply: the per-group
-    # Series construction made this the ETL bottleneck (162 s -> seconds on
-    # a 200k-user world)
-    if len(train_tx) == 0:
-        return pd.DataFrame(columns=["user_id", "sequence",
-                                     "sequence_deltas", "seq_len"])
+def sequence_windows(train_tx: pd.DataFrame, max_len: int = 50):
+    """Each user's last ``max_len`` purchases as flat arrays: (user ids, in
+    sorted order; each window's length; the item ids, user by user, oldest
+    first; each purchase's day delta to the user's last one)."""
     df = train_tx.sort_values(["user_id", "day"], kind="stable")
     uids = df["user_id"].to_numpy()
     items = df["item_id"].to_numpy()
     days = df["day"].to_numpy()
-    starts = np.flatnonzero(np.concatenate([[True], uids[1:] != uids[:-1]]))
+    starts = np.flatnonzero(np.concatenate([[True], uids[1:] != uids[:-1]])) \
+        if len(uids) else np.zeros(0, np.int64)
     ends = np.append(starts[1:], len(uids))
-    recs = []
-    for s, e in zip(starts, ends):
-        s = max(s, e - max_len)
-        d = days[s:e]
-        recs.append((uids[s], list(items[s:e]),
-                     [int(x) for x in d[-1] - d], e - s))
-    return pd.DataFrame(recs, columns=["user_id", "sequence",
-                                       "sequence_deltas", "seq_len"])
+    lo = np.maximum(starts, ends - max_len)
+    lens = ends - lo
+    group = np.repeat(np.arange(len(lens)), lens)
+    pos = lo[group] + np.arange(int(lens.sum())) - (np.cumsum(lens) - lens)[group]
+    deltas = (days[ends[group] - 1] - days[pos]).astype(np.int64)
+    return uids[starts], lens, items[pos], deltas
+
+
+def make_sequences(train_tx: pd.DataFrame, max_len: int = 50) -> pd.DataFrame:
+    """Per-user purchase sequence (last ``max_len``) + day deltas relative to
+    the final event. Items are string ids here; the dataset stage maps to
+    model indices and left-pads."""
+    if len(train_tx) == 0:
+        return pd.DataFrame(columns=["user_id", "sequence",
+                                     "sequence_deltas", "seq_len"])
+    uids, lens, items, deltas = sequence_windows(train_tx, max_len)
+    items, deltas = list(items), deltas.tolist()
+    ends = np.cumsum(lens).tolist()
+    bounds = list(zip([0] + ends[:-1], ends))
+    return pd.DataFrame({"user_id": uids.tolist(),
+                         "sequence": [items[s:e] for s, e in bounds],
+                         "sequence_deltas": [deltas[s:e] for s, e in bounds],
+                         "seq_len": lens})
 
 
 def aggregate_histories(tx: pd.DataFrame, out_json: str | None = None) -> dict:

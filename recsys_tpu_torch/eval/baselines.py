@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from recsys_tpu_torch.device import resolve_device
-from recsys_tpu_torch.eval.recall import recall_at_ks, recall_per_user
+from recsys_tpu_torch.eval.recall import TargetTable, recall_at_ks, recall_per_user
 from recsys_tpu_torch.ops.topk import stable_topk
 
 
@@ -220,10 +220,10 @@ def blend_sweep(user_vecs: np.ndarray, item_matrix: np.ndarray,
     one resident (B, N+1) score block on that device, every (alpha, beta)
     combination masked, blended and cut to an exact top-k there.
     """
+    targets = TargetTable(user_ids, targets_idx)      # one table for every combination
     if device is not None:
-        return _blend_sweep_device(user_vecs, item_matrix, logq, histories,
-                                   user_ids, targets_idx, ks, alphas, betas,
-                                   per_user_k, device)
+        return _blend_sweep_device(user_vecs, item_matrix, logq, histories, user_ids,
+                                   targets_idx, ks, alphas, betas, per_user_k, device, targets)
     # np.array (copy): asarray of a device buffer can hand back a
     # read-only view, breaking the in-place normalize
     items = np.array(item_matrix, np.float32)
@@ -254,8 +254,8 @@ def blend_sweep(user_vecs: np.ndarray, item_matrix: np.ndarray,
         idx = (np.concatenate(idx_parts[(alpha, beta)])
                if idx_parts[(alpha, beta)]
                else np.zeros((0, max_k), np.int64))
-        table[_combo_key(alpha, beta)] = recall_at_ks(idx, user_ids,
-                                                  targets_idx, ks)
+        table[_combo_key(alpha, beta)] = recall_at_ks(idx, user_ids, targets_idx, ks,
+                                                      table=targets)
     key = f"recall@{sorted(ks)[min(1, len(ks) - 1)]}"
     best = max(table, key=lambda t: table[t][key])
     out = {"table": table, "best": best, "best_metrics": table[best]}
@@ -265,27 +265,28 @@ def blend_sweep(user_vecs: np.ndarray, item_matrix: np.ndarray,
                     else np.zeros((0, max_k), np.int64)
                     for nm, c in name_of.items()
                     if nm == best or nm == "a0.0_b0.0"}
-        out["_per_user"] = _blend_per_user(full_idx, best, user_ids,
-                                           targets_idx, per_user_k)
+        out["_per_user"] = _blend_per_user(full_idx, best, user_ids, targets_idx,
+                                           per_user_k, targets)
     return out
 
 
 def _blend_per_user(full_idx: dict, best: str, user_ids, targets_idx,
-                    per_user_k: int) -> dict:
+                    per_user_k: int, targets: TargetTable) -> dict:
     pu: dict = {"k": per_user_k}
     vals, kept = recall_per_user(full_idx[best], user_ids, targets_idx,
-                                 per_user_k)
+                                 per_user_k, table=targets)
     pu["best"], pu["uids"] = vals, kept
     if "a0.0_b0.0" in full_idx:
         pu["model_only"], _ = recall_per_user(full_idx["a0.0_b0.0"],
                                               user_ids, targets_idx,
-                                              per_user_k)
+                                              per_user_k, table=targets)
     return pu
 
 
 def _blend_sweep_device(user_vecs, item_matrix, logq, histories, user_ids,
                         targets_idx, ks, alphas, betas,
-                        per_user_k: int | None, device: torch.device | str) -> dict:
+                        per_user_k: int | None, device: torch.device | str,
+                        targets: TargetTable) -> dict:
     """Device backend of ``blend_sweep``, the same math in plain PyTorch,
     with the JAX device sweep's order among equal scores (``jax.lax.top_k``:
     lowest index first). The recalls equal the host's when no two scores tie
@@ -317,8 +318,8 @@ def _blend_sweep_device(user_vecs, item_matrix, logq, histories, user_ids,
     for m, (alpha, beta) in enumerate(combos):
         idx = (np.concatenate([p[m] for p in parts])
                if parts else np.zeros((0, max_k), np.int64))
-        table[_combo_key(alpha, beta)] = recall_at_ks(idx, user_ids,
-                                                      targets_idx, ks)
+        table[_combo_key(alpha, beta)] = recall_at_ks(idx, user_ids, targets_idx, ks,
+                                                      table=targets)
     key = f"recall@{sorted(ks)[min(1, len(ks) - 1)]}"
     best = max(table, key=lambda t: table[t][key])
     out = {"table": table, "best": best, "best_metrics": table[best]}
@@ -328,8 +329,8 @@ def _blend_sweep_device(user_vecs, item_matrix, logq, histories, user_ids,
                          else np.zeros((0, max_k), np.int64))
                     for nm, m in name_of.items()
                     if nm == best or nm == "a0.0_b0.0"}
-        out["_per_user"] = _blend_per_user(full_idx, best, user_ids,
-                                           targets_idx, per_user_k)
+        out["_per_user"] = _blend_per_user(full_idx, best, user_ids, targets_idx,
+                                           per_user_k, targets)
     return out
 
 
@@ -366,12 +367,14 @@ def baseline_report(tensors: dict, logq: np.ndarray, targets_idx: dict,
                                                       max_k, device=device)
         idx["content_profile_recency"] = content_profile_topk(
             histories, item_matrix, max_k, half_life=10.0, device=device)
-    report = {name: recall_at_ks(m, user_ids, targets_idx, ks)
+    targets = TargetTable(user_ids, targets_idx)
+    report = {name: recall_at_ks(m, user_ids, targets_idx, ks, table=targets)
               for name, m in idx.items()}
     if per_user_k is not None:
         pu: dict = {"k": per_user_k}
         for name, m in idx.items():
-            vals, kept = recall_per_user(m, user_ids, targets_idx, per_user_k)
+            vals, kept = recall_per_user(m, user_ids, targets_idx, per_user_k,
+                                         table=targets)
             pu[name] = vals
             pu["uids"] = kept
         report["_per_user"] = pu

@@ -31,7 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from recsys_tpu_torch.eval.recall import recall_at_ks
+from recsys_tpu_torch.eval.recall import TargetTable, recall_at_ks
 
 
 def _argsort_by_id_stable(idx: np.ndarray) -> np.ndarray:
@@ -189,21 +189,24 @@ def rrf_ensemble(idx_a: np.ndarray, idx_b: np.ndarray, k: int,
 def alpha_sweep(method: str, model_a: tuple, model_b: tuple, user_ids,
                 targets_idx: dict, ks=(20, 100, 500),
                 alphas=(1.0, 0.9, 0.8, 0.7, 0.6, 0.5, 0.4, 0.3, 0.2, 0.1, 0.0),
-                k_rrf: int = 200, device: torch.device | str | None = None) -> dict:
+                k_rrf: int = 200, device: torch.device | str | None = None,
+                table: TargetTable | None = None) -> dict:
     """Sweep the fusion weight and report recall per alpha + the best.
 
     model_a/model_b: (topm_idx, topm_scores) arrays, aligned to user_ids.
     ``device=None`` runs the host fusers; a torch device runs the device
-    fusers there (the same lists, see the module docstring)."""
+    fusers there (the same lists, see the module docstring). ``table``:
+    ``TargetTable(user_ids, targets_idx)`` where the caller has built it."""
+    table = TargetTable(user_ids, targets_idx) if table is None else table
     if device is not None:
-        return _alpha_sweep_device(method, model_a, model_b, user_ids,
-                                   targets_idx, ks, alphas, k_rrf, device=device)
+        return _alpha_sweep_device(method, model_a, model_b, user_ids, targets_idx, ks,
+                                   alphas, k_rrf, device=device, table=table)
     idx_a, sc_a = model_a
     idx_b, sc_b = model_b
     max_k = max(ks)
     wf = (WeightedFuser(idx_a, sc_a, idx_b, sc_b)
           if method == "weighted" else None)
-    table = {}
+    recalls = {}
     for alpha in alphas:
         if method == "count_mix":
             fused = count_mix_ensemble(idx_a, idx_b, max_k, alpha)
@@ -213,10 +216,10 @@ def alpha_sweep(method: str, model_a: tuple, model_b: tuple, user_ids,
             fused = rrf_ensemble(idx_a, idx_b, max_k, k_rrf)
         else:
             raise ValueError(method)
-        table[alpha] = recall_at_ks(fused, user_ids, targets_idx, ks)
+        recalls[alpha] = recall_at_ks(fused, user_ids, targets_idx, ks, table=table)
         if method == "rrf":  # rank fusion has no alpha; one row suffices
             break
-    return _best_of(table, ks)
+    return _best_of(recalls, ks)
 
 
 def _best_of(table: dict, ks) -> dict:
@@ -342,9 +345,11 @@ def _dev_dedup_take(merged: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def _alpha_sweep_device(method, model_a, model_b, user_ids, targets_idx, ks, alphas,
-                        k_rrf, chunk: int = 2048, device="cuda") -> dict:
+                        k_rrf, chunk: int = 2048, device="cuda",
+                        table: TargetTable | None = None) -> dict:
     """The sweep of ``alpha_sweep`` on ``device``, ``chunk`` users at a time;
     the alpha-invariant work of a chunk (sort, group sums) is done once."""
+    table = TargetTable(user_ids, targets_idx) if table is None else table
     idx_a, sc_a = model_a
     idx_b, sc_b = model_b
     max_k = max(ks)
@@ -383,9 +388,9 @@ def _alpha_sweep_device(method, model_a, model_b, user_ids, targets_idx, ks, alp
                                      max_k)]
         for m, f in enumerate(fused):
             parts[m].append(f.cpu().numpy())
-    table = {}
+    recalls = {}
     for m, alpha in enumerate(alphas):
         fused = (np.concatenate(parts[m]) if parts[m]
                  else np.zeros((0, max_k), np.int64))
-        table[alpha] = recall_at_ks(fused, user_ids, targets_idx, ks)
-    return _best_of(table, ks)
+        recalls[alpha] = recall_at_ks(fused, user_ids, targets_idx, ks, table=table)
+    return _best_of(recalls, ks)

@@ -5,7 +5,8 @@ normalize the item matrix once, score the whole catalog (``U @ I^T``), take
 top-max(K) on the device (equal scores lowest index first, as
 ``jax.lax.top_k``), then compute set-intersection recall on the host
 with users absent from the ground truth dropped from the denominator. The
-numpy helpers are the JAX package's code unchanged. On a mesh whose model
+recall helpers count what the JAX package's loops count, bit for bit, in
+array form (``TargetTable``). On a mesh whose model
 axis is > 1 the item matrix and the prior are row-sharded, every shard
 scores its rows and ``parallel/collectives.sharded_topk`` merges, so eval and
 serving share one retrieval path. ``method="approx"`` on the dense path is
@@ -15,6 +16,9 @@ CPU); on the sharded path it is ignored, as in the JAX package.
 """
 
 from __future__ import annotations
+
+import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -85,40 +89,93 @@ def topk_scores(user_vecs: torch.Tensor, item_matrix: torch.Tensor, k: int,
     return stable_topk(scores, k)
 
 
+_CHUNK_ROWS = 1 << 13
+_MISS = np.iinfo(np.int64).max
+
+
+class TargetTable:
+    """The non-empty target sets of ``user_ids`` in the flat form that recall
+    scores against: ``rows`` (the users with targets, in order), ``lens``
+    (each set's size) and ``items`` (the sets' items in that order). A
+    caller that scores many lists against one target dict builds it once
+    and passes it as ``table``."""
+
+    def __init__(self, user_ids, targets_idx: dict):
+        sets = [targets_idx.get(u) for u in user_ids]
+        self.rows = np.fromiter((r for r, s in enumerate(sets) if s), np.int64)
+        self.lens = np.fromiter((len(sets[r]) for r in self.rows), np.int64, len(self.rows))
+        self.items = np.fromiter((i for r in self.rows for i in sets[r]), np.int64,
+                                 int(self.lens.sum()))
+
+
+def _positions_chunk(topk, rows, lens, starts, items, width, order, pos):
+    block = topk[rows[order], :width]
+    ln, st = lens[order], starts[order]
+    for t in range(int(ln[0])):           # lens descend: the rows with a t-th target lead
+        m = int(np.count_nonzero(ln > t))
+        eq = block[:m] == items[st[:m] + t][:, None]
+        first = eq.argmax(1)
+        pos[st[:m] + t] = np.where(eq[np.arange(m), first], first, _MISS)
+
+
+def _first_positions(topk: np.ndarray, rows, lens, items) -> np.ndarray:
+    """For each target, the first column of its user's top-k row that holds
+    it, or ``_MISS``. A repeated index in a row counts once, as a set
+    intersection counts it."""
+    pos = np.full(len(items), _MISS, np.int64)
+    if topk.shape[1] == 0 or not len(rows):
+        return pos
+    starts = np.cumsum(lens) - lens
+    order = np.argsort(-lens, kind="stable")
+    chunks = [order[s:s + _CHUNK_ROWS] for s in range(0, len(order), _CHUNK_ROWS)]
+
+    def scan(o):
+        _positions_chunk(topk, rows, lens, starts, items, topk.shape[1], o, pos)
+    if len(chunks) == 1:
+        scan(chunks[0])
+    else:   # numpy's compares release the GIL; the chunks write disjoint targets
+        with ThreadPoolExecutor(min(4, os.cpu_count() or 1)) as pool:
+            list(pool.map(scan, chunks))
+    return pos
+
+
+def _recall_rows(topk_idx, table: TargetTable, ks) -> dict:
+    """{k: per-row recall@k} over the users with targets, in order."""
+    topk = np.asarray(topk_idx)
+    if len(table.rows):
+        topk = topk[:, :max(ks)]
+    pos = _first_positions(topk, table.rows, table.lens, table.items)
+    owner = np.repeat(np.arange(len(table.rows)), table.lens)
+    return {k: np.bincount(owner[pos < k], minlength=len(table.rows)) / table.lens
+            for k in ks}
+
+
 def recall_at_ks(topk_idx: np.ndarray, user_ids: list, targets_idx: dict,
-                 ks=(20, 100, 500)) -> dict:
+                 ks=(20, 100, 500), *, table: TargetTable | None = None) -> dict:
     """targets_idx: user_id -> set of target item indices. Users without
-    targets are dropped from the denominator (reference `:679-699`)."""
+    targets are dropped from the denominator (reference `:679-699`). Hits
+    are distinct items; each user's recall is added in user order, as a
+    loop over the users adds it. ``table``: ``TargetTable(user_ids,
+    targets_idx)`` where the caller has built it."""
     ks = sorted(ks)
-    sums = {k: 0.0 for k in ks}
-    n_eval = 0
-    for r, uid in enumerate(user_ids):
-        tgt = targets_idx.get(uid)
-        if not tgt:
-            continue
-        n_eval += 1
-        row = topk_idx[r]
-        for k in ks:
-            hits = len(tgt.intersection(row[:k].tolist()))
-            sums[k] += hits / len(tgt)
+    table = TargetTable(user_ids, targets_idx) if table is None else table
+    vals = _recall_rows(topk_idx, table, ks)
+    n_eval = len(table.rows)
     if n_eval == 0:
         return {f"recall@{k}": 0.0 for k in ks} | {"n_eval": 0}
-    return {f"recall@{k}": sums[k] / n_eval for k in ks} | {"n_eval": n_eval}
+    return {f"recall@{k}": float(np.cumsum(vals[k])[-1]) / n_eval for k in ks} \
+        | {"n_eval": n_eval}
 
 
 def recall_per_user(topk_idx: np.ndarray, user_ids, targets_idx: dict,
-                    k: int) -> tuple[np.ndarray, list]:
+                    k: int, *, table: TargetTable | None = None) -> tuple[np.ndarray, list]:
     """Per-user recall@k over users WITH targets (same denominator semantics
     as ``recall_at_ks``). Returns (values, kept_user_ids) — the raw material
     for bootstrap confidence intervals and paired system comparisons."""
-    vals, kept = [], []
-    for r, uid in enumerate(user_ids):
-        tgt = targets_idx.get(uid)
-        if not tgt:
-            continue
-        vals.append(len(tgt.intersection(topk_idx[r, :k].tolist())) / len(tgt))
-        kept.append(uid)
-    return np.asarray(vals, np.float64), kept
+    table = TargetTable(user_ids, targets_idx) if table is None else table
+    vals = _recall_rows(topk_idx, table, [k])[k]
+    uids = user_ids if isinstance(user_ids, (list, tuple)) else list(user_ids)
+    return np.asarray(vals, np.float64), [uids[r] for r in table.rows]
 
 
 def bootstrap_mean_ci(values: np.ndarray, n_boot: int = 1000, seed: int = 0,

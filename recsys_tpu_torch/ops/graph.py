@@ -2,8 +2,9 @@
 
 Counterpart of ``recsys_tpu/ops/graph.py``. ``BipartiteGraph``,
 ``_randomized_svd`` and ``build_graph`` are the JAX package's numpy/scipy
-code unchanged, so both packages build identical arrays from the same
-interactions. ``propagate`` is gather x weight followed by ``index_add_``
+code (``build_graph`` dedups the pairs on a 1-D key, which sorts them as
+the JAX package's row-wise ``np.unique`` does), so both packages build
+identical arrays from the same interactions. ``propagate`` is gather x weight followed by ``index_add_``
 (the counterpart of ``segment_sum``); ``propagate_chunked`` bounds the
 (E, D) message array over a host-resident edge list. The hand-written CUDA
 sparse product that the trainer uses on the card is ``ops/spmm.py``.
@@ -62,8 +63,12 @@ def build_graph(user_idx: np.ndarray, item_idx: np.ndarray, num_users: int,
                 pad_multiple: int = 1024, seed: int = 0) -> BipartiteGraph:
     """Deduped (user, item) interactions -> normalized symmetric COO graph +
     low-rank SVD of the normalized adjacency."""
-    pairs = np.unique(np.stack([user_idx, item_idx], axis=1), axis=0)
-    u, i = pairs[:, 0].astype(np.int64), pairs[:, 1].astype(np.int64)
+    u, i = np.asarray(user_idx).astype(np.int64), np.asarray(item_idx).astype(np.int64)
+    # the sorted distinct (user, item) pairs, through one 1-D key
+    lo = int(i.min()) if len(i) else 0
+    span = int(i.max()) - lo + 1 if len(i) else 1
+    keys = np.unique(u * span + (i - lo))
+    u, i = keys // span, keys % span + lo
     n = num_users + num_items
     deg = np.zeros(n, np.float64)
     np.add.at(deg, u, 1.0)

@@ -62,6 +62,7 @@ import json
 import os
 import statistics
 import time
+from itertools import chain
 
 import numpy as np
 import pandas as pd
@@ -69,6 +70,19 @@ import torch
 
 from recsys_tpu_torch.config import Config, load_config
 from recsys_tpu_torch.device import resolve_device
+
+
+class _Laps:
+    """Seconds between calls, by name; a name called twice adds up."""
+
+    def __init__(self):
+        self.seconds: dict = {}
+        self._last = time.perf_counter()
+
+    def __call__(self, name: str) -> None:
+        now = time.perf_counter()
+        self.seconds[name] = self.seconds.get(name, 0.0) + now - self._last
+        self._last = now
 
 
 def _paths(cfg: Config) -> dict:
@@ -332,11 +346,11 @@ def cmd_eval(cfg: Config, args) -> dict:
 
     device = resolve_device(args.device)
     p = _paths(cfg)
-    marks = [("start", time.perf_counter())]
+    laps = _Laps()
     items, users, tx = _load_world(cfg)
     data = prepare_stage2(cfg, items, users, tx)
     pretrained = _pretrained_matrix(cfg, data["item_map"], required=True)
-    marks.append(("prepare", time.perf_counter()))
+    laps("prepare")
     tens = data["tensors"]
     bs = batch_plan(cfg, tens["input_ids"].shape[0])[0]
     model, uv_fn, _ = restore_stage2(cfg, data, p["user_ckpts"], device, pretrained)
@@ -345,7 +359,7 @@ def cmd_eval(cfg: Config, args) -> dict:
     timer = StepTimer(device)
     metrics = evaluate_stage2(cfg, model, uv_fn, data, device, mesh, bs, dev_tensors, timer)
     eval_seconds = timer.seconds()
-    marks.append(("model_eval", time.perf_counter()))
+    laps("model_eval")
     on_card = _on_card(device)
     ks = sorted(cfg.user_train.eval_ks)
     k_primary = ks[min(1, len(ks) - 1)]
@@ -356,7 +370,7 @@ def cmd_eval(cfg: Config, args) -> dict:
                                            ks=cfg.user_train.eval_ks, item_matrix=pretrained,
                                            per_user_k=k_primary, device=on_card)
     base_pu = metrics["baselines"].pop("_per_user")
-    marks.append(("baselines", time.perf_counter()))
+    laps("baselines")
     uvecs, uids = collect_user_vectors(cfg, uv_fn, data, device, bs, rows=rows,
                                        dev_tensors=dev_tensors)
     item_matrix = model.item.item_matrix.detach().float().cpu().numpy()
@@ -367,7 +381,7 @@ def cmd_eval(cfg: Config, args) -> dict:
     blend = blend_sweep(uvecs, item_matrix, data["logq"], hist, uids, data["targets_idx"],
                         ks=cfg.user_train.eval_ks, per_user_k=k_primary, device=on_card)
     blend_pu = blend.pop("_per_user")
-    marks.append(("user_vectors_and_blend", time.perf_counter()))
+    laps("user_vectors_and_blend")
     metrics["blend"] = {"best": blend["best"], "best_metrics": blend["best_metrics"],
                         "model_only": blend["table"].get("a0.0_b0.0")}
     # paired bootstrap at the primary k: does the learned stack beat the
@@ -387,7 +401,7 @@ def cmd_eval(cfg: Config, args) -> dict:
                 sig["model_vs_content_profile"] = paired_delta_ci(
                     model_pu, base_pu["content_profile"])
         metrics["significance"] = sig
-    marks.append(("bootstrap", time.perf_counter()))
+    laps("bootstrap")
     # the blend again with the eval window's season prior in place of the global one
     train_tx, _, split_day = time_split(tx, cfg.data.valid_days)
     eval_season = str(np.asarray(SEASONS)[season_of_day(split_day,
@@ -398,12 +412,11 @@ def cmd_eval(cfg: Config, args) -> dict:
                              ks=cfg.user_train.eval_ks, device=on_card)
         metrics["blend_seasonal"] = {"season": eval_season, "best": sblend["best"],
                                      "best_metrics": sblend["best_metrics"]}
-    marks.append(("seasonal_blend", time.perf_counter()))
+    laps("seasonal_blend")
     with open(p["eval"], "w") as f:
         json.dump(metrics, f, indent=1)
-    seconds = {name: t - t_prev for (_, t_prev), (name, t) in zip(marks, marks[1:])}
     return {**metrics, "device": str(device), "step_ms_median": _median_ms(eval_seconds),
-            "seconds": seconds}
+            "seconds": laps.seconds}
 
 
 def graph_stats(graph) -> dict:
@@ -421,10 +434,11 @@ def graph_stats(graph) -> dict:
 
 def cmd_train_gnn(cfg: Config, args) -> dict:
     from recsys_tpu_torch.data.etl import time_split
+    from recsys_tpu_torch.ops.graph import build_graph
     from recsys_tpu_torch.ops.spmm import CsrGraph
     from recsys_tpu_torch.train.gnn import (
-        export_gnn_artifacts, gnn_propagation_check, graph_from_transactions,
-        select_propagation, train_lightgcl)
+        export_gnn_artifacts, gnn_propagation_check, select_propagation, train_lightgcl,
+        transaction_indices)
 
     device = resolve_device(args.device)
     p = _paths(cfg)
@@ -434,10 +448,9 @@ def cmd_train_gnn(cfg: Config, args) -> dict:
     item_ids = sorted(items["item_id"].astype(str))
     user_map = {u: r for r, u in enumerate(user_ids)}
     item_map = {i: r for r, i in enumerate(item_ids)}
-    graph = graph_from_transactions(train_tx, user_map, item_map, cfg.gnn,
-                                    cfg.data.seed)
-    eu = np.array([user_map[u] for u in train_tx["user_id"]])
-    ei = np.array([item_map[i] for i in train_tx["item_id"]])
+    eu, ei = transaction_indices(train_tx, user_map, item_map)     # mapped once
+    graph = build_graph(eu, ei, len(user_map), len(item_map), svd_rank=cfg.gnn.svd_rank,
+                        svd_iters=cfg.gnn.svd_iters, seed=cfg.data.seed)
     # one graph layout serves the trainer, the export and the check
     propagation = select_propagation(cfg.gnn, graph, graph.num_nodes, device,
                                      _mesh(cfg, args))
@@ -522,6 +535,41 @@ def cmd_gnn_eval(cfg: Config, args) -> dict:
     return out
 
 
+def item_column(ifeats: pd.DataFrame, column: str, item_map, rows: int) -> np.ndarray:
+    """(rows,) float32: row r the ``column`` of ``item_map``'s item r (an item
+    without features, and PAD row 0, at 0)."""
+    ids = list(item_map.ids)[:rows - 1]
+    out = np.zeros(rows, np.float32)
+    present = pd.Index(ids).isin(ifeats.index)
+    out[1:len(ids) + 1] = np.where(present, ifeats[column].reindex(ids).to_numpy(), 0.0)
+    return out
+
+
+def history_means(tx: pd.DataFrame, item_map, mat: np.ndarray) -> dict:
+    """user_id -> the mean of ``mat``'s rows of the user's known purchases
+    (NaN with none known), users in sorted order. The rows are summed one
+    after the other in the order of ``tx``, as ``mean(0)`` sums the rows of
+    a (n, D > 1) array."""
+    codes, users = pd.factorize(tx["user_id"], sort=True)
+    rows = item_map.idx_array(tx["item_id"])
+    keep = (codes >= 0) & (rows > 0)
+    codes, rows = codes[keep], rows[keep]
+    rows = rows[np.argsort(codes, kind="stable")]
+    count = np.bincount(codes, minlength=len(users))
+    start = np.cumsum(count) - count
+    by_count = np.argsort(-count, kind="stable")   # the users with a t-th row lead
+    sums = np.zeros((len(users), mat.shape[1]), mat.dtype)
+    for t in range(int(count.max(initial=0))):
+        g = by_count[:np.count_nonzero(count > t)]
+        if t == 0:
+            sums[g] = mat[rows[start[g]]]
+        else:
+            sums[g] += mat[rows[start[g] + t]]
+    with np.errstate(invalid="ignore"):
+        means = sums / count[:, None].astype(mat.dtype)
+    return dict(zip(users.tolist(), means))
+
+
 def reranker_rows(cfg: Config) -> dict:
     """The reranker's training rows from the world, the item matrix and the
     item features: per purchase one positive and ``neg_per_pos`` negatives
@@ -542,10 +590,7 @@ def reranker_rows(cfg: Config) -> dict:
     rng = np.random.default_rng(cfg.data.seed)
     # user vector = mean of purchased item vectors (two-tower stand-in when
     # the user tower hasn't been trained yet)
-    uvecs = {}
-    for uid, g in train_tx.groupby("user_id"):
-        rows = [item_map.idx(i) for i in g["item_id"]]
-        uvecs[uid] = mat[[r for r in rows if r > 0]].mean(0) if rows else mat[0]
+    uvecs = history_means(train_tx, item_map, mat)
     if cfg.reranker.negative_source == "candidates":
         uids, iidx, labels, groups = import_interactions_candidates(
             train_tx.tail(20000), uvecs, mat, item_map, rng,
@@ -555,13 +600,8 @@ def reranker_rows(cfg: Config) -> dict:
             train_tx.tail(20000), len(item_map), item_map, rng,
             cfg.reranker.neg_per_pos)
     ifeats = pd.read_parquet(p["item_feats"]).set_index("item_id")
-    pop = np.zeros(len(mat), np.float32)
-    price = np.zeros(len(mat), np.float32)
-    for iid, r in zip(item_map.ids, range(1, len(mat))):
-        if iid in ifeats.index:
-            pop[r] = ifeats.loc[iid, "pop_1m_log"]
-            price[r] = ifeats.loc[iid, "avg_item_price_log"]
-    item_meta = np.stack([pop, price], axis=1)
+    item_meta = np.stack([item_column(ifeats, "pop_1m_log", item_map, len(mat)),
+                          item_column(ifeats, "avg_item_price_log", item_map, len(mat))], axis=1)
     u_arr = np.stack([uvecs.get(u, mat[0]) for u in uids])
     um = np.zeros((len(uids), 3), np.float32)
     X = build_rank_features(u_arr, mat[iidx], um, item_meta[iidx])
@@ -670,7 +710,7 @@ def cmd_ensemble_eval(cfg: Config, args) -> dict:
     (``_gnn_arm``), then the best fused list x the repurchase baseline, and
     stage 2 x repurchase. Reads artifacts only: histories from
     features_sequence.parquet, targets from targets_val.json."""
-    from recsys_tpu_torch.data.dataset import IdMap
+    from recsys_tpu_torch.data.dataset import IdMap, target_index
     from recsys_tpu_torch.data.etl import logq_from_item_features
     from recsys_tpu_torch.eval.baselines import repurchase_topk
     from recsys_tpu_torch.eval.ensemble import (count_mix_ensemble, rrf_ensemble,
@@ -688,10 +728,12 @@ def cmd_ensemble_eval(cfg: Config, args) -> dict:
     arm, gnn_mat, gu_aligned = _gnn_arm(cfg, item_map, uids)
     with open(p["targets"]) as f:
         targets = json.load(f)
-    targets_idx = {u: {item_map.idx(i) for i in its} - {0} for u, its in targets.items()}
+    targets_idx = target_index(targets, item_map)
     seqs = pd.read_parquet(p["seqs"])
     seq_of = dict(zip(seqs["user_id"].astype(str), seqs["sequence"]))
-    hists = [item_map.idx_array(seq_of.get(u, ())) for u in uids]
+    user_seqs = [seq_of.get(u, ()) for u in uids]
+    flat = item_map.idx_array(list(chain.from_iterable(user_seqs)))
+    hists = np.split(flat, np.cumsum([len(q) for q in user_seqs])[:-1]) if uids else []
     logq = logq_from_item_features(pd.read_parquet(p["item_feats"]), item_map.ids)
 
     m = min(int(getattr(args, "pool", None) or 1000), len(item_map))
@@ -786,6 +828,7 @@ def cmd_train_hybrid(cfg: Config, args) -> dict:
 
     # the report scores the users with targets, in whole batches
     t0 = time.perf_counter()
+    laps = _Laps()
     on_card = _on_card(device)
     rows = target_rows(uids, data["targets_idx"])
     n = len(rows)
@@ -795,6 +838,7 @@ def cmd_train_hybrid(cfg: Config, args) -> dict:
                                   torch.as_tensor(gnn_users, device=device), rows, bs)
     uvecs = (uvecs.float().cpu().numpy() if len(rows)
              else np.zeros((0, cfg.user_tower.d_model), np.float32))
+    laps("user_vectors")
     user_ids = [uids[r] for r in rows]
     targets_idx = data["targets_idx"]
     ks = cfg.user_train.eval_ks
@@ -805,8 +849,9 @@ def cmd_train_hybrid(cfg: Config, args) -> dict:
         gnn_model, arm = seq_model, "degenerate_seq"   # dims mismatch
     else:
         gnn_model = H.topm_for_model(gu_aligned, gnn_mat, m, device, normalize_items=False)
+    laps("top_m")
     report = H.ensemble_report(seq_model, gnn_model, user_ids, targets_idx, ks=ks,
-                               device=on_card)
+                               device=on_card, lap=lambda name: laps(f"gnn_{name}"))
     # fusion with the lists that carry real recall on retail-shaped data:
     # repurchase and content profile, pseudo-scores -rank
     hist = np.concatenate([tensors["input_ids"][rows], tensors["target_ids"][rows][:, -1:]], 1)
@@ -815,16 +860,20 @@ def cmd_train_hybrid(cfg: Config, args) -> dict:
     hist_list = [hist[r] for r in range(len(hist))]
     rep_idx = repurchase_topk(hist_list, data["logq"], m_alive)
     cp_idx = content_profile_topk(hist_list, content, m_alive, device=on_card)
+    laps("repurchase_and_content_lists")
     report_alive = {
-        "hybrid_x_repurchase": H.ensemble_report(seq_model, (rep_idx, rank_scores), user_ids,
-                                                 targets_idx, ks=ks, device=on_card),
-        "hybrid_x_content": H.ensemble_report(seq_model, (cp_idx, rank_scores), user_ids,
-                                              targets_idx, ks=ks, device=on_card)}
+        "hybrid_x_repurchase": H.ensemble_report(
+            seq_model, (rep_idx, rank_scores), user_ids, targets_idx, ks=ks, device=on_card,
+            lap=lambda name: laps(f"repurchase_{name}")),
+        "hybrid_x_content": H.ensemble_report(
+            seq_model, (cp_idx, rank_scores), user_ids, targets_idx, ks=ks, device=on_card,
+            lap=lambda name: laps(f"content_{name}"))}
     sks = sorted(ks)
     k_primary = sks[min(1, len(sks) - 1)]
     blend = blend_sweep(uvecs, im, data["logq"], hist, user_ids, targets_idx, ks=ks,
                         per_user_k=k_primary, device=on_card)
     blend_pu = blend.pop("_per_user")
+    laps("blend_sweep")
     out.update({"blend": {"best": blend["best"], "best_metrics": blend["best_metrics"]},
                 "gnn_arm": arm, "ensemble": _brief(report),
                 "ensemble_alive": {name: _brief(rep) for name, rep in report_alive.items()}})
@@ -844,7 +893,9 @@ def cmd_train_hybrid(cfg: Config, args) -> dict:
             out["significance"]["hybrid_vs_repurchase"] = paired_delta_ci(hybrid_pu, rep_vals)
     with open(p["root"] + "/ensemble_report.json", "w") as f:
         json.dump(report, f, indent=1, default=str)
+    laps("significance")
     out["report_seconds"] = time.perf_counter() - t0
+    out["report_seconds_split"] = laps.seconds
     return out
 
 
@@ -857,11 +908,12 @@ def cmd_rerank_eval(cfg: Config, args) -> dict:
     (``stage2``: the best stage-2 checkpoint; ``hybrid``: the best hybrid
     checkpoint and the GNN artifacts)."""
     from recsys_tpu_torch.config import _replace_tree
-    from recsys_tpu_torch.data.etl import time_split
+    from recsys_tpu_torch.data.etl import grouped_lists, time_split
     from recsys_tpu_torch.eval import rerank_eval as R
     from recsys_tpu_torch.eval.baselines import popularity_ranking, repurchase_topk
-    from recsys_tpu_torch.eval.recall import (bootstrap_mean_ci, paired_delta_ci,
-                                              recall_at_ks, recall_per_user, target_rows)
+    from recsys_tpu_torch.eval.recall import (TargetTable, bootstrap_mean_ci,
+                                              paired_delta_ci, recall_at_ks,
+                                              recall_per_user, target_rows)
     from recsys_tpu_torch.train.checkpoint import load_array_with_ids, save_array_with_ids
     from recsys_tpu_torch.train.reranker import GBDTRanker, auc_score, train_dcn
     from recsys_tpu_torch.train.sasrec import (collect_user_vectors, prepare_stage2,
@@ -870,8 +922,10 @@ def cmd_rerank_eval(cfg: Config, args) -> dict:
     device = resolve_device(args.device)
     p = _paths(cfg)
     t_start = time.perf_counter()
+    laps = _Laps()
     items, users, tx = _load_world(cfg)
     data = prepare_stage2(cfg, items, users, tx)
+    laps("prepare")
     item_map = data["item_map"]
     N1 = len(item_map) + 1
     ks = sorted(cfg.user_train.eval_ks)
@@ -924,23 +978,22 @@ def cmd_rerank_eval(cfg: Config, args) -> dict:
             pass
     if uvecs is None:
         uvecs = collect_vecs(data, rows)
+    laps("restore_and_user_vectors")
 
     pool_size = int(getattr(args, "pool", None) or 512)
     m_cos = min(int(getattr(args, "m_cos", None) or 300), N1 - 2)
     m_pop = min(int(getattr(args, "m_pop", None) or 100), N1 - 2)
     train_tx, _, split_day = time_split(tx, cfg.data.valid_days)
-    price = np.zeros(N1, np.float32)
     ifeats = pd.read_parquet(p["item_feats"]).set_index("item_id")
-    for iid, r in zip(item_map.ids, range(1, N1)):
-        if iid in ifeats.index:
-            price[r] = ifeats.loc[iid, "avg_item_price_log"]
+    price = item_column(ifeats, "avg_item_price_log", item_map, N1)
+    laps("time_split_and_prices")
 
     def side_of(window_tx, uid_list, logq, uv, now_day):
         """Pools + features + histories for one user set / time window."""
         uid_to_row = {u: r for r, u in enumerate(uid_list)}
         sub = window_tx[window_tx["user_id"].isin(uid_to_row)]
         urow = sub["user_id"].map(uid_to_row).to_numpy(np.int64)
-        iidx = np.array([item_map.idx(i) for i in sub["item_id"]], np.int64)
+        iidx = item_map.idx_array(sub["item_id"]).astype(np.int64)
         day = sub["day"].to_numpy(np.int64)
         order = np.lexsort((day, urow))
         urow, iidx, day = urow[order], iidx[order], day[order]
@@ -951,9 +1004,11 @@ def cmd_rerank_eval(cfg: Config, args) -> dict:
             for j, s in enumerate(starts):
                 hists[urow[s]] = iidx[s:bounds[j + 1]]
         keys, counts, last = R.pair_index(urow, iidx, day, N1)
+        laps("side_data")
         cos_idx = R.cosine_topm(uv, item_mat, m_cos, torch_device=device)
         pop = popularity_ranking(logq, m_pop)
         pools, flags = R.build_pools(cos_idx, hists, pop, pool_size)
+        laps("pools")
         hist_lens = np.array([len(h) for h in hists], np.int64)
         user_last = np.full(len(uid_list), -1, np.int64)
         if len(urow):
@@ -965,18 +1020,19 @@ def cmd_rerank_eval(cfg: Config, args) -> dict:
         feats = R.pool_features(pools, flags, uv, item_mat, logq, keys, counts, last, now_day,
                                 N1, price, hist_lens=hist_lens, user_last_day=user_last,
                                 user_price=user_price)
+        laps("features")
         return pools, feats, hists
 
     # ---- inner split: train the ranker strictly inside the train window
     cfg2 = _replace_tree(cfg, {"data": {"valid_days": cfg.data.valid_days * 2}})
     data2 = prepare_stage2(cfg2, items, users, tx)
+    laps("prepare_inner")
     split2 = data2["split_day"]
     lab_tx = tx[(tx["day"] >= split2) & (tx["day"] < split_day)]
-    inner_targets: dict = {}
-    for u, i in zip(lab_tx["user_id"], lab_tx["item_id"]):
-        ii = item_map.idx(i)
-        if ii > 0:
-            inner_targets.setdefault(u, set()).add(ii)
+    lab_idx = item_map.idx_array(lab_tx["item_id"])
+    known = lab_idx > 0
+    inner_targets = {u: set(its) for u, its in grouped_lists(
+        lab_tx["user_id"].to_numpy()[known], lab_idx[known], sort=False).items()}
     row2_of = {u: r for r, u in enumerate(data2["tensors"]["user_ids"])}
     cand = sorted(u for u in inner_targets if u in row2_of)
     n_sample = int(getattr(args, "sample", None) or 20000)
@@ -985,6 +1041,7 @@ def cmd_rerank_eval(cfg: Config, args) -> dict:
         cand = [cand[j] for j in rng.choice(len(cand), n_sample, replace=False)]
     rows2 = np.array([row2_of[u] for u in cand], np.int64)
     uv2 = collect_vecs(data2, rows2)
+    laps("inner_targets_and_user_vectors")
     inner_tx = tx[tx["day"] < split2]
     pools2, feats2, _ = side_of(inner_tx, cand, data2["logq"], uv2, split2)
     y2 = np.zeros(pools2.shape, np.float32)
@@ -1005,6 +1062,7 @@ def cmd_rerank_eval(cfg: Config, args) -> dict:
                         device=device).fit(X, y)
     gbdt_seconds = time.perf_counter() - t0
     ranker.save(p["root"] + f"/rerank_gbdt_{vectors}.pkl")
+    laps("gbdt")
     gbdt_auc = importances = dcn_auc = dcn_scorer = None
     dcn_fit: dict = {}
     if len(X_val) and 0 < y_val.sum() < len(y_val):
@@ -1021,6 +1079,7 @@ def cmd_rerank_eval(cfg: Config, args) -> dict:
                 rngp.shuffle(Xp[:, j])
                 deltas.append(gbdt_auc - auc_score(y_val, ranker.predict_proba(Xp)))
             importances[nm] = round(float(np.mean(deltas)), 4)
+        laps("gbdt_auc_and_importances")
         # the neural arm (DCN-v2): the same features, subsampled rows, a short
         # schedule; it answers "is the learned-ranker story GBDT-only?"
         sel = (np.random.default_rng(2).choice(len(X), 2_000_000, replace=False)
@@ -1033,15 +1092,19 @@ def cmd_rerank_eval(cfg: Config, args) -> dict:
                    "dcn_launches": _launches_since(before),
                    "dcn_step_ms_median": _median_ms(dcn_state.step_seconds)}
         dcn_auc = round(auc_score(y_val, dcn_scorer(X_val)), 4)
+        laps("dcn")
 
     # ---- the real validation week, deployment regime
     pools, feats, hists = side_of(train_tx, uids, data["logq"], uvecs, split_day)
     topk = R.rerank_topk(ranker, feats, pools, max_k)
-    metrics = recall_at_ks(topk, uids, data["targets_idx"], ks)
-    ceiling = recall_at_ks(pools, uids, data["targets_idx"], [pool_size])
+    laps("rerank")
+    targets_idx = data["targets_idx"]
+    table = TargetTable(uids, targets_idx)
+    metrics = recall_at_ks(topk, uids, targets_idx, ks, table=table)
+    ceiling = recall_at_ks(pools, uids, targets_idx, [pool_size], table=table)
     rep_idx = repurchase_topk(hists, data["logq"], k_primary)
-    rep_vals, rep_uids = recall_per_user(rep_idx, uids, data["targets_idx"], k_primary)
-    rr_vals, rr_uids = recall_per_user(topk, uids, data["targets_idx"], k_primary)
+    rep_vals, rep_uids = recall_per_user(rep_idx, uids, targets_idx, k_primary, table=table)
+    rr_vals, rr_uids = recall_per_user(topk, uids, targets_idx, k_primary, table=table)
     out = {"reranked": metrics,
            "pool_ceiling": {f"recall@{pool_size}": ceiling[f"recall@{pool_size}"]},
            # at k >= pool_size the list is the candidate pool: recall == ceiling
@@ -1055,15 +1118,17 @@ def cmd_rerank_eval(cfg: Config, args) -> dict:
         class _Scorer:  # rerank_topk wants a .predict_proba
             predict_proba = staticmethod(dcn_scorer)
         out["reranked_dcn"] = recall_at_ks(R.rerank_topk(_Scorer, feats, pools, max_k), uids,
-                                           data["targets_idx"], ks)
+                                           targets_idx, ks, table=table)
     if rep_uids == rr_uids:
         out["significance"] = {"k": k_primary, "reranked": bootstrap_mean_ci(rr_vals),
                                "repurchase_full_hist": bootstrap_mean_ci(rep_vals),
                                "reranked_vs_repurchase": paired_delta_ci(rr_vals, rep_vals)}
     with open(p["root"] + f"/rerank_eval_{vectors}.json", "w") as f:
         json.dump(out, f, indent=1)
+    laps("recall")
     return {**out, "device": str(device), "gbdt_iterations": ranker.n_iter_,
-            "gbdt_seconds": gbdt_seconds, **dcn_fit, "seconds": time.perf_counter() - t_start}
+            "gbdt_seconds": gbdt_seconds, **dcn_fit, "seconds": time.perf_counter() - t_start,
+            "seconds_split": laps.seconds}
 
 
 def attach_user_backend(cfg: Config, ctx, device) -> str:

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from recsys_tpu_torch.config import Config, DistillConfig, GNNConfig
+from recsys_tpu_torch.data.dataset import map_each
 from recsys_tpu_torch.device import resolve_device
 from recsys_tpu_torch.models import flax_init
 from recsys_tpu_torch.models.lightgcl import (
@@ -62,12 +63,18 @@ from recsys_tpu_torch.train.state import DeviceLR, StepTimer, TrainState, device
 from recsys_tpu_torch.train.step_graph import StepGraph
 
 
+def transaction_indices(tx_df, user_map: Mapping, item_map: Mapping
+                        ) -> tuple[np.ndarray, np.ndarray]:
+    """Each transaction's 0-based dense graph user and item index (no PAD
+    row); KeyError for an id a map lacks."""
+    return (map_each(tx_df["user_id"], user_map.__getitem__, np.int64),
+            map_each(tx_df["item_id"], item_map.__getitem__, np.int64))
+
+
 def graph_from_transactions(tx_df, user_map, item_map, cfg: GNNConfig,
                             seed: int = 0) -> BipartiteGraph:
-    """Transactions + id maps -> normalized bipartite COO graph. User/item
-    indices here are 0-based dense graph indices (no PAD row)."""
-    u = np.array([user_map[uid] for uid in tx_df["user_id"]], np.int64)
-    i = np.array([item_map[iid] for iid in tx_df["item_id"]], np.int64)
+    """Transactions + id maps -> normalized bipartite COO graph."""
+    u, i = transaction_indices(tx_df, user_map, item_map)
     return build_graph(u, i, len(user_map), len(item_map),
                        svd_rank=cfg.svd_rank, svd_iters=cfg.svd_iters, seed=seed)
 

@@ -29,6 +29,7 @@ The eval forward and the item matrix stay eager.
 from __future__ import annotations
 
 import contextlib
+from typing import Callable
 
 import numpy as np
 import torch
@@ -37,7 +38,7 @@ from recsys_tpu_torch.config import Config
 from recsys_tpu_torch.data.dataset import batch_iterator
 from recsys_tpu_torch.device import resolve_device
 from recsys_tpu_torch.eval.ensemble import alpha_sweep
-from recsys_tpu_torch.eval.recall import recall_at_ks, target_rows, topk_scores
+from recsys_tpu_torch.eval.recall import TargetTable, recall_at_ks, target_rows, topk_scores
 from recsys_tpu_torch.models import flax_init
 from recsys_tpu_torch.models.hybrid_tower import HybridUserTower
 from recsys_tpu_torch.models.layers import l2_normalize
@@ -305,12 +306,17 @@ def topm_for_model(user_vecs: np.ndarray, item_matrix: np.ndarray, m: int,
 
 
 def ensemble_report(model_a: tuple, model_b: tuple, user_ids, targets_idx,
-                    ks=(20, 100, 500), device: torch.device | str | None = None) -> dict:
+                    ks=(20, 100, 500), device: torch.device | str | None = None,
+                    lap: Callable[[str], None] = lambda name: None) -> dict:
     """The three fusion strategies + both standalone recalls; ``device`` runs
-    the fusers there (``eval/ensemble.alpha_sweep``)."""
-    out = {"standalone_a": recall_at_ks(model_a[0], user_ids, targets_idx, ks),
-           "standalone_b": recall_at_ks(model_b[0], user_ids, targets_idx, ks)}
+    the fusers there (``eval/ensemble.alpha_sweep``). ``lap(name)`` is called
+    as each part ends ("standalone", then each method)."""
+    table = TargetTable(user_ids, targets_idx)        # one table for the whole report
+    out = {"standalone_a": recall_at_ks(model_a[0], user_ids, targets_idx, ks, table=table),
+           "standalone_b": recall_at_ks(model_b[0], user_ids, targets_idx, ks, table=table)}
+    lap("standalone")
     for method in ("count_mix", "weighted", "rrf"):
         out[method] = alpha_sweep(method, model_a, model_b, user_ids, targets_idx, ks,
-                                  device=device)
+                                  device=device, table=table)
+        lap(method)
     return out

@@ -46,7 +46,8 @@ import torch.nn.functional as F
 
 from recsys_tpu_torch.config import Config
 from recsys_tpu_torch.data import etl
-from recsys_tpu_torch.data.dataset import batch_iterator, build_sasrec_tensors, build_side_info
+from recsys_tpu_torch.data.dataset import (
+    batch_iterator, build_side_info, sasrec_tensors_from_windows, target_index)
 from recsys_tpu_torch.device import resolve_device
 from recsys_tpu_torch.eval.recall import recall_at_ks, target_rows, topk_scores
 from recsys_tpu_torch.models import flax_init
@@ -73,13 +74,12 @@ def prepare_stage2(cfg: Config, items, users, tx_df) -> dict:
     train_tx, valid_tx, split_day = etl.time_split(tx_df, cfg.data.valid_days)
     side, item_map = build_side_info(items, cfg.vocab.num_hash_buckets)
     user_feats, scaler = etl.make_user_features(train_tx, users, split_day)
-    seqs = etl.make_sequences(train_tx, cfg.user_tower.max_len)
-    tensors = build_sasrec_tensors(seqs, user_feats, item_map, cfg.user_tower)
+    uids, lens, seq_items, deltas = etl.sequence_windows(train_tx, cfg.user_tower.max_len)
+    tensors = sasrec_tensors_from_windows(uids, lens, item_map.idx_array(seq_items), deltas,
+                                          user_feats, cfg.user_tower)
     item_feats = etl.make_item_features(train_tx, items, split_day)
     logq = etl.logq_from_item_features(item_feats, item_map.ids)
-    targets = etl.make_validation_target(valid_tx)
-    targets_idx = {u: {item_map.idx(i) for i in its} - {0}
-                   for u, its in targets.items()}
+    targets_idx = target_index(etl.make_validation_target(valid_tx), item_map)
     return {
         "tensors": tensors, "side": side, "item_map": item_map, "logq": logq,
         "targets_idx": targets_idx, "user_feats": user_feats, "scaler": scaler,

@@ -1146,6 +1146,7 @@ def hybrid_recipe(args, stage, stages: dict, got: dict, root: str, world_extra: 
         "rerank_dcn": {k: got["rerank_hybrid"].get(k) for k in (
             "dcn_steps", "dcn_graph_replays", "dcn_step_ms_median", "dcn_seconds",
             "dcn_launches")},
+        "rerank_seconds_split": got["rerank_hybrid"].get("seconds_split"),
         "gnn_eval": {"k2_launches": stages["gnn_eval"]["k2_launches"],
                      "k2_launches_distilled": stages["gnn_eval_distilled"]["k2_launches"]},
         "train_hybrid": {"steps": hybrid["steps"], "graph_replays": hybrid["graph_replays"],
@@ -1155,6 +1156,7 @@ def hybrid_recipe(args, stage, stages: dict, got: dict, root: str, world_extra: 
                          "epoch_losses": hybrid["epoch_losses"],
                          "train_seconds": hybrid["seconds"],
                          "report_seconds": hybrid.get("report_seconds"),
+                         "report_seconds_split": hybrid.get("report_seconds_split"),
                          "peak_device_gib": stages["hybrid"].get("peak_device_gib")},
         "serve_latency": serve["latency"], "peak_rss_gib": peak_rss_gib(),
         "seconds": time.time() - start, **result}
