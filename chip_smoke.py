@@ -18,7 +18,16 @@ once, then (phases 10 and 11 run after 6, while the graph of 4 is still there):
      one user whose four rows are one position four times; and the CPU test
      world's 16 x 2. Tolerances are the JAX suite's: loss 1e-4, grads 1e-5
      (abs); two dq and two dk calls must give the same bits. CUDA-event times of kernel
-     and plain form, per kernel at B=192, 3072 and 8192.
+     and plain form, per kernel at B=192, 3072 and 8192. Then LightGCL's
+     SSL loss at bench.py's batch (B = 8192, D = 64): the positive items'
+     ids drawn with the reference graph's popularity skew (heavy duplicates),
+     each global row its local row plus noise of a per-row scale; each
+     kernel against its plain form with a finite clamp (LIGHTGCL_CLAMP_CHECK)
+     that cuts part of the logits, the diagonal's among them, and with the
+     config's clamp; ``models/lightgcl.ssl_loss_fused`` against
+     ``ssl_loss_plain`` on the tables (loss and gradients, the same
+     tolerances); per-kernel times there with the config's clamp beside the
+     plain forms and the bound.
   2. slice: the port's CLI stages gen-data -> train-item (full-width item
      tower, batch 192, ~10 steps) -> vectorize on the card. train-item runs
      its step as one CUDA graph (``train/step_graph.StepGraph``): the first
@@ -60,24 +69,28 @@ once, then (phases 10 and 11 run after 6, while the graph of 4 is still there):
      beside each mode's byte bound (x counted in 2 bytes in "bf16").
   5. GNN slice: etl -> train-gnn -> distill -> gnn-eval through the CLI on
      the world of phase 2, default widths, two epochs, the trainer in the
-     mode ``select_propagation`` picks on the card ("bf16"); K2's counts are
-     zeroed before and read after. ``train-gnn`` and ``distill`` run each
-     step as one CUDA graph: every step after the WARMUP_STEPS eager ones a
-     replay, exactly; K2 four times a step (a replay counts its four) plus
-     the export's and the check's two each, exactly; none in distill. Then
-     K2's time at that graph.
+     mode ``select_propagation`` picks on the card ("bf16"); K1's and K2's
+     counts are zeroed before and read after. ``train-gnn`` and ``distill``
+     run each step as one CUDA graph: every step after the WARMUP_STEPS
+     eager ones a replay, exactly; K2 four times a step (a replay counts its
+     four) plus the export's and the check's two each, exactly, and each K1
+     kernel twice a step (the SSL losses of the users and of the positive
+     items, ``ssl_route`` "diag_ce"); no hand kernel in distill. Then K2's
+     time at that graph.
   6. the trainer at a real size: ``train_lightgcl`` on the graph of 4, batch
      8192, ten steps (eight replays), in that mode; K2 must launch four times
-     a step; peak device memory; then ``final_embeddings`` through K2
+     and each K1 kernel twice a step; peak device memory; then
+     ``final_embeddings`` through K2
      ("f32"). Then the LightGCL step (``train/gnn.gnn_runner``) eager and
      captured from one seeded state on the same GRAPH_STEPS batches (losses
      within GRAPH_LOSS_TOL every step, parameters within GRAPH_PARAM_TOL at
      the end); the step medians in turns with the host's batch sampling
-     included, as the trainer runs it; K2 four times a step; a replay under
+     included, as the trainer runs it; K2 four times and each K1 kernel
+     twice a step; a replay under
      ``set_sync_debug_mode("error")``; K2's arrival counters on the runner's
      stream at zero after the replays; five steps of each under
      ``torch.profiler`` (busy and idle share, kernels run and host launch
-     calls a step, K2's device time).
+     calls a step, K1's and K2's device time).
 
   7. kernel vs plain: K3's forward and backward kernels against the plain FM
      form and its autograd gradient on the card, at (200, 12, 16), a ragged
@@ -130,7 +143,7 @@ once, then (phases 10 and 11 run after 6, while the graph of 4 is still there):
      ``ring_sharded_topk`` call, exactly. Then the edge-sharded propagation on
      the 22.6M-edge graph of 4 over 4 shards against the plain propagation,
      forward and gradient (REF_TOL), and one ``train_lightgcl`` step with
-     ``gnn.propagation=segment_sum_sharded``.
+     ``gnn.propagation=segment_sum_sharded`` (no K2; each K1 kernel twice).
   12. the sharded path through the entry points: ``vectorize`` over a data
      axis of 4 virtual shards (rows equal to phase 2's within SERVE_TOL),
      ``train-item`` through the CLI with ``mesh.num_data=4 --virtual-shards``
@@ -288,17 +301,14 @@ once, then (phases 10 and 11 run after 6, while the graph of 4 is still there):
      rerank-eval --vectors hybrid (HM_CUT_RERANK: a small pool) -> serve
      --model-backed --vectors hybrid, one recommendation a mode (rerank,
      blend, cosine) for a user of the GNN artifact. Gates: K2 exactly four
-     times a train-gnn step plus the export's and the check's two each, the
-     GNN check; every train-gnn, distill and rerank-eval DCN step after the
+     times a train-gnn step plus the export's and the check's two each, each
+     K1 kernel exactly twice a train-gnn step (the SSL losses), the GNN
+     check; every train-gnn, distill and rerank-eval DCN step after the
      warm-up a graph replay; gnn-eval's and the hybrid's and the rerank's
      recalls finite and > 0; every train-hybrid step after the warm-up a
      graph replay, no hand kernel there; the served user vector within
      SERVE_TOL of the tower's forward on the same history and GNN row; the
-     HTTP rerank list equal to ``rerank_serve_topk``'s offline list. Then
-     one line (``hm_cut_seconds``) sets the stage seconds of phases 20 and
-     21, eval's and rerank-eval's splits and the phases' totals beside
-     those before the host data paths were vectorized
-     (HM_CUT_SECONDS_BEFORE).
+     HTTP rerank list equal to ``rerank_serve_topk``'s offline list.
   22. the stage-1 A/B of the text encoders (``scripts/torch_quality_hm.py
      --recipe stage1``, arm B) on phase 20's world, cut as there: in a data
      root that links phase 20's world, ``pretrain-text`` -> ``train-item``
@@ -403,6 +413,9 @@ REF_USERS, REF_ITEMS, REF_INTERACTIONS, REF_BATCH = 200_000, 47_000, 11_300_000,
 LOSS_TOL, GRAD_TOL = 1e-4, 1e-5
 SERVE_TOL = 2e-2  # served vs materialized rows, as tests/test_serve.py
 MAIN_B, D = 192, 128
+# LightGCL's SSL loss at bench.py's batch (phase 1) is held with the config's clamp and
+# with one that cuts part of the logits (the diagonal's among them)
+LIGHTGCL_CLAMP_CHECK = 2.0
 FM_RTOL, FM_ATOL = 1e-4, 1e-3   # as tests/test_pallas.py holds the Pallas FM kernel
 # DeepFM at full width: 19 sparse fields + the dense block, K = fm_embed_dim
 FM_FIELDS, FM_K, FM_TRAIN_B, FM_SCORE_B = 20, 16, 2048, 131072
@@ -462,24 +475,6 @@ HM_CUT_WORLD_TIMEOUT_S = 300.0   # the wait for gen-data and etl once phase 19 h
 HM_CUT_GNN_STEPS, HM_CUT_SERVE_PRODUCTS = 300, 256
 HM_CUT_RERANK = ("--pool", "128", "--m-cos", "96", "--m-pop", "32", "--sample", "2000",
                  "--iterations", "50")
-# the stage seconds of phases 20 and 21 before the host data paths were vectorized
-# (recall, the stage-2 tensors, the graph's ids, the rerank side data): commit ecad44e,
-# two calls on an NVIDIA H100 80GB HBM3 at 700.00 W, and each phase's total at 6e0b891;
-# printed beside this run's
-HM_CUT_SECONDS_BEFORE = {
-    "phase_20": {"gen-data": (36.68, 47.46), "etl": (6.23, 10.48), "train-item": (16.59, 18.13),
-                 "vectorize": (10.95, 13.47), "train-user": (20.22, 26.49),
-                 "eval": (32.29, 44.94), "serve": (18.32, 27.51), "ties": (14.10, 17.72),
-                 "topk_cost": (0.20, 0.21)},
-    "phase_20_eval": {"prepare": (11.95, 18.45), "model_eval": (0.96, 1.16),
-                      "baselines": (3.55, 4.30), "user_vectors_and_blend": (7.34, 9.89),
-                      "bootstrap": (0.82, 1.01), "seasonal_blend": (7.55, 9.89)},
-    "phase_21": {"train-gnn": (16.93, 23.44), "gnn-eval": (0.74, 1.03), "distill": (1.20, 1.55),
-                 "train-hybrid": (19.03, 25.22), "rerank-eval": (41.87, 53.82),
-                 "serve": (18.52, 24.60)},
-    "totals": {"phase_20": {"ecad44e": (112.72, 148.58), "6e0b891": 142.4},
-               "phase_21": {"ecad44e": (98.36, 129.76), "6e0b891": 112.0}},
-}
 # phase 23: the JAX package's inits of a small configuration of each model family
 # (scripts/jax_flax_init_fixture.py); normal-derived values within FLAX_INIT_TOL x
 # the leaf's std, as tests/test_torch_flax_init.py, every other leaf bit for bit
@@ -669,8 +664,99 @@ def kernel_phase(device) -> tuple[list[dict], dict]:
         by_shape[B] = {name: {"ms": ms, "plain_ms": plain_ms, **diag_ce_bounds(B, D)[name]}
                        for name, (ms, plain_ms) in per_kernel_ms[B].items()}
         print(json.dumps({"phase": f"kernel_B{B}", **by_shape[B]}), flush=True)
+    lightgcl, lightgcl_errs = lightgcl_kernel_phase(device)
+    print(json.dumps({"phase": "kernel_lightgcl", **lightgcl}), flush=True)
+    errs = {name: max(err, lightgcl_errs[name]) for name, err in errs.items()}
     return rows, {"errs": errs, "ms": per_kernel_ms[MAIN_B], "B8192": by_shape[8192],
-                  "B3072": by_shape[STAGE2_B * STAGE2_P]}
+                  "B3072": by_shape[STAGE2_B * STAGE2_P],
+                  "B8192_lightgcl": lightgcl["per_kernel"]}
+
+
+def lightgcl_tables(seed: int, device, B: int = REF_BATCH, dim: int = 64):
+    """The SSL loss's inputs at bench.py's batch: (local, glob) tables of the
+    batch's distinct nodes and the batch's ids into them. The ids are
+    positive items drawn with the reference graph's popularity skew (a few
+    hot items many times); each global row is its local row plus noise of a
+    scale drawn per row, so that the diagonal logits spread from near 1 / tau
+    down to those of unrelated rows."""
+    rng = np.random.default_rng(seed)
+    _, ids = np.unique((REF_ITEMS * rng.random(B) ** 2.5).astype(np.int64),
+                       return_inverse=True)
+    n = int(ids.max()) + 1
+    local = rng.normal(size=(n, dim)).astype(np.float32)
+    glob = (local + rng.uniform(0.2, 3.0, (n, 1)) * rng.normal(size=(n, dim))).astype(np.float32)
+    t = lambda a: torch.as_tensor(a, device=device)
+    return t(local), t(glob), t(ids.astype(np.int64))
+
+
+def lightgcl_kernel_phase(device) -> tuple[dict, dict]:
+    """K1 as LightGCL's SSL loss calls it (phase 1): each kernel against its
+    plain form with a clamp that cuts and with the config's; the route
+    (``ssl_loss_fused``) against the plain loss on the tables; per-kernel
+    times with the config's clamp. Returns (row, each kernel's max error)."""
+    from recsys_tpu_torch.config import GNNConfig
+    from recsys_tpu_torch.models import lightgcl as TL
+    from recsys_tpu_torch.models.layers import l2_normalize
+
+    cfg = GNNConfig()
+    local, glob, ids = lightgcl_tables(REF_BATCH + cfg.emb_dim, device, dim=cfg.emb_dim)
+    B, tau = ids.shape[0], cfg.temperature
+    q, k = l2_normalize(local[ids]), l2_normalize(glob[ids])
+    meta = (torch.zeros(B, device=device), ids.int(), ids.int(),
+            torch.ones(B, dtype=torch.int32, device=device))
+    cut = (q @ k.T / tau).abs() > LIGHTGCL_CLAMP_CHECK
+    out = {"B": B, "D": cfg.emb_dim, "tau": tau, "distinct_ids": int(ids.unique().numel()),
+           "clamp_check": LIGHTGCL_CLAMP_CHECK, "cut_share": float(cut.float().mean()),
+           "cut_share_diagonal": float(cut.diagonal().float().mean())}
+    del cut
+    check(0 < out["cut_share"] < 1 and 0 < out["cut_share_diagonal"] < 1,
+          f"the check's clamp should cut part of the logits: {out}")
+    w = 1.0 / TL.id_multiplicity(ids)
+    g = w / w.sum()
+    errs = {name: 0.0 for name in K.LAUNCHES}
+    for clamp in (LIGHTGCL_CLAMP_CHECK, cfg.logit_clamp):
+        loss_k, lse_k = K.diag_ce_fwd_cuda(q, k, *meta, tau, clamp)
+        loss_p, lse_p = K.diag_ce_fwd_plain(q, k, *meta, tau, clamp)
+        args = (q, k, *meta, lse_p, g, tau, clamp)
+        dq, dk = K.diag_ce_bwd_dq_cuda(*args), K.diag_ce_bwd_dk_cuda(*args)
+        err = {"diag_ce_fwd": float(torch.maximum((loss_k - loss_p).abs(),
+                                                  (lse_k - lse_p).abs()).max()),
+               "diag_ce_bwd_dq": float((dq - K.diag_ce_bwd_dq_plain(*args)).abs().max()),
+               "diag_ce_bwd_dk": float((dk - K.diag_ce_bwd_dk_plain(*args)).abs().max())}
+        check(torch.equal(K.diag_ce_bwd_dq_cuda(*args), dq)
+              and torch.equal(K.diag_ce_bwd_dk_cuda(*args), dk),
+              f"LightGCL clamp {clamp}: two dq or dk calls differ in their bits")
+        check(err["diag_ce_fwd"] <= LOSS_TOL and err["diag_ce_bwd_dq"] <= GRAD_TOL
+              and err["diag_ce_bwd_dk"] <= GRAD_TOL, f"LightGCL clamp {clamp}: kernel errs {err}")
+        errs = {name: max(errs[name], err[name]) for name in errs}
+        got = value_and_grads(lambda a, b: TL.ssl_loss_fused(a, b, ids, tau, clamp), local, glob)
+        ref = value_and_grads(lambda a, b: TL.ssl_loss_plain(a, b, ids, tau, clamp), local, glob)
+        loss_err = abs(float(got[0]) - float(ref[0]))
+        grad_err = max(float((x - y).abs().max()) for x, y in zip(got[1:], ref[1:]))
+        check(loss_err <= LOSS_TOL and grad_err <= GRAD_TOL,
+              f"LightGCL clamp {clamp}: ssl loss err {loss_err}, grad err {grad_err}")
+        out[f"clamp_{clamp:g}"] = {"kernel_errs": err, "loss_err": loss_err, "grad_err": grad_err}
+    # the main path's clamp: the kernels, each beside its plain form, in turns
+    clamp = cfg.logit_clamp
+    _, lse = K.diag_ce_fwd_cuda(q, k, *meta, tau, clamp)
+    args = (q, k, *meta, lse, g, tau, clamp)
+    timed = {"diag_ce_fwd": interleaved_ms(lambda: K.diag_ce_fwd_cuda(q, k, *meta, tau, clamp),
+                                           lambda: K.diag_ce_fwd_plain(q, k, *meta, tau, clamp),
+                                           40),
+             "diag_ce_bwd_dq": interleaved_ms(lambda: K.diag_ce_bwd_dq_cuda(*args),
+                                              lambda: K.diag_ce_bwd_dq_plain(*args), 40),
+             "diag_ce_bwd_dk": interleaved_ms(lambda: K.diag_ce_bwd_dk_cuda(*args),
+                                              lambda: K.diag_ce_bwd_dk_plain(*args), 40)}
+    bounds = diag_ce_bounds(B, cfg.emb_dim)
+    out["per_kernel"] = {name: {"ms": ms, "plain_ms": plain_ms, **bounds[name]}
+                         for name, (ms, plain_ms) in timed.items()}
+    route_ms, plain_ms = interleaved_ms(
+        lambda: value_and_grads(lambda a, b: TL.ssl_loss_fused(a, b, ids, tau, clamp),
+                                local, glob),
+        lambda: value_and_grads(lambda a, b: TL.ssl_loss_plain(a, b, ids, tau, clamp),
+                                local, glob), 20)
+    out["ssl_fwd_bwd_ms"], out["ssl_plain_fwd_bwd_ms"] = route_ms, plain_ms
+    return out, errs
 
 
 # -- phases 2 and 3: the slice and the server ------------------------------
@@ -1071,25 +1157,35 @@ def cli_graph_spmm_times(cfg) -> dict:
     return out
 
 
+def k1_gnn_launches(steps: int) -> dict:
+    """K1's launches in ``steps`` LightGCL steps on the card: each kernel
+    twice a step, for the users' and for the positive items' SSL loss."""
+    return {name: 2 * steps for name in K.LAUNCHES}
+
+
 def gnn_slice_phase(root: str) -> dict:
     from recsys_tpu_torch.pipeline import cli
 
     sets = ["--set", f"data.root={root}", "--set", "gnn.epochs=2"]  # --device: the default
     S.reset_launch_counts()  # the GNN path's run starts here
+    K.reset_launch_counts()
     etl = cli.main(["etl", *sets])
     check(etl["sanity"]["target_users"] > 0, f"etl: {etl}")
     train = cli.main(["train-gnn", *sets])
-    launches = dict(S.LAUNCHES)   # read here: the timing below is not the path
-    # every step after the warm-up one graph replay; forward and backward of two
-    # layers a step, four launches a replay; the export and the check propagate once each
+    # read here: the timing below is not the path
+    launches = {**S.LAUNCHES, **K.LAUNCHES}
+    # every step after the warm-up one graph replay; K2: forward and backward of
+    # two layers a step, four launches a replay, the export and the check
+    # propagate once each; K1: each kernel twice a step (the SSL losses)
     check(train["graph_replays"] == train["steps"] - WARMUP_STEPS > 0,
           f"train-gnn: {train['graph_replays']} graph replays in {train['steps']} steps")
-    expected = 4 * (train["graph_replays"] + WARMUP_STEPS) + 2 * 2
+    k1 = k1_gnn_launches(train["steps"])
     check(train["device"].startswith("cuda") and train["steps"] > 0
-          and launches == {"spmm_csr": expected}
-          and train["launches"] == {"spmm_csr": expected - 2 * 2},
-          f"train-gnn on {train['device']}: {train['steps']} steps, K2 launches {launches}, "
-          f"in the trainer {train['launches']}")
+          and train["ssl_route"] == "diag_ce"
+          and launches == {"spmm_csr": 4 * train["steps"] + 2 * 2, **k1}
+          and train["launches"] == {"spmm_csr": 4 * train["steps"], **k1},
+          f"train-gnn on {train['device']}: {train['steps']} steps, SSL route "
+          f"{train['ssl_route']}, launches {launches}, in the trainer {train['launches']}")
     check(train["check"]["ok"], f"propagation check: {train['check']}")
     losses = train["epoch_losses"]
     check(len(losses) == 2 and all(np.isfinite(losses)), f"train-gnn losses: {losses}")
@@ -1190,6 +1286,7 @@ def trainer_phase(root: str, graph, edges_u, edges_i) -> dict:
     check(cfg.gnn.batch_size == REF_BATCH and cfg.gnn.emb_dim == 64
           and cfg.gnn.propagation == "auto", f"not the default GNN config: {cfg.gnn}")
     S.reset_launch_counts()  # the trainer's run starts here
+    K.reset_launch_counts()
     t0 = time.perf_counter()
     # as the train-gnn stage does: one layout for the trainer and the export
     propagation = select_propagation(cfg.gnn, graph, graph.num_nodes, "cuda")
@@ -1201,10 +1298,10 @@ def trainer_phase(root: str, graph, edges_u, edges_i) -> dict:
                                   "cuda", propagation=propagation)
     seconds = time.perf_counter() - t0
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    launches = dict(S.LAUNCHES)
+    launches = {**S.LAUNCHES, **K.LAUNCHES}
     per_step = 2 * cfg.gnn.num_layers  # forward and backward of every layer
     check(state.step == steps and state.graph_replays == steps - WARMUP_STEPS
-          and launches == {"spmm_csr": per_step * (state.graph_replays + WARMUP_STEPS)},
+          and launches == {"spmm_csr": per_step * steps, **k1_gnn_launches(steps)},
           f"trainer: {state.step} steps, {state.graph_replays} replays, launches {launches}")
     check(len(state.losses) == 1 and np.isfinite(state.losses[0]),
           f"trainer loss: {state.losses}")
@@ -1222,7 +1319,7 @@ def trainer_phase(root: str, graph, edges_u, edges_i) -> dict:
            "seconds": seconds, "layout_seconds": layout_s,
            "step_ms_median": statistics.median(step_ms[1:]), "first_step_ms": step_ms[0],
            "graph_replays": state.graph_replays, "peak_device_gib": peak_gib,
-           "final_embeddings_s": export_s, "launches": dict(S.LAUNCHES),
+           "final_embeddings_s": export_s, "launches": {**S.LAUNCHES, **K.LAUNCHES},
            "launches_per_step": per_step}
     del state, model
     out["step"] = gnn_step_phase(cfg, graph, edges_u, edges_i, propagation)
@@ -1260,7 +1357,8 @@ def gnn_step_phase(cfg, graph, edges_u, edges_i, propagation) -> dict:
     """Phase 6's step at batch 8192, eager and captured: from one seeded state
     on the same GRAPH_STEPS batches (losses within GRAPH_LOSS_TOL every step,
     parameters within GRAPH_PARAM_TOL at the end); the step medians in turns
-    with the sampling included; K2 four times a step; a replay under
+    with the sampling included; K2 four times and each K1 kernel twice a
+    step; a replay under
     ``set_sync_debug_mode("error")``; the runner's hub counters at zero; five
     steps of each under ``torch.profiler``."""
     from recsys_tpu_torch.train.gnn import edge_key_index, sample_bpr_positions
@@ -1287,10 +1385,11 @@ def gnn_step_phase(cfg, graph, edges_u, edges_i, propagation) -> dict:
         for step in steps.values():
             step()
     S.reset_launch_counts()
+    K.reset_launch_counts()
     turns = calls_in_turns(steps, torch.device("cuda"))
     n_steps = len(TURNS) * TURN_STEPS
-    check(S.LAUNCHES == {"spmm_csr": 4 * n_steps},
-          f"K2 on the LightGCL step: {S.LAUNCHES} in {n_steps} steps")
+    check(S.LAUNCHES == {"spmm_csr": 4 * n_steps} and K.LAUNCHES == k1_gnn_launches(n_steps),
+          f"K2 and K1 on the LightGCL step: {S.LAUNCHES}, {K.LAUNCHES} in {n_steps} steps")
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -1862,14 +1961,18 @@ def sharded_retrieval_phase(device, root: str, graph, edges_u, edges_i) -> dict:
     out["edge_sharded"] = {"shards": 4, "edges": int(len(graph.src)), "err": prop_err,
                            "ms": sharded_ms, "plain_ms": plain_ms}
 
-    # one trainer step with the sharded propagation (no K2 on this branch)
+    # one trainer step with the sharded propagation (no K2 on this branch; K1 for
+    # the SSL losses, as on every propagation backend)
     cfg = load_config(None, {"gnn": {"epochs": 1, "steps_per_epoch_max": 1,
                                      "propagation": "segment_sum_sharded"}})
     S.reset_launch_counts()
+    K.reset_launch_counts()
     state, _ = train_lightgcl(cfg, graph, edges_u, edges_i, f"{root}/ckpt_gnn_sharded", "cuda",
                               mesh=mesh)
-    check(state.step == 1 and np.isfinite(state.losses[0]) and sum(S.LAUNCHES.values()) == 0,
-          f"sharded trainer step: {state.step} steps, loss {state.losses}, K2 {S.LAUNCHES}")
+    check(state.step == 1 and np.isfinite(state.losses[0]) and sum(S.LAUNCHES.values()) == 0
+          and K.LAUNCHES == k1_gnn_launches(1),
+          f"sharded trainer step: {state.step} steps, loss {state.losses}, K2 {S.LAUNCHES}, "
+          f"K1 {K.LAUNCHES}")
     out["trainer_step"] = {"loss": state.losses[0], "step_ms": 1e3 * state.step_seconds[0]}
     return out
 
@@ -3502,13 +3605,14 @@ def hm_cut_hybrid_phase(root: str, device) -> dict:
                                   if v != before[k]}
     gnn, rows, hyb, rr = (out[k] for k in ("train-gnn", "gnn-eval", "train-hybrid",
                                             "rerank-eval"))
-    # forward and backward of two layers a step; the export and the check propagate once each
+    # K2: forward and backward of two layers a step, the export and the check
+    # propagate once each; K1: the users' and the items' SSL losses a step
     check(gnn["steps"] == HM_CUT_GNN_STEPS and gnn["check"]["ok"]
           and gnn["graph_replays"] == gnn["steps"] - WARMUP_STEPS
-          and gnn["launches"] == {"spmm_csr": 4 * (gnn["graph_replays"] + WARMUP_STEPS)
-                                  + 2 * 2},
+          and gnn["launches"] == {"spmm_csr": 4 * gnn["steps"] + 2 * 2,
+                                  **k1_gnn_launches(gnn["steps"])},
           f"train-gnn: {gnn['steps']} steps, {gnn['graph_replays']} replays, "
-          f"K2 {gnn['launches']}, check {gnn['check']}")
+          f"launches {gnn['launches']}, check {gnn['check']}")
     dst = out["distill"]
     check(dst["graph_replays"] == dst["steps"] - WARMUP_STEPS and not dst["launches"],
           f"distill: {dst['graph_replays']} graph replays in {dst['steps']} steps, "
@@ -3612,21 +3716,6 @@ def hm_cut_hybrid_phase(root: str, device) -> dict:
                                           "dcn_step_ms_median", "seconds", "seconds_split")},
             "serve": {"served_vs_tower_err": served_err, "recommendation_ms": rec_ms},
             "stage_seconds": seconds}
-
-
-def hm_cut_seconds_beside(hm_cut: dict, hm_hybrid: dict, seconds: dict) -> dict:
-    """This run's stage seconds of phases 20 and 21, each beside the same
-    stage's at commit ecad44e (two calls) and the phases' totals beside
-    6e0b891's (HM_CUT_SECONDS_BEFORE)."""
-    def beside(now: dict, before: dict) -> dict:
-        return {k: {"now": now.get(k), "ecad44e": list(v)} for k, v in before.items()}
-    b = HM_CUT_SECONDS_BEFORE
-    return {"phase_20": beside(hm_cut["stage_seconds"], b["phase_20"]),
-            "phase_20_eval": beside(hm_cut["eval"]["seconds"], b["phase_20_eval"]),
-            "phase_21": beside(hm_hybrid["stage_seconds"], b["phase_21"]),
-            "phase_21_rerank": hm_hybrid["rerank"]["seconds_split"],
-            "totals": {k: {"now": seconds[k], "ecad44e": list(v["ecad44e"]),
-                           "6e0b891": v["6e0b891"]} for k, v in b["totals"].items()}}
 
 
 # -- phase 22: the stage-1 A/B of the text encoders at the H&M catalog, users cut --
@@ -3866,8 +3955,6 @@ def main() -> None:
         hm_hybrid = hm_cut_hybrid_phase(root, device)
         print(json.dumps({"phase": "hm_cut_hybrid", **hm_hybrid}), flush=True)
         seconds["phase_21"] = time.perf_counter() - start - sum(seconds.values())
-        print(json.dumps({"phase": "hm_cut_seconds", **hm_cut_seconds_beside(
-            hm_cut, hm_hybrid, seconds)}), flush=True)
         hm_pt = hm_cut_pretrained_phase(root, device)
         print(json.dumps({"phase": "hm_cut_pretrained", **hm_pt}), flush=True)
         seconds["phase_22"] = time.perf_counter() - start - sum(seconds.values())
@@ -3878,9 +3965,11 @@ def main() -> None:
 
     # K1's launches are the main path's: train-item (phase 2), train-user (phase 13),
     # train-item with the pretrained encoder (phase 19), train-item and train-user
-    # at the H&M catalog (phase 20) and train-item there with the pretrained encoder
-    # (phase 22); its times are at the SimCSE shape, stage 2's B = 3072 and 8192
-    # beside them
+    # at the H&M catalog (phase 20), train-item there with the pretrained encoder
+    # (phase 22), and the LightGCL trainer's SSL losses at the real size (phase 6)
+    # and in train-gnn at the H&M catalog (phase 21); the CLI path's train-gnn
+    # (phase 5) goes beside them. Its times are at the SimCSE shape, stage 2's
+    # B = 3072, 8192 and LightGCL's (8192, 64) beside them
     k1_bounds = diag_ce_bounds(MAIN_B, D)
     kernels = [{"name": name, "route": "cuda", "source": SOURCES["diag_ce"],
                 "replaces": REPLACES[name],
@@ -3888,17 +3977,23 @@ def main() -> None:
                              + pretrained["launches"][name]
                              + hm_cut["train_item"]["launches"][name]
                              + hm_cut["train_user"]["launches"][name]
-                             + hm_pt["train_item"]["launches"][name]),
+                             + hm_pt["train_item"]["launches"][name]
+                             + trainer["launches"][name]
+                             + hm_hybrid["train_gnn"]["launches"][name]),
                 "launches_train_item": result["launches"][name],
                 "launches_train_user": user["launches"][name],
                 "launches_train_item_pretrained": pretrained["launches"][name],
                 "launches_hm_cut_train_item": hm_cut["train_item"]["launches"][name],
                 "launches_hm_cut_train_user": hm_cut["train_user"]["launches"][name],
                 "launches_hm_cut_train_item_pretrained": hm_pt["train_item"]["launches"][name],
+                "launches_gnn_trainer": trainer["launches"][name],
+                "launches_hm_cut_train_gnn": hm_hybrid["train_gnn"]["launches"][name],
+                "launches_cli_path_train_gnn": gnn["launches"][name],
                 "max_abs_err": kstats["errs"][name],
                 "ms": kstats["ms"][name][0], "plain_ms": kstats["ms"][name][1],
                 **k1_bounds[name], "library_ms": None,
-                "B3072": kstats["B3072"][name], "B8192": kstats["B8192"][name]}
+                "B3072": kstats["B3072"][name], "B8192": kstats["B8192"][name],
+                "B8192_D64_lightgcl": kstats["B8192_lightgcl"][name]}
                for name in K.LAUNCHES]
     # K2's launches are the trainer's at the real size and train-gnn's at the H&M
     # catalog (phase 21), its times those of the trainer's mode (bf16) at the real

@@ -4,15 +4,22 @@
 // Replaces the TPU kernels recsys_tpu/ops/pallas_contrastive.py:
 // _fwd_kernel (forward) and _bwd_kernel (backward). Per row i:
 //
-//   logit_ij = (q_i . k_j) * inv_temp - corr_j
+//   raw_ij   = (q_i . k_j) * inv_temp - corr_j
+//   logit_ij = min(max(raw_ij, -clamp), clamp)
 //   logit_ij = -3e4  where j != i and (pos_j == pos_i or usr_j == usr_i
 //                                      or valid_j == 0)
 //   lse_i    = logsumexp_j logit_ij,   loss_i = lse_i - logit_ii
 //
 // and the backward, with g_i = dL/dloss_i and P = exp(logit - lse):
 //
-//   dlogit_ij = (P_ij - [i == j]) * g_i * inv_temp   (0 where forbidden)
+//   dlogit_ij = (P_ij - [i == j]) * g_i * inv_temp   (0 where forbidden, and
+//                                                     where raw_ij is clipped)
 //   dq_i = sum_j dlogit_ij k_j,   dk_j = sum_i dlogit_ij q_i
+//
+// The clamp is LightGCL's (+-100 on its SSL logits, as jnp.clip there); the
+// other callers pass none (+inf), and their launches take the instances
+// built without it (CLAMP = false), whose code is that of a kernel without
+// the clamp.
 //
 // What bounds it: operations. A call reads O(B * D) bytes and does
 // O(B^2 * D) multiply-adds, and the (B, B) logits never reach device memory.
@@ -164,6 +171,7 @@ struct Problem {
   int B;
   int D;
   float inv_temp;
+  float clamp;       // +inf: no clamp (the CLAMP = false instances)
 };
 
 // What the three phases write and read, carved out of the caller's workspace.
@@ -182,7 +190,22 @@ struct Plan {
   int B, D, Bp;
   int R, G;             // owner blocks (= streamed tiles), ranges
   float inv_temp;
+  float clamp;
 };
+
+// The logit after the clamp, and whether the clamp cut it (its gradient is 0
+// there, as jnp.clip's); without CLAMP the logit as it is.
+template <bool CLAMP>
+__device__ __forceinline__ float clamped(float raw, float c) {
+  if constexpr (CLAMP) return fminf(fmaxf(raw, -c), c);
+  return raw;
+}
+
+template <bool CLAMP>
+__device__ __forceinline__ bool clipped(float raw, float c) {
+  if constexpr (CLAMP) return !(raw >= -c && raw <= c);
+  return false;
+}
 
 // The tensor cores read the top 19 bits of a tf32 operand (sign, 8 exponent
 // bits, 10 of the mantissa). x = hi + lo with hi = x rounded to those bits
@@ -337,7 +360,7 @@ __device__ __forceinline__ void load_tile(const Plan& p, float* hi, float* lo, f
 }
 
 // Range c of the (owner block, tile) pairs into its partial results.
-template <int MODE, class C>
+template <int MODE, class C, bool CLAMP>
 __device__ void run_range(const Plan& p, int c, float* smem) {
   constexpr int LD = C::LD, NT = C::NT, DP = C::DP, OWN = C::OWN, STR = C::STR,
                 WN = C::WN;
@@ -462,7 +485,8 @@ __device__ void run_range(const Plan& p, int c, float* smem) {
             if (i >= B || j >= B) {
               val = MODE == kFwd ? (j >= B ? -INFINITY : kNeg) : 0.f;
             } else {
-              const float logit = acc[nt][ci] * p.inv_temp - cj.w;
+              const float raw = acc[nt][ci] * p.inv_temp - cj.w;
+              const float logit = clamped<CLAMP>(raw, p.clamp);
               const bool forbid =
                   i != j && (__float_as_int(ri.x) == __float_as_int(cj.x) ||
                              __float_as_int(ri.y) == __float_as_int(cj.y) ||
@@ -472,7 +496,9 @@ __device__ void run_range(const Plan& p, int c, float* smem) {
                 if (i == j) diag[rr] += logit;
               } else {
                 const float prob = __expf(logit - rw.x);
-                val = forbid ? 0.f : (prob - (i == j ? 1.f : 0.f)) * rw.y * p.inv_temp;
+                val = forbid || clipped<CLAMP>(raw, p.clamp)
+                          ? 0.f
+                          : (prob - (i == j ? 1.f : 0.f)) * rw.y * p.inv_temp;
               }
             }
             acc[nt][ci] = val;
@@ -640,7 +666,7 @@ __device__ __forceinline__ void fence_operands(float (&d)[4][4]) {
     for (int j = 0; j < 4; ++j) asm volatile("" : "+f"(d[i][j])::"memory");
 }
 
-template <class C>
+template <class C, bool CLAMP>
 __device__ void run_range_wgmma(const Plan& p, int c, float* smem_raw) {
   constexpr int OWN = C::OWN, STR = C::STR, NT = C::NT, WN = C::WN, DP = C::DP;
   constexpr int kPlane = C::ROWS * DP;  // floats of one swizzled plane
@@ -729,7 +755,8 @@ __device__ void run_range_wgmma(const Plan& p, int c, float* smem_raw) {
             if (i >= B || j >= B) {
               val = j >= B ? -INFINITY : kNeg;
             } else {
-              const float logit = acc[nt][2 * rr + cc] * p.inv_temp - cj.w;
+              const float logit =
+                  clamped<CLAMP>(acc[nt][2 * rr + cc] * p.inv_temp - cj.w, p.clamp);
               const bool forbid =
                   i != j && (__float_as_int(ri.x) == __float_as_int(cj.x) ||
                              __float_as_int(ri.y) == __float_as_int(cj.y) ||
@@ -866,7 +893,7 @@ __device__ void combine_phase(const Plan& p, float* out0, float* out1) {
 
 // -- the kernel: the three phases, a grid-wide barrier between them --------------
 
-template <int MODE, class C>
+template <int MODE, class C, bool CLAMP>
 __global__ void __launch_bounds__(kThreads, 1)
 diag_ce_kernel(Problem pr, Plan p, float* out0, float* out1) {
   extern __shared__ __align__(16) float smem[];
@@ -875,9 +902,9 @@ diag_ce_kernel(Problem pr, Plan p, float* out0, float* out1) {
   grid.sync();
   for (int c = blockIdx.x; c < p.G; c += gridDim.x) {
     if constexpr (C::kWgmma) {
-      run_range_wgmma<C>(p, c, smem);
+      run_range_wgmma<C, CLAMP>(p, c, smem);
     } else {
-      run_range<MODE, C>(p, c, smem);
+      run_range<MODE, C, CLAMP>(p, c, smem);
     }
   }
   grid.sync();
@@ -916,28 +943,29 @@ struct Layout {
   }
 };
 
-// Blocks of diag_ce_kernel<MODE, C> that fit on the device at once: a
+// Blocks of diag_ce_kernel<MODE, C, CLAMP> that fit on the device at once: a
 // cooperative launch needs all of them resident for its grid-wide barriers.
-template <int MODE, class C>
+template <int MODE, class C, bool CLAMP>
 int resident_blocks() {
   static int cached[64] = {0};
   int dev = 0, per_sm = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return 0;
   if (dev < 64 && cached[dev]) return cached[dev];
-  if (cudaFuncSetAttribute(diag_ce_kernel<MODE, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  if (cudaFuncSetAttribute(diag_ce_kernel<MODE, C, CLAMP>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)C::kSmemBytes) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, diag_ce_kernel<MODE, C>, kThreads,
-                                                    C::kSmemBytes) != cudaSuccess)
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, diag_ce_kernel<MODE, C, CLAMP>,
+                                                    kThreads, C::kSmemBytes) != cudaSuccess)
     return 0;
   const int n = per_sm * sm_count();
   if (dev < 64) cached[dev] = n;
   return n;
 }
 
-template <int MODE, class C>
+template <int MODE, class C, bool CLAMP>
 int launch_tile(const Problem& pr, void* workspace, float* out0, float* out1, void* stream) {
   const Layout<MODE, C> L(pr.B);
-  const int resident = resident_blocks<MODE, C>();
+  const int resident = resident_blocks<MODE, C, CLAMP>();
   if (L.G < 1 || resident < 1) return (int)cudaErrorInvalidValue;
   float* ws = static_cast<float*>(workspace);
   Plan p;
@@ -955,6 +983,7 @@ int launch_tile(const Problem& pr, void* workspace, float* out0, float* out1, vo
   p.str_lo = own_k ? p.q_lo : p.k_lo;
   p.B = pr.B; p.D = pr.D; p.Bp = L.Bp; p.R = L.R; p.G = L.G;
   p.inv_temp = pr.inv_temp;
+  p.clamp = pr.clamp;
   Problem prob = pr;
   void* args[] = {&prob, &p, &out0, &out1};
   // a block a range or a combine item, whichever are more, at most as many as
@@ -963,7 +992,7 @@ int launch_tile(const Problem& pr, void* workspace, float* out0, float* out1, vo
   int blocks = L.G > items ? L.G : items;
   if (blocks > resident) blocks = resident;
   cudaError_t err =
-      cudaLaunchCooperativeKernel((const void*)diag_ce_kernel<MODE, C>, dim3(blocks),
+      cudaLaunchCooperativeKernel((const void*)diag_ce_kernel<MODE, C, CLAMP>, dim3(blocks),
                                   dim3(kThreads), args, C::kSmemBytes, (cudaStream_t)stream);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
@@ -977,14 +1006,21 @@ bool small_batch(int B) {
   return r * r < sm_count();
 }
 
+template <int MODE, bool CLAMP>
+int launch_clamp(const Problem& p, void* workspace, float* out0, float* out1, void* stream) {
+  if (p.D > 128) return launch_tile<MODE, Wide, CLAMP>(p, workspace, out0, out1, stream);
+  if (small_batch(p.B))
+    return launch_tile<MODE, Small, CLAMP>(p, workspace, out0, out1, stream);
+  if constexpr (MODE == kFwd)
+    return launch_tile<MODE, WgFwd, CLAMP>(p, workspace, out0, out1, stream);
+  return launch_tile<MODE, Narrow, CLAMP>(p, workspace, out0, out1, stream);
+}
+
 template <int MODE>
 int launch(const Problem& p, void* workspace, float* out0, float* out1, void* stream) {
   if (!valid_shape(p.B, p.D)) return (int)cudaErrorInvalidValue;
-  if (p.D > 128) return launch_tile<MODE, Wide>(p, workspace, out0, out1, stream);
-  if (small_batch(p.B)) return launch_tile<MODE, Small>(p, workspace, out0, out1, stream);
-  if constexpr (MODE == kFwd)
-    return launch_tile<MODE, WgFwd>(p, workspace, out0, out1, stream);
-  return launch_tile<MODE, Narrow>(p, workspace, out0, out1, stream);
+  return p.clamp == INFINITY ? launch_clamp<MODE, false>(p, workspace, out0, out1, stream)
+                             : launch_clamp<MODE, true>(p, workspace, out0, out1, stream);
 }
 
 template <int MODE>
@@ -999,12 +1035,12 @@ size_t workspace_bytes(int B, int D) {
 Problem make_problem(const float* q, const float* k, const float* corr,
                      const int* pos, const int* usr, const int* valid,
                      const float* lse, const float* g, int B, int D,
-                     float inv_temp) {
+                     float inv_temp, float clamp) {
   Problem p;
   p.q = q; p.k = k; p.corr = corr;
   p.pos = pos; p.usr = usr; p.valid = valid;
   p.lse = lse; p.g = g;
-  p.B = B; p.D = D; p.inv_temp = inv_temp;
+  p.B = B; p.D = D; p.inv_temp = inv_temp; p.clamp = clamp;
   return p;
 }
 
@@ -1012,7 +1048,8 @@ Problem make_problem(const float* q, const float* k, const float* corr,
 
 // Plain C interface (loaded with ctypes). Every pointer is device memory;
 // each function launches on `stream` and returns the cudaError_t of the
-// launches (0 = success). Nothing is allocated here: `workspace` holds at
+// launches (0 = success). `clamp` bounds the logits to [-clamp, clamp];
+// +inf for none. Nothing is allocated here: `workspace` holds at
 // least diag_ce_workspace_bytes(B, D, mode) bytes (mode 0 fwd, 1 dq, 2 dk),
 // computed for the current device, 16-byte aligned.
 extern "C" {
@@ -1026,27 +1063,28 @@ size_t diag_ce_workspace_bytes(int B, int D, int mode) {
 
 int diag_ce_fwd(const float* q, const float* k, const float* corr,
                 const int* pos, const int* usr, const int* valid, int B, int D,
-                float inv_temp, void* workspace, float* loss, float* lse, void* stream) {
+                float inv_temp, float clamp, void* workspace, float* loss, float* lse,
+                void* stream) {
   return launch<kFwd>(make_problem(q, k, corr, pos, usr, valid, nullptr,
-                                   nullptr, B, D, inv_temp),
+                                   nullptr, B, D, inv_temp, clamp),
                       workspace, loss, lse, stream);
 }
 
 int diag_ce_bwd_dq(const float* q, const float* k, const float* corr,
                    const int* pos, const int* usr, const int* valid,
                    const float* lse, const float* g, int B, int D,
-                   float inv_temp, void* workspace, float* dq, void* stream) {
+                   float inv_temp, float clamp, void* workspace, float* dq, void* stream) {
   return launch<kDq>(make_problem(q, k, corr, pos, usr, valid, lse, g, B, D,
-                                  inv_temp),
+                                  inv_temp, clamp),
                      workspace, dq, nullptr, stream);
 }
 
 int diag_ce_bwd_dk(const float* q, const float* k, const float* corr,
                    const int* pos, const int* usr, const int* valid,
                    const float* lse, const float* g, int B, int D,
-                   float inv_temp, void* workspace, float* dk, void* stream) {
+                   float inv_temp, float clamp, void* workspace, float* dk, void* stream) {
   return launch<kDk>(make_problem(q, k, corr, pos, usr, valid, lse, g, B, D,
-                                  inv_temp),
+                                  inv_temp, clamp),
                      workspace, dk, nullptr, stream);
 }
 

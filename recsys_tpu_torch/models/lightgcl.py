@@ -10,7 +10,8 @@ Counterpart of ``recsys_tpu/models/lightgcl.py``:
     layer-mean;
   * BPR pairwise loss on the local view; InfoNCE SSL between the local and
     global views of the batch's users/items (logits clamped to +-100,
-    duplicate ids masked off the diagonal and weighted by 1/multiplicity);
+    duplicate ids masked off the diagonal and weighted by 1/multiplicity;
+    on the card the fused contrastive kernel K1, with the clamp inside it);
     L2 regularization on the batch's layer-0 embeddings.
 
 ``MagnitudeEncoder``: MLP 64 -> 128 -> 64 + L2 norm + learnable CLIP-style
@@ -29,6 +30,8 @@ from torch import nn
 
 from recsys_tpu_torch.config import GNNConfig
 from recsys_tpu_torch.models.layers import gelu, l2_normalize, lecun_normal_
+from recsys_tpu_torch.ops import use_kernel
+from recsys_tpu_torch.ops.contrastive_kernel import fused_diag_ce
 from recsys_tpu_torch.ops.graph import propagate, svd_propagate
 
 
@@ -74,10 +77,11 @@ def bpr_loss(local_u, local_i, users, pos, neg) -> torch.Tensor:
     return -F.logsigmoid(diff).mean()
 
 
-def ssl_loss(local, glob, ids, temperature: float, clamp: float = 100.0) -> torch.Tensor:
+def ssl_loss_plain(local, glob, ids, temperature: float, clamp: float = 100.0) -> torch.Tensor:
     """InfoNCE aligning local vs global views of the SAME nodes against the
     other batch nodes. Duplicate batch ids are not negatives of each other
-    and are down-weighted so that each unique node counts once."""
+    and are down-weighted so that each unique node counts once. The plain
+    form: the JAX package's passes over the (B, B) logits."""
     ids = ids.long()
     a = l2_normalize(local[ids])
     b = l2_normalize(glob[ids])
@@ -88,6 +92,49 @@ def ssl_loss(local, glob, ids, temperature: float, clamp: float = 100.0) -> torc
     logp = torch.diagonal(F.log_softmax(logits, dim=-1))
     mult = same.sum(-1).float()
     return -(logp / mult).sum() / (1.0 / mult).sum().clamp(min=1.0)
+
+
+def id_multiplicity(ids: torch.Tensor) -> torch.Tensor:
+    """How often each entry's id occurs in ``ids`` (fp32): ``same.sum(-1)``
+    of the plain form without the (B, B) compare. Two binary searches in the
+    sorted ids; no host sync and no shape that depends on the data, so a
+    CUDA graph captures it."""
+    ids = ids.contiguous()
+    sorted_ids = torch.sort(ids).values
+    return (torch.searchsorted(sorted_ids, ids, right=True)
+            - torch.searchsorted(sorted_ids, ids)).float()
+
+
+def ssl_loss_fused(local, glob, ids, temperature: float, clamp: float = 100.0) -> torch.Tensor:
+    """``ssl_loss_plain`` through the fused contrastive cross entropy (K1):
+    per row ``lse_i - logit_ii`` with q, k the normalized local and global
+    rows, no correction, every column valid and the batch ids as both
+    masking ids (a duplicate is masked off the diagonal), the logits clamped
+    in the kernel; then each row weighted by 1 / multiplicity. On CUDA
+    tensors the kernels launch (or the call raises); on CPU tensors the same
+    autograd function runs their plain math."""
+    ids = ids.long()
+    q = l2_normalize(local[ids])
+    k = l2_normalize(glob[ids])
+    B, dev = ids.shape[0], ids.device
+    ids32 = ids.to(torch.int32)
+    rows = fused_diag_ce(q, k, torch.zeros(B, dtype=torch.float32, device=dev), ids32, ids32,
+                         torch.ones(B, dtype=torch.int32, device=dev), temperature, clamp)
+    w = 1.0 / id_multiplicity(ids)
+    return (rows * w).sum() / w.sum().clamp(min=1.0)
+
+
+def ssl_route(device: torch.device | str) -> str:
+    """Which form ``ssl_loss`` takes on ``device``: "diag_ce" (the kernel,
+    on CUDA tensors) or "plain" (``ops.use_kernel("auto", ...)``)."""
+    return "diag_ce" if use_kernel("auto", device) else "plain"
+
+
+def ssl_loss(local, glob, ids, temperature: float, clamp: float = 100.0) -> torch.Tensor:
+    """LightGCL's SSL InfoNCE: ``ssl_loss_fused`` on CUDA tensors,
+    ``ssl_loss_plain`` on the CPU (``ssl_route``)."""
+    fn = ssl_loss_fused if ssl_route(local.device) == "diag_ce" else ssl_loss_plain
+    return fn(local, glob, ids, temperature, clamp)
 
 
 def reg_loss(model: LightGCL, users, pos, neg) -> torch.Tensor:

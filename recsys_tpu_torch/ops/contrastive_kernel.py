@@ -3,9 +3,13 @@
 Counterpart of ``recsys_tpu/ops/pallas_contrastive.py``. ``fused_diag_ce``
 returns per-row ``-log softmax(logits)_ii`` with
 
-    logits_ij = (q_i . k_j) / tau - corr_j
+    logits_ij = clip((q_i . k_j) / tau - corr_j, -clamp, clamp)
     masked    same item (pos_j == pos_i), same user (usr_j == usr_i) or
               invalid column (valid_j == 0), never on the diagonal
+
+The clamp (default none, ``math.inf``) is LightGCL's SSL logit clamp; its
+gradient is zero where it cuts, as ``jnp.clip``'s. A call without it takes
+the kernels' instances built without the clamp.
 
 On CUDA tensors the forward and both halves of the backward are the
 hand-written kernels in ``csrc/diag_ce.cu`` (sm_90a), built with ``nvcc``
@@ -26,6 +30,7 @@ differentiated by autograd; it is the oracle the kernel is held against.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -49,11 +54,11 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.diag_ce_workspace_bytes.restype = ctypes.c_size_t
     lib.diag_ce_workspace_bytes.argtypes = [i32, i32, i32]
     lib.diag_ce_fwd.restype = i32
-    lib.diag_ce_fwd.argtypes = [ptr] * 6 + [i32, i32, f32, ptr, ptr, ptr, ptr]
+    lib.diag_ce_fwd.argtypes = [ptr] * 6 + [i32, i32, f32, f32, ptr, ptr, ptr, ptr]
     for name in ("diag_ce_bwd_dq", "diag_ce_bwd_dk"):
         fn = getattr(lib, name)
         fn.restype = i32
-        fn.argtypes = [ptr] * 8 + [i32, i32, f32, ptr, ptr, ptr]
+        fn.argtypes = [ptr] * 8 + [i32, i32, f32, f32, ptr, ptr, ptr]
 
 
 LIBRARY = KernelLibrary("diag_ce.cu", _bind)
@@ -146,82 +151,92 @@ def _checked(q, k, corr, pos, usr, valid, *rows) -> tuple[int, int]:
     raise _input_error(q, k, corr, pos, usr, valid)
 
 
-def diag_ce_fwd_cuda(q, k, corr, pos, usr, valid, temperature: float):
+def diag_ce_fwd_cuda(q, k, corr, pos, usr, valid, temperature: float,
+                     clamp: float = math.inf):
     """Kernel forward: (loss, lse), both (B,) fp32."""
     B, D = _checked(q, k, corr, pos, usr, valid)
     return _launch("diag_ce_fwd", q, q.data_ptr(), k.data_ptr(), corr.data_ptr(),
                    pos.data_ptr(), usr.data_ptr(), valid.data_ptr(), B, D,
-                   1.0 / temperature)
+                   1.0 / temperature, clamp)
 
 
-def _diag_ce_bwd_cuda(name, q, k, corr, pos, usr, valid, lse, g, temperature):
+def _diag_ce_bwd_cuda(name, q, k, corr, pos, usr, valid, lse, g, temperature, clamp):
     B, D = _checked(q, k, corr, pos, usr, valid, lse, g)
     return _launch(name, q, q.data_ptr(), k.data_ptr(), corr.data_ptr(), pos.data_ptr(),
                    usr.data_ptr(), valid.data_ptr(), lse.data_ptr(), g.data_ptr(), B, D,
-                   1.0 / temperature)[0]
+                   1.0 / temperature, clamp)[0]
 
 
-def diag_ce_bwd_dq_cuda(q, k, corr, pos, usr, valid, lse, g, temperature: float):
+def diag_ce_bwd_dq_cuda(q, k, corr, pos, usr, valid, lse, g, temperature: float,
+                        clamp: float = math.inf):
     """Kernel backward, query side: dq (B, D) fp32."""
     return _diag_ce_bwd_cuda("diag_ce_bwd_dq", q, k, corr, pos, usr, valid, lse, g,
-                             temperature)
+                             temperature, clamp)
 
 
-def diag_ce_bwd_dk_cuda(q, k, corr, pos, usr, valid, lse, g, temperature: float):
+def diag_ce_bwd_dk_cuda(q, k, corr, pos, usr, valid, lse, g, temperature: float,
+                        clamp: float = math.inf):
     """Kernel backward, key side: dk (B, D) fp32, partial sums merged in a fixed order."""
     return _diag_ce_bwd_cuda("diag_ce_bwd_dk", q, k, corr, pos, usr, valid, lse, g,
-                             temperature)
+                             temperature, clamp)
 
 
 # -- plain PyTorch forms ------------------------------------------------------
 
-def _masked_logits(q, k, corr, pos, usr, valid, temperature):
+def _masked_logits(q, k, corr, pos, usr, valid, temperature, clamp=math.inf):
+    """(masked logits, the entries whose gradient is zero): forbidden
+    entries, and those the clamp cut."""
     logits = q.float() @ k.float().T / temperature - corr.float()[None, :]
     eye = torch.eye(q.shape[0], dtype=torch.bool, device=q.device)
     forbid = ((pos[None, :] == pos[:, None]) | (usr[None, :] == usr[:, None])
               | (valid[None, :] == 0)) & ~eye
-    return torch.where(forbid, torch.full_like(logits, NEG), logits), forbid
+    zero_grad = forbid
+    if clamp != math.inf:
+        zero_grad = forbid | ~((logits >= -clamp) & (logits <= clamp))
+        logits = torch.clamp(logits, -clamp, clamp)
+    return torch.where(forbid, torch.full_like(logits, NEG), logits), zero_grad
 
 
-def fused_diag_ce_reference(q, k, corr, pos, usr, valid, temperature: float):
+def fused_diag_ce_reference(q, k, corr, pos, usr, valid, temperature: float,
+                            clamp: float = math.inf):
     """Plain form of ``fused_diag_ce`` (same signature), for autograd."""
-    logits, _ = _masked_logits(q, k, corr, pos, usr, valid, temperature)
+    logits, _ = _masked_logits(q, k, corr, pos, usr, valid, temperature, clamp)
     return torch.logsumexp(logits, dim=1) - torch.diagonal(logits)
 
 
-def diag_ce_fwd_plain(q, k, corr, pos, usr, valid, temperature):
+def diag_ce_fwd_plain(q, k, corr, pos, usr, valid, temperature, clamp=math.inf):
     """What the forward kernel computes, in plain PyTorch: (loss, lse)."""
-    logits, _ = _masked_logits(q, k, corr, pos, usr, valid, temperature)
+    logits, _ = _masked_logits(q, k, corr, pos, usr, valid, temperature, clamp)
     lse = torch.logsumexp(logits, dim=1)
     return lse - torch.diagonal(logits), lse
 
 
-def _dlogits_plain(q, k, corr, pos, usr, valid, lse, g, temperature):
-    logits, forbid = _masked_logits(q, k, corr, pos, usr, valid, temperature)
+def _dlogits_plain(q, k, corr, pos, usr, valid, lse, g, temperature, clamp):
+    logits, zero_grad = _masked_logits(q, k, corr, pos, usr, valid, temperature, clamp)
     eye = torch.eye(q.shape[0], dtype=q.dtype, device=q.device)
     dlogits = (torch.exp(logits - lse[:, None]) - eye) * (g[:, None] / temperature)
-    return dlogits.masked_fill(forbid, 0.0)
+    return dlogits.masked_fill(zero_grad, 0.0)
 
 
-def diag_ce_bwd_dq_plain(q, k, corr, pos, usr, valid, lse, g, temperature):
+def diag_ce_bwd_dq_plain(q, k, corr, pos, usr, valid, lse, g, temperature, clamp=math.inf):
     """What the dq kernel computes, in plain PyTorch."""
-    return _dlogits_plain(q, k, corr, pos, usr, valid, lse, g, temperature) @ k
+    return _dlogits_plain(q, k, corr, pos, usr, valid, lse, g, temperature, clamp) @ k
 
 
-def diag_ce_bwd_dk_plain(q, k, corr, pos, usr, valid, lse, g, temperature):
+def diag_ce_bwd_dk_plain(q, k, corr, pos, usr, valid, lse, g, temperature, clamp=math.inf):
     """What the dk kernel computes, in plain PyTorch."""
-    return _dlogits_plain(q, k, corr, pos, usr, valid, lse, g, temperature).T @ q
+    return _dlogits_plain(q, k, corr, pos, usr, valid, lse, g, temperature, clamp).T @ q
 
 
 class DiagCE(torch.autograd.Function):
     """Per-row diagonal cross entropy; kernels on CUDA, plain math on CPU."""
 
     @staticmethod
-    def forward(ctx, q, k, corr, pos, usr, valid, temperature):
+    def forward(ctx, q, k, corr, pos, usr, valid, temperature, clamp=math.inf):
         fwd = diag_ce_fwd_cuda if q.is_cuda else diag_ce_fwd_plain
-        loss, lse = fwd(q, k, corr, pos, usr, valid, temperature)
+        loss, lse = fwd(q, k, corr, pos, usr, valid, temperature, clamp)
         ctx.save_for_backward(q, k, corr, pos, usr, valid, lse)
-        ctx.temperature = temperature
+        ctx.temperature, ctx.clamp = temperature, clamp
         return loss
 
     @staticmethod
@@ -232,17 +247,18 @@ class DiagCE(torch.autograd.Function):
             bwd_dq, bwd_dk = diag_ce_bwd_dq_cuda, diag_ce_bwd_dk_cuda
         else:
             bwd_dq, bwd_dk = diag_ce_bwd_dq_plain, diag_ce_bwd_dk_plain
-        args = (q, k, corr, pos, usr, valid, lse, g, ctx.temperature)
-        return bwd_dq(*args), bwd_dk(*args), None, None, None, None, None
+        args = (q, k, corr, pos, usr, valid, lse, g, ctx.temperature, ctx.clamp)
+        return bwd_dq(*args), bwd_dk(*args), None, None, None, None, None, None
 
 
-def fused_diag_ce(q, k, corr, pos_ids, user_ids, valid, temperature: float):
+def fused_diag_ce(q, k, corr, pos_ids, user_ids, valid, temperature: float,
+                  clamp: float = math.inf):
     """(B,) per-row loss; see the module docstring."""
     i32 = torch.int32
     return DiagCE.apply(q.float().contiguous(), k.float().contiguous(),
                         corr.float().contiguous(), pos_ids.to(i32).contiguous(),
                         user_ids.to(i32).contiguous(), valid.to(i32).contiguous(),
-                        float(temperature))
+                        float(temperature), float(clamp))
 
 
 # -- user-facing wrappers -------------------------------------------------------

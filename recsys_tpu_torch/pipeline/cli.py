@@ -434,6 +434,7 @@ def graph_stats(graph) -> dict:
 
 def cmd_train_gnn(cfg: Config, args) -> dict:
     from recsys_tpu_torch.data.etl import time_split
+    from recsys_tpu_torch.models.lightgcl import ssl_route
     from recsys_tpu_torch.ops.graph import build_graph
     from recsys_tpu_torch.ops.spmm import CsrGraph
     from recsys_tpu_torch.train.gnn import (
@@ -469,6 +470,7 @@ def cmd_train_gnn(cfg: Config, args) -> dict:
     return {"check": gnn_propagation_check(model, graph, device, layout),
             "graph": graph_stats(graph), "device": str(device), "steps": state.step,
             "graph_replays": state.graph_replays, "launches": launches,
+            "ssl_route": ssl_route(device),
             "seconds": seconds, "init_seconds": state.init_seconds,
             "epoch_losses": state.losses,
             "step_ms_median": 1e3 * statistics.median(steady) if steady else None}

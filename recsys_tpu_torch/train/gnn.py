@@ -6,12 +6,14 @@ Counterpart of ``recsys_tpu/train/gnn.py``:
     clamped SSL InfoNCE + L2 reg. On a CUDA device the propagation is the
     hand-written CSR sparse product (``ops/spmm.py``) in its "bf16" mode, as
     the JAX trainer's, forward and backward: four launches a step at two
-    layers. There the step (forward, backward, Adam) is one CUDA graph
-    replay (``gnn_runner``), as the JAX step is one jitted program; so is
-    the distillation step;
+    layers; the two SSL losses (users, positive items) are the fused
+    contrastive kernel K1 (``models/lightgcl.ssl_loss``): each of its three
+    kernels twice a step, on one workspace. There the step (forward,
+    backward, Adam) is one CUDA graph replay (``gnn_runner``), as the JAX
+    step is one jitted program; so is the distillation step;
   * vectorized host-side rejection sampling for BPR negatives (the JAX
-    package's numpy code unchanged, so both packages draw the same batches
-    from the same seed);
+    package's draws, so both packages draw the same batches from the same
+    seed; a rejection round probes only the negatives drawn again);
   * model + optimizer + epoch checkpoints, resume, fine-tune with a fresh
     optimizer and cosine decay. Step counting is the JAX trainer's: the
     manifest ``step`` of a checkpoint and the every-100-steps ``train``
@@ -112,8 +114,12 @@ def sample_bpr_positions(graph_u: np.ndarray, graph_i: np.ndarray, num_items: in
     edges than one batch, whose single short batch is all of them.
 
     Negative rejection is a searchsorted probe against the sorted edge-key
-    array — pure numpy, no Python set membership. Pass ``sorted_keys``
-    (from :func:`edge_key_index`) to amortize the sort across epochs."""
+    array — pure numpy, no Python set membership. A rejection round probes
+    only the negatives the round before drew again: the others were found
+    off the edges already, so the draws are those of the JAX package's loop,
+    which probes the whole batch each round (at 11.3M edges that second
+    probe doubled the host's time a batch). Pass ``sorted_keys`` (from
+    :func:`edge_key_index`) to amortize the sort across epochs."""
     if sorted_keys is None:
         sorted_keys = edge_key_index(graph_u, graph_i, num_items)
     order = rng.permutation(len(graph_u))
@@ -124,11 +130,13 @@ def sample_bpr_positions(graph_u: np.ndarray, graph_i: np.ndarray, num_items: in
         idx = order[s:s + batch_size]
         users = graph_u[idx]
         neg = rng.integers(0, num_items, size=len(idx))
+        fresh = np.arange(len(idx))   # positions whose negative is not probed yet
         for _ in range(10):  # vectorized rejection rounds
-            bad = _in_edges(sorted_keys, users, neg, num_items)
-            if not bad.any():
+            bad = fresh[_in_edges(sorted_keys, users[fresh], neg[fresh], num_items)]
+            if not len(bad):
                 break
-            neg[bad] = rng.integers(0, num_items, size=int(bad.sum()))
+            neg[bad] = rng.integers(0, num_items, size=len(bad))
+            fresh = bad
         yield idx, neg
 
 

@@ -33,7 +33,13 @@ is what the Python wrapper costs), on the device, and on the host clock
 without waiting for the device (the wrapper's own cost); and at the shape stage 2
 runs, B = 768 users x 4 positions = 3072 rows with user ids repeated and
 positive ids drawn with popularity skew from a 47,000-item catalog (form
-``stage2``, no valid mask), kernel against plain, fwd+bwd and per kernel.
+``stage2``, no valid mask), kernel against plain, fwd+bwd and per kernel;
+then a sha256 of each kernel's outputs on the inputs of ``chip_smoke.py``'s
+phase 1 (``phase1_output_digests``: two checkouts with the same digests give
+the same bits there), and K1 at LightGCL's SSL shape (B = 8192, D = 64, the
+users' and the positive items' ids of 8192 edges of the reference graph as
+both masking ids, without a clamp and with the config's where the checkout
+takes one), per kernel beside its plain form and its bound.
 K3 is timed at DeepFM's training shape (2048, 20, 16) and at the
 large-candidate scoring shape (131072, 20, 16), each in fp32 and bf16, the
 forward and the backward kernel, and at (131072, 20, 24) fp32, a width the
@@ -300,28 +306,113 @@ def k1(tag: str, quick: bool) -> None:
         if not quick and dim == 128 and B in (192, 768, 8192):
             per_kernel(tag, B, dim, q, k, logq[pos], pos, usr, valid)
     stage2(tag, quick, grads)
+    k1_digests(tag)
+    k1_lightgcl(tag, quick)
 
 
-def per_kernel(tag, B, dim, q, k, corr, pos, usr, valid) -> None:
+# the K1 shapes of chip_smoke.py's phase 1 (B, form, D, positions), drawn there by
+# make_problem
+PHASE1_K1_SHAPES = ((192, "simcse", 128, 1), (200, "logq", 128, 1), (200, "logq", 64, 1),
+                    (200, "logq", 256, 1), (768, "logq", 128, 1), (32, "stage2", 128, 2),
+                    (3072, "stage2", 128, 4), (8192, "logq", 128, 1), (8192, "simcse", 128, 1))
+
+
+def k1_digests(tag: str) -> None:
+    """A sha256 of each K1 kernel's outputs (loss, lse, dq, dk, no clamp) on
+    the inputs of chip_smoke.py's phase 1: two checkouts whose kernels give
+    the same bits there print the same digests."""
+    import hashlib
+
+    import chip_smoke
+    import torch
+
+    from recsys_tpu_torch.ops import contrastive_kernel as K
+
+    digests = {}
+    for B, form, dim, positions in PHASE1_K1_SHAPES:
+        q, k, corr, pos, usr, valid, tau = chip_smoke.make_problem(
+            B, form, seed=B + dim, device="cuda", dim=dim, positions=positions)
+        loss, lse = K.diag_ce_fwd_cuda(q, k, corr, pos, usr, valid, tau)
+        args = (q, k, corr, pos, usr, valid, lse, valid.float() / valid.float().sum(), tau)
+        outs = (loss, lse, K.diag_ce_bwd_dq_cuda(*args), K.diag_ce_bwd_dk_cuda(*args))
+        h = hashlib.sha256()
+        for t in outs:
+            h.update(t.cpu().numpy().tobytes())
+        digests[f"{form}_B{B}_D{dim}"] = h.hexdigest()[:16]
+    emit(tag=tag, kernel="K1", phase1_output_digests=digests)
+
+
+def k1_lightgcl(tag: str, quick: bool) -> None:
+    """K1 at LightGCL's SSL shape, bench.py's batch (B = 8192, D = 64, the
+    config's temperature 0.2): q and k the normalized local and global rows of
+    the batch's ids (each global row its local row plus noise of a per-row
+    scale), the ids as both masking ids; for the users' loss the users of
+    8192 edges of the reference graph, for the items' the positives (a few
+    hot items many times). Each kernel without a clamp and, where the
+    checkout's K1 takes one, with the config's (100), beside its plain form
+    and the bound (operations at 67 TFLOP/s)."""
+    import inspect
+
+    import numpy as np
+    import torch
+
+    from recsys_tpu_torch.models.layers import l2_normalize
+    from recsys_tpu_torch.ops import contrastive_kernel as K
+
+    B, dim, tau = 8192, 64, 0.2
+    src, dst, _, _ = reference_graph()
+    n_users = 200_000   # reference_graph's; its first half of edges runs user -> item
+    rng = np.random.default_rng(5)
+    edges = rng.choice(len(src) // 2, B, replace=False)   # the user -> item half
+    takes_clamp = "clamp" in inspect.signature(K.diag_ce_fwd_cuda).parameters
+    for side, drawn in (("users", src[edges]), ("items", dst[edges] - n_users)):
+        _, ids = np.unique(drawn, return_inverse=True)
+        n = int(ids.max()) + 1
+        local = rng.normal(size=(n, dim)).astype(np.float32)
+        glob = local + rng.uniform(0.2, 3.0, (n, 1)) * rng.normal(size=(n, dim))
+        ids_t = torch.as_tensor(ids, device="cuda")
+        q = l2_normalize(torch.as_tensor(local, device="cuda")[ids_t])
+        k = l2_normalize(torch.as_tensor(glob.astype(np.float32), device="cuda")[ids_t])
+        mult = torch.as_tensor(np.bincount(ids)[ids], dtype=torch.float32, device="cuda")
+        g = (1.0 / mult) / (1.0 / mult).sum()
+        ids32 = ids_t.int()
+        zeros, ones = torch.zeros(B, device="cuda"), torch.ones(B, dtype=torch.int32,
+                                                                device="cuda")
+        ops = 2.0 * B * B * dim
+        bound = {"diag_ce_fwd": 1e3 * ops / 67e12, "diag_ce_bwd_dq": 2e3 * ops / 67e12,
+                 "diag_ce_bwd_dk": 2e3 * ops / 67e12}
+        for clamp in ((), (100.0,)) if takes_clamp else ((),):
+            if quick:
+                continue
+            per_kernel(tag, B, dim, q, k, zeros, ids32, ids32, ones, tau=tau, clamp=clamp, g=g,
+                       shape="lightgcl", side=side, distinct_ids=n,
+                       clamp_value=clamp[0] if clamp else None, bound_ms=bound,
+                       bound_by="operations")
+
+
+def per_kernel(tag, B, dim, q, k, corr, pos, usr, valid, tau=0.1, clamp=(), g=None,
+               **label) -> None:
     """Each K1 kernel in a loop (CUDA events) and on the device, and each
-    plain form in the same loop."""
+    plain form in the same loop. ``clamp``: () for none, or (value,) where
+    the checkout's K1 takes one; ``g`` the upstream gradient (the mean's by
+    default); ``label``: further fields of the row."""
     import torch
 
     from recsys_tpu_torch.ops import contrastive_kernel as K
 
     meta = (corr, pos.int(), usr.int(), valid)
-    _, lse = K.diag_ce_fwd_cuda(q, k, *meta, 0.1)
-    g = valid.float() / valid.float().sum()
-    args = (q, k, *meta, lse, g, 0.1)
+    _, lse = K.diag_ce_fwd_cuda(q, k, *meta, tau, *clamp)
+    g = valid.float() / valid.float().sum() if g is None else g
+    args = (q, k, *meta, lse, g, tau, *clamp)
     iters = 20 if B >= 4096 else 200
-    calls = {"diag_ce_fwd": lambda: K.diag_ce_fwd_cuda(q, k, *meta, 0.1),
+    calls = {"diag_ce_fwd": lambda: K.diag_ce_fwd_cuda(q, k, *meta, tau, *clamp),
              "diag_ce_bwd_dq": lambda: K.diag_ce_bwd_dq_cuda(*args),
              "diag_ce_bwd_dk": lambda: K.diag_ce_bwd_dk_cuda(*args)}
-    plain = {"diag_ce_fwd": lambda: K.diag_ce_fwd_plain(q, k, *meta, 0.1),
+    plain = {"diag_ce_fwd": lambda: K.diag_ce_fwd_plain(q, k, *meta, tau, *clamp),
              "diag_ce_bwd_dq": lambda: K.diag_ce_bwd_dq_plain(*args),
              "diag_ce_bwd_dk": lambda: K.diag_ce_bwd_dk_plain(*args)}
     torch.cuda.synchronize()
-    emit(tag=tag, kernel="K1", B=B, D=dim,
+    emit(tag=tag, kernel="K1", B=B, D=dim, **label,
          per_kernel_ms={name: cuda_ms(fn, iters) for name, fn in calls.items()},
          per_kernel_plain_ms={name: cuda_ms(fn, iters) for name, fn in plain.items()},
          per_kernel_host_us={name: host_us(fn, iters) for name, fn in calls.items()},

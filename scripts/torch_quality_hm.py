@@ -49,7 +49,8 @@ user. Gates: exact (exit 1) for the world, the ETL, the item steps, the
 matrix, the GNN check, the distilled shape, n_eval, the rerank pools' sizes and
 split, the GNN arm, and on the card every step of train-gnn, distill,
 train-hybrid and rerank-eval's DCN arm after the warm-up a graph replay, with
-K2 four times a train-gnn step; bands (``HYBRID_BANDS``, ``"ok": false`` in
+K2 four times and each K1 kernel twice (the users' and the items' SSL
+losses) a train-gnn step; bands (``HYBRID_BANDS``, ``"ok": false`` in
 the summary) for the recalls, the GNN check's delta and the AUCs.
 
 ``--recipe stage1`` runs both arms of the stage-1 A/B (arm A the hash text
@@ -1051,6 +1052,12 @@ def main(argv=None) -> int:
     return 0 if result["exact_ok"] else 1
 
 
+def k1_gnn_launches(steps: int) -> dict:
+    """K1's launches in ``steps`` LightGCL steps on the card: each kernel
+    twice a step, once for the users' SSL loss and once for the items'."""
+    return {name: 2 * steps for name in K.LAUNCHES}
+
+
 def hybrid_replay_rows(got: dict) -> list[dict]:
     """On the card every step after the warm-up is a graph replay: LightGCL,
     distill, the hybrid tower and rerank-eval's DCN arm."""
@@ -1066,13 +1073,17 @@ def compare_cut_hybrid(run_dir: str) -> int:
     """``--compare DIR``: the hybrid recipe's rows of a card run cut before
     its summary (by the call's time limit), from the stage JSONs it wrote to
     DIR, against the committed JAX run; the serve stage's rows need the run
-    itself. K2's row is train-gnn's own count (4 a step; the stage's also
-    holds the export's and the check's). Writes DIR/summary.json; exit 1 if
-    an exact gate misses."""
+    itself. The launch row is train-gnn's own count: K2 4 a step (the
+    stage's also holds the export's and the check's) and, where the run's
+    SSL losses took K1 (``ssl_route`` "diag_ce"), each K1 kernel 2 a step;
+    a run made before they did names no route and launched no K1. Writes
+    DIR/summary.json; exit 1 if an exact gate misses."""
     got = load_reference(run_dir, HYBRID_REFERENCE)
     result = compare_hybrid(got, load_reference(names=HYBRID_REFERENCE))
+    steps = got["gnn"]["steps"]
+    k1 = k1_gnn_launches(steps) if got["gnn"].get("ssl_route") == "diag_ce" else {}
     rows = [exact_row("gnn.launches", got["gnn"]["launches"],
-                      {"spmm_csr": 4 * got["gnn"]["steps"]}), *hybrid_replay_rows(got)]
+                      {"spmm_csr": 4 * steps, **k1}), *hybrid_replay_rows(got)]
     result["comparisons"] += rows
     result["exact_ok"] = result["exact_ok"] and all(r["ok"] for r in rows)
     result["misses"] += [r["name"] for r in rows if not r["ok"]]
@@ -1122,6 +1133,8 @@ def hybrid_recipe(args, stage, stages: dict, got: dict, root: str, world_extra: 
     if args.device.startswith("cuda"):
         rows.append(exact_row("gnn.k2_launches", stages["gnn"]["k2_launches"],
                               {"spmm_csr": 4 * gnn["steps"] + 2 * 2}))
+        rows.append(exact_row("gnn.k1_launches", stages["gnn"]["k1_launches"],
+                              k1_gnn_launches(gnn["steps"])))
         rows += hybrid_replay_rows(got)
     for row in rows:
         result["comparisons"].append(row)
@@ -1137,7 +1150,8 @@ def hybrid_recipe(args, stage, stages: dict, got: dict, root: str, world_extra: 
                        "k1_launches": stages["item"]["k1_launches"]},
         "train_gnn": {"steps": gnn_steps, "graph_replays": gnn["graph_replays"],
                       "step_ms_median": gnn["step_ms_median"], "train_seconds": gnn["seconds"],
-                      "graph": gnn["graph"], "k2_launches": stages["gnn"]["k2_launches"],
+                      "graph": gnn["graph"], "k1_launches": stages["gnn"]["k1_launches"],
+                      "k2_launches": stages["gnn"]["k2_launches"],
                       "k2_launches_per_step": (sum(stages["gnn"]["k2_launches"].values())
                                                / gnn_steps if gnn_steps else None),
                       "peak_device_gib": stages["gnn"].get("peak_device_gib")},

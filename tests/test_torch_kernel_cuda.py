@@ -381,6 +381,128 @@ def test_kernel_widths_and_ragged_batches(device, B, D):
     assert torch.equal(K.diag_ce_fwd_cuda(p["u"], p["i"], *meta, 0.1)[0], loss)
 
 
+def _lightgcl_tables(B, seed, device, dim=64, n_items=47_000):
+    """LightGCL's SSL inputs at a batch of B: (local, glob) tables of the
+    batch's distinct nodes and the ids into them, positive items drawn with
+    popularity skew (a few hot items many times), each global row its local
+    row plus noise of a per-row scale (diagonal logits from near 1 / tau to
+    those of unrelated rows)."""
+    rng = np.random.default_rng(seed)
+    _, ids = np.unique((n_items * rng.random(B) ** 2.5).astype(np.int64), return_inverse=True)
+    n = int(ids.max()) + 1
+    local = rng.normal(size=(n, dim)).astype(np.float32)
+    glob = (local + rng.uniform(0.2, 3.0, (n, 1)) * rng.normal(size=(n, dim))).astype(np.float32)
+    t = lambda a: torch.as_tensor(a, device=device)
+    return t(local), t(glob), t(ids.astype(np.int64))
+
+
+def _ssl_rows(local, glob, ids):
+    """q, k and the metadata (corr, pos, usr, valid) of the SSL loss's K1 call."""
+    from recsys_tpu_torch.models.layers import l2_normalize
+
+    B = ids.shape[0]
+    return (l2_normalize(local[ids]), l2_normalize(glob[ids]),
+            (torch.zeros(B, device=ids.device), ids.int(), ids.int(),
+             torch.ones(B, dtype=torch.int32, device=ids.device)))
+
+
+@pytest.mark.parametrize("B", [8192, 1000], ids=["B8192", "ragged"])
+def test_kernel_with_a_clamp_matches_plain(device, B):
+    """LightGCL's shape (D = 64, duplicate ids as both masking ids, no
+    correction) with a clamp that cuts part of the logits, the diagonal's
+    among them: each kernel against its plain form (the clipped entries'
+    gradient zero), two dq / dk calls the same bits; the SSL loss's route
+    against the plain loss, three launches a call."""
+    from recsys_tpu_torch.models import lightgcl as TL
+
+    tau, clamp = 0.2, 2.0
+    local, glob, ids = _lightgcl_tables(B, B, device)
+    q, k, meta = _ssl_rows(local, glob, ids)
+    cut = (q @ k.T / tau).abs() > clamp
+    assert 0 < float(cut.float().mean()) < 1 and 0 < float(cut.diagonal().float().mean()) < 1
+    loss, lse = K.diag_ce_fwd_cuda(q, k, *meta, tau, clamp)
+    loss_p, lse_p = K.diag_ce_fwd_plain(q, k, *meta, tau, clamp)
+    assert float(torch.maximum((loss - loss_p).abs(), (lse - lse_p).abs()).max()) <= 1e-4
+    w = 1.0 / TL.id_multiplicity(ids)
+    args = (q, k, *meta, lse_p, w / w.sum(), tau, clamp)
+    dq, dk = K.diag_ce_bwd_dq_cuda(*args), K.diag_ce_bwd_dk_cuda(*args)
+    assert float((dq - K.diag_ce_bwd_dq_plain(*args)).abs().max()) <= 1e-5
+    assert float((dk - K.diag_ce_bwd_dk_plain(*args)).abs().max()) <= 1e-5
+    assert torch.equal(K.diag_ce_bwd_dq_cuda(*args), dq)
+    assert torch.equal(K.diag_ce_bwd_dk_cuda(*args), dk)
+    ref = _grads(lambda a, b: TL.ssl_loss_plain(a, b, ids, tau, clamp), local, glob)
+    K.reset_launch_counts()
+    got = _grads(lambda a, b: TL.ssl_loss(a, b, ids, tau, clamp), local, glob)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == {"diag_ce_fwd": 1, "diag_ce_bwd_dq": 1, "diag_ce_bwd_dk": 1}
+    assert abs(float(got[0]) - float(ref[0])) <= 1e-4
+    for g, r in zip(got[1:], ref[1:]):
+        assert float((g - r).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("shape", [(8192, 64), (200, 128), (3072, 128)],
+                         ids=["B8192_D64", "B200_D128", "B3072_D128"])
+def test_kernel_without_a_clamp_is_the_call_without_the_argument(device, shape):
+    """``clamp = inf`` gives the bits of a call that names no clamp, and so
+    does a finite clamp no logit reaches (the instances built with the clamp):
+    forward, dq and dk."""
+    import math
+
+    B, D = shape
+    p = _logq_problem(B, D, B + D, device)
+    meta = (p["logq"][p["pos"]], p["pos"].int(), p["uid"].int(), p["valid"])
+    g = p["valid"].float() / p["valid"].float().sum()
+
+    def calls(*clamp):
+        loss, lse = K.diag_ce_fwd_cuda(p["u"], p["i"], *meta, 0.1, *clamp)
+        args = (p["u"], p["i"], *meta, lse, g, 0.1, *clamp)
+        return loss, lse, K.diag_ce_bwd_dq_cuda(*args), K.diag_ce_bwd_dk_cuda(*args)
+
+    plain = calls()
+    for clamp in (math.inf, 1e30):
+        assert all(torch.equal(a, b) for a, b in zip(calls(clamp), plain)), clamp
+
+
+def test_two_ssl_losses_in_one_captured_graph_equal_two_eager_calls(device):
+    """The LightGCL step's two SSL losses (users, positive items; B = 8192,
+    D = 64, the config's temperature and clamp) and their backward captured
+    into one CUDA graph on a stream whose K1 workspace the warm-up made: both
+    share that workspace, every replay gives the eager calls' losses and
+    gradients bit for bit, and each K1 kernel counts twice a replay."""
+    from recsys_tpu_torch.models import lightgcl as TL
+    from recsys_tpu_torch.ops._build import captured_launches, count_replay
+
+    tables = [_lightgcl_tables(8192, seed, device) for seed in (0, 1)]
+    leaves = [t.clone().requires_grad_(True) for lg in tables for t in lg[:2]]
+
+    def calls():
+        losses = [TL.ssl_loss(leaves[2 * n], leaves[2 * n + 1], tables[n][2], 0.2, 100.0)
+                  for n in range(2)]
+        grads = torch.autograd.grad(losses[0] + losses[1], leaves)
+        return [x.detach() for x in losses] + list(grads)
+
+    eager = calls()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):   # the capture stream's workspace is made before capture
+        calls()
+    torch.cuda.current_stream().wait_stream(side)
+    n_workspaces = len(K._WORKSPACE)
+    graph = torch.cuda.CUDAGraph()
+    K.reset_launch_counts()
+    with captured_launches() as log, torch.cuda.graph(graph, stream=side):
+        captured = calls()
+    assert len(K._WORKSPACE) == n_workspaces and len(log) == 6
+    for replay in range(1, 3):
+        for out in captured:
+            out.zero_()
+        graph.replay()
+        count_replay(log)
+        torch.cuda.synchronize()
+        assert all(torch.equal(c, e) for c, e in zip(captured, eager))
+        assert all(n == 2 * replay for n in K.LAUNCHES.values())
+
+
 def test_kernel_rejects_bad_inputs(device):
     q = torch.randn(8, 4, device=device)
     ids = torch.arange(8, device=device, dtype=torch.int32)
